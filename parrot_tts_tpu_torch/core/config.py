@@ -3,8 +3,9 @@
 (defaults are the reference's full-width model). Training configs, the
 reference-file loaders and the TPU-only fields (`remat*`, `dtype`,
 `fold_tail`) are not copied. The vocoder keeps `f0`, `fused_mrf` and
-`quant`, whose non-default values the port refuses until a later slice
-ports them.
+`quant`; the port serves `fused_mrf=True` and `quant="int8-static"` and
+refuses `f0=True` and the dynamic `quant="int8"` / `"int8-tail"` until a
+later slice ports them.
 """
 
 from __future__ import annotations
@@ -60,8 +61,11 @@ class VocoderModelConfig:
     model_in_dim: int = 256          # code emb + speaker emb concat
     multispkr: str | None = "_"
     num_speakers: int = 10           # reference hardcodes nn.Embedding(10, ...) models.py:130
-    # not ported yet: the generator raises on f0=True, fused_mrf=True or
-    # quant != "none"
+    # fused_mrf=True: the ResBlock1 stages below 128 channels run as one
+    # fused kernel each (ops/fused_mrf.py); quant="int8-static": every conv
+    # between conv_pre and conv_post runs int8 with calibrated static
+    # scales (models/vocoder/generator_staticq.py). Not ported yet: the
+    # generator raises on f0=True and on quant "int8" / "int8-tail".
     f0: bool = False
     fused_mrf: bool = False
     quant: str = "none"

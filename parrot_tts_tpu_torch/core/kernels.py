@@ -4,7 +4,7 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library under `build/kernels/` at the root of the checkout (git ignores
 it), named by a hash of the source so an edited kernel is rebuilt. Nothing
 is built when a module is imported: a wrapper calls `load(name)` at its
-first launch.
+first launch, and `build(*names)` compiles several sources in parallel.
 """
 
 from __future__ import annotations
@@ -38,24 +38,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless it is already built; returns nvcc's
-    output (the ptxas register and shared-memory report), "" when there
-    was nothing to build. Raises on failure."""
-    target = library_path(name)
-    if target.exists():
-        return ""
+def build(*names: str) -> dict[str, str]:
+    """Compile each csrc/<name>.cu that is not built yet, one nvcc per
+    source, all started together. Returns each name's nvcc output (the
+    ptxas register and shared-memory report; "" when there was nothing to
+    build). Raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, target)      # atomic: readers never see a partial file
-    return proc.stdout
+    started = {}
+    for name in dict.fromkeys(names):
+        if library_path(name).exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp)
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp) in started.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {name}:\n{logs[name]}")
+        else:
+            os.replace(tmp, library_path(name))  # atomic: no partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,7 +9,12 @@ concatenates channels.
 
 Activations are (B, T, C) at every function boundary, as in the JAX
 package; the convs are cuDNN's (`ops/conv.py`). Only the plain layout is
-ported: no folded tail, no fused MRF kernel, no int8.
+ported, with no folded tail. `fused_mrf=True` runs each ResBlock1 stage
+below 128 channels as one fused kernel (`ops/fused_mrf.py`) when weight
+norm is folded, on weights packed once by `CodeGenerator.pack_fused_mrf`;
+`quant="int8-static"` is served by
+`generator_staticq.py`. f0 conditioning and the dynamic int8 modes are
+not ported.
 
 Weight norm is kept as plain `weight_g` / `weight_v` parameters under the
 reference's state_dict keys; `fold_params` collapses them into `weight`
@@ -26,10 +31,14 @@ from torch import nn
 from parrot_tts_tpu_torch.core.config import VocoderModelConfig
 from parrot_tts_tpu_torch.core.device import exact_numerics, resolve_device
 from parrot_tts_tpu_torch.ops import conv as conv_ops
+from parrot_tts_tpu_torch.ops import fused_mrf
 from parrot_tts_tpu_torch.ops import init as init_ops
 from parrot_tts_tpu_torch.ops.weight_norm import wn_init, wn_resolve
 
 LRELU_SLOPE = 0.1  # reference models.py:11
+# the JAX package fuses the stages it folds, those below its 128-lane
+# target (generator.py:142, 219-222): 64, 32 and 16 channels at V1
+FUSED_BELOW_CHANNELS = 128
 
 
 class WNConv(nn.Module):
@@ -117,10 +126,10 @@ class CodeGenerator(nn.Module):
 
     def __init__(self, cfg: VocoderModelConfig, *, weight_norm: bool = True):
         super().__init__()
-        if cfg.f0 or cfg.fused_mrf or cfg.quant != "none":
+        if cfg.f0 or cfg.quant not in ("none", "int8-static"):
             raise NotImplementedError(
-                "the port serves the plain float generator only "
-                "(f0=False, fused_mrf=False, quant='none')")
+                "the port does not serve f0 conditioning or the dynamic "
+                "int8 modes yet (f0=False, quant 'none' or 'int8-static')")
         self.cfg = cfg
         wn = weight_norm
         c0 = cfg.upsample_initial_channel
@@ -140,6 +149,21 @@ class CodeGenerator(nn.Module):
         self.dict = nn.Embedding(cfg.num_embeddings, cfg.embedding_dim)
         if cfg.multispkr:
             self.spkr = nn.Embedding(cfg.num_speakers, cfg.embedding_dim)
+        self.mrf_plans: dict = {}
+
+    def pack_fused_mrf(self) -> None:
+        """Pack the weights of every stage the fused route takes, once, for
+        serving: per stage a flat kernel and a bias buffer (moved with the
+        module, left out of its state_dict) and its plan. Call it after the
+        final weights are loaded; weights changed later need a new call."""
+        self.mrf_plans = {}
+        with torch.no_grad():
+            for i in range(len(self.cfg.upsample_rates)):
+                if _fuses(self, i):
+                    w, b, plan = pack_stage(self, i)
+                    self.register_buffer(f"mrf_w{i}", w, persistent=False)
+                    self.register_buffer(f"mrf_b{i}", b, persistent=False)
+                    self.mrf_plans[i] = plan
 
     def forward(self, code: torch.Tensor,
                 spkr: torch.Tensor | None) -> torch.Tensor:
@@ -159,16 +183,58 @@ def apply_generator(model: CodeGenerator, x: torch.Tensor) -> torch.Tensor:
         up = model.ups[i]
         x = conv_ops.conv_transpose1d(x, up.kernel(), up.bias, stride=u,
                                       padding=(k - u) // 2)
-        acc = None
-        for rb in model.resblocks[i * nk:(i + 1) * nk]:
-            y = rb(x)
-            acc = y if acc is None else acc + y
-        x = acc / nk
+        y = _mrf_stage_fused(model, i, x)
+        if y is not None:
+            x = y
+        else:
+            acc = None
+            for rb in model.resblocks[i * nk:(i + 1) * nk]:
+                y = rb(x)
+                acc = y if acc is None else acc + y
+            x = acc / nk
     # final leaky uses torch's DEFAULT slope 0.01 (reference models.py:107)
     x = F.leaky_relu(x, 0.01)
     x = conv_ops.conv1d(x, model.conv_post.kernel(), model.conv_post.bias,
                         padding=3)
     return torch.tanh(x)
+
+
+def _fuses(model: CodeGenerator, i: int) -> bool:
+    """Whether stage i takes the fused route: the stages the JAX package
+    fuses (fused_mrf=True, ResBlock1, fewer than 128 channels) with weight
+    norm folded. The choice depends on the configuration only."""
+    cfg = model.cfg
+    return (cfg.fused_mrf and cfg.resblock == "1"
+            and (cfg.upsample_initial_channel // 2 ** (i + 1)
+                 < FUSED_BELOW_CHANNELS)
+            and not hasattr(model.conv_pre, "weight_v"))
+
+
+def _mrf_stage_fused(model: CodeGenerator, i: int, x: torch.Tensor
+                     ) -> torch.Tensor | None:
+    """Stage i's whole MRF in one kernel (`ops/fused_mrf.py`) on its packed
+    weights; None (the caller runs the composition) where `_fuses` says
+    no."""
+    if not _fuses(model, i):
+        return None
+    if i not in model.mrf_plans:
+        raise RuntimeError("fused_mrf=True: pack the fused stages with "
+                           "model.pack_fused_mrf() once the weights are "
+                           "loaded")
+    return fused_mrf.mrf_fused(x.contiguous(), getattr(model, f"mrf_w{i}"),
+                               getattr(model, f"mrf_b{i}"),
+                               model.mrf_plans[i])
+
+
+def pack_stage(model: CodeGenerator, i: int):
+    """Stage i's ResBlock1 convs as `fused_mrf.pack_mrf` takes them."""
+    nk = len(model.cfg.resblock_kernel_sizes)
+    convs = [[(c1.kernel().permute(2, 1, 0), c1.bias,
+               c2.kernel().permute(2, 1, 0), c2.bias)
+              for c1, c2 in zip(rb.convs1, rb.convs2)]
+             for rb in model.resblocks[i * nk:(i + 1) * nk]]
+    return fused_mrf.pack_mrf(convs, model.cfg.resblock_kernel_sizes,
+                              model.cfg.resblock_dilation_sizes)
 
 
 def upsample_cond(signal: torch.Tensor, max_frames: int) -> torch.Tensor:
@@ -191,15 +257,22 @@ def upsample_cond(signal: torch.Tensor, max_frames: int) -> torch.Tensor:
     return signal.repeat_interleave(rep, dim=-1)
 
 
-def _code_generator(model: CodeGenerator, code: torch.Tensor,
-                    spkr: torch.Tensor | None) -> torch.Tensor:
+def embed(model: CodeGenerator, code: torch.Tensor,
+          spkr: torch.Tensor | None) -> torch.Tensor:
+    """Code embedding, concatenated with the speaker embedding repeated
+    over frames: (B, T) -> (B, T, model_in_dim)."""
     x = model.dict.weight[code]                                # (B, T, E)
     if model.cfg.multispkr:
         if spkr is None:
             raise ValueError("multispeaker model needs spkr ids")
         s = model.spkr.weight[spkr.reshape(spkr.shape[0])]     # (B, E)
         x = torch.cat([x, s[:, None, :].expand_as(x)], dim=-1)
-    return apply_generator(model, x)
+    return x
+
+
+def _code_generator(model: CodeGenerator, code: torch.Tensor,
+                    spkr: torch.Tensor | None) -> torch.Tensor:
+    return apply_generator(model, embed(model, code, spkr))
 
 
 def apply_code_generator(model: CodeGenerator, code, spkr, *,

@@ -82,13 +82,19 @@ def test_seeded_init_loads_and_repeats():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, the lazily loaded ones included, and
+    chip_smoke."""
     code = (
-        "import sys\n"
-        "import parrot_tts_tpu_torch.infer.serving\n"
-        "import parrot_tts_tpu_torch.convert\n"
+        "import importlib, pkgutil, sys\n"
+        "import parrot_tts_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in mods + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "assert len(mods) > 25, mods\n"
+        "assert 'parrot_tts_tpu_torch.models.vocoder.generator_staticq' in mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'parrot_tts_tpu' or m.startswith('parrot_tts_tpu.')]\n"
-        "assert not bad, bad\n"
-        "assert 'parrot_tts_tpu_torch' in sys.modules\n")
+        "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

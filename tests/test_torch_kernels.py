@@ -16,6 +16,7 @@ import torch
 
 from parrot_tts_tpu_torch.core.device import exact_numerics
 from parrot_tts_tpu_torch.ops import flash_attention as fa
+from parrot_tts_tpu_torch.ops import fused_mrf, qconv
 
 
 @pytest.fixture
@@ -99,3 +100,156 @@ def test_kernel_without_mask_and_on_a_side_stream(cuda_device):
     with exact_numerics(True):
         want = fa.flash_attention_reference(q, k, v, None, 0.1)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+# ---- row 7: the int8 conv (ops/qconv.py, csrc/int8_conv.cu) -----------------
+
+
+def _qconv_inputs(rng, b, t, ci, co, k, device="cpu", bias=True):
+    def tens(a):
+        return torch.from_numpy(a).to(device)
+    return (tens(rng.integers(-127, 128, size=(b, t, ci)).astype(np.int8)),
+            tens(rng.integers(-127, 128, size=(k, co, ci)).astype(np.int8)),
+            tens((rng.random((b, co)) * 1e-4 + 1e-6).astype(np.float32)),
+            tens(rng.standard_normal(co).astype(np.float32)) if bias else None)
+
+
+@pytest.mark.parametrize("bad", ["x_dtype", "w_dtype", "fit", "scale",
+                                 "scale_layout", "bias", "layout", "pads",
+                                 "empty"])
+def test_int8_conv_rejects_what_the_kernel_does_not_take(rng, bad):
+    xq, wq, scale, bias = _qconv_inputs(rng, 2, 16, 8, 4, 3)
+    pads, dil = (1, 1), 1
+    if bad == "x_dtype":
+        xq = xq.to(torch.int32)
+    elif bad == "w_dtype":
+        wq = wq.float()
+    elif bad == "fit":
+        wq = wq[:, :, :4].contiguous()
+    elif bad == "scale":
+        scale = scale[0]
+    elif bad == "scale_layout":
+        scale = scale.t().contiguous().t()
+    elif bad == "bias":
+        bias = bias.double()
+    elif bad == "layout":
+        xq = xq.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "pads":
+        pads = (-1, 1)
+    else:
+        pads, dil = (0, 0), 9
+    with pytest.raises((TypeError, ValueError)):
+        qconv._check(xq, wq, scale, bias, pads, dil)
+
+
+@pytest.mark.parametrize("leaky", [None, 0.1])
+def test_int8_conv_cpu_tensors_take_the_plain_version(rng, leaky):
+    xq, wq, scale, bias = _qconv_inputs(rng, 2, 20, 12, 8, 5)
+    before = qconv.INT8_CONV.launches
+    got = qconv.int8_conv(xq, wq, scale, bias, pads=(4, 4), dilation=2,
+                          leaky=leaky)
+    want = qconv.int8_conv_reference(xq, wq, scale, bias, pads=(4, 4),
+                                     dilation=2, leaky=leaky)
+    assert got.shape == (2, 20, 8) and torch.equal(got, want)
+    assert qconv.INT8_CONV.launches == before
+
+
+def test_int8_conv_takes_a_broadcast_scale(rng):
+    """A per-channel (Co,) scale expanded over the batch (stride 0) passes
+    the checks and gives what the materialized (B, Co) scale gives."""
+    xq, wq, scale, bias = _qconv_inputs(rng, 3, 20, 12, 8, 3)
+    sw = scale[0]
+    qconv._check(xq, wq, sw.expand(3, -1), bias, (1, 1), 1)
+    got = qconv.int8_conv(xq, wq, sw.expand(3, -1), bias, pads=(1, 1))
+    want = qconv.int8_conv(xq, wq, sw.expand(3, -1).contiguous(), bias,
+                           pads=(1, 1))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("b,t,ci,co,k,dil,pads,leaky,bias", [
+    (2, 1000, 64, 64, 11, 5, (25, 25), 0.1, True),   # a V1 stage-3 MRF conv
+    (3, 777, 16, 16, 7, 3, (9, 9), None, True),      # narrow, ragged T
+    (1, 130, 512, 1280, 3, 1, (1, 1), None, True),   # stage-1 polyphase upsample
+    (2, 50, 24, 40, 4, 2, (3, 0), 0.1, False),       # Ci, Co off the tiles
+    (1, 1, 8, 8, 1, 1, (0, 0), None, True),
+])
+def test_int8_conv_bit_identical_to_plain_on_card(cuda_device, b, t, ci, co,
+                                                  k, dil, pads, leaky, bias,
+                                                  broadcast):
+    rng = np.random.default_rng(t)
+    xq, wq, scale, bvec = _qconv_inputs(rng, b, t, ci, co, k, cuda_device,
+                                        bias)
+    if broadcast:                  # the serving path's per-channel scale
+        scale = scale[0].expand(b, -1)
+    before = qconv.INT8_CONV.launches
+    got = qconv.int8_conv(xq, wq, scale, bvec, pads=pads, dilation=dil,
+                          leaky=leaky)
+    torch.cuda.synchronize()
+    assert qconv.INT8_CONV.launches == before + 1
+    want = qconv.int8_conv_reference(xq, wq, scale, bvec, pads=pads,
+                                     dilation=dil, leaky=leaky)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+# ---- row 6: the fused MRF stage (ops/fused_mrf.py, csrc/fused_mrf.cu) -------
+
+KS = (3, 7, 11)
+DS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+
+
+def _mrf_inputs(rng, b, t, c, device="cpu"):
+    def tens(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(device)
+    convs = [[(tens(k, c, c, scale=(c * k) ** -0.5), tens(c, scale=0.1),
+               tens(k, c, c, scale=(c * k) ** -0.5), tens(c, scale=0.1))
+              for _ in ds] for k, ds in zip(KS, DS)]
+    w, bias, plan = fused_mrf.pack_mrf(convs, KS, DS)
+    return tens(b, t, c), w, bias, plan
+
+
+@pytest.mark.parametrize("bad", ["dtype", "channels", "shape", "layout",
+                                 "weights"])
+def test_fused_mrf_rejects_what_the_kernel_does_not_take(rng, bad):
+    x, w, b, plan = _mrf_inputs(rng, 2, 40, 16)
+    if bad == "dtype":
+        x = x.double()
+    elif bad == "channels":
+        x, w, b, plan = _mrf_inputs(rng, 2, 40, 12)
+    elif bad == "shape":
+        x = x[:, :, :8].contiguous()
+    elif bad == "layout":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    else:
+        w = w[:-1].contiguous()
+    with pytest.raises((TypeError, ValueError)):
+        fused_mrf._check(x, w, b, plan)
+
+
+def test_fused_mrf_cpu_tensors_take_the_plain_version(rng):
+    x, w, b, plan = _mrf_inputs(rng, 2, 50, 8)
+    before = fused_mrf.FUSED_MRF.launches
+    got = fused_mrf.mrf_fused(x, w, b, plan)
+    assert torch.equal(got, fused_mrf.mrf_fused_reference(x, w, b, plan))
+    assert fused_mrf.FUSED_MRF.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c", [(2, 5120, 64), (3, 1013, 32),
+                                   (1, 20480, 16), (2, 7, 16), (1, 300, 8)])
+def test_fused_mrf_matches_plain_on_card(cuda_device, b, t, c):
+    rng = np.random.default_rng(t)
+    x, w, bias, plan = _mrf_inputs(rng, b, t, c, cuda_device)
+    if b > 1:
+        x[1, t // 2:] = 0.0          # a shorter row, zero past its length
+    before = fused_mrf.FUSED_MRF.launches
+    got = fused_mrf.mrf_fused(x, w, bias, plan)
+    torch.cuda.synchronize()
+    assert fused_mrf.FUSED_MRF.launches == before + 1
+    with exact_numerics(True):
+        want = fused_mrf.mrf_fused_reference(x, w, bias, plan)
+    # IEEE float32 both; only the order of the sums differs
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err

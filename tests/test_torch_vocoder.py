@@ -84,6 +84,6 @@ def test_peak_normalize_matches_jax(rng, kind):
 
 
 def test_unported_generator_options_raise():
-    for kw in ({"fused_mrf": True}, {"quant": "int8-static"}, {"f0": True}):
+    for kw in ({"f0": True}, {"quant": "int8"}, {"quant": "int8-tail"}):
         with pytest.raises(NotImplementedError):
             gen.CodeGenerator(VocoderModelConfig(**SMALL, **kw))
