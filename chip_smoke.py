@@ -7,8 +7,8 @@ check it. Run from the root of the checkout:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch / CUDA versions, TF32 flags;
-2. build: the three kernels from csrc/ with nvcc (sm_90a), one nvcc per
-   source in parallel, with each one's ptxas register and spill report;
+2. build: the four kernel sources in csrc/ with nvcc (sm_90a), one nvcc
+   per source in parallel, with each one's ptxas register and spill report;
 3. flash attention against plain: the flash-attention forward against its
    plain PyTorch version, H=2, d_head=128, at B=8 and T up to 3584 (with
    key padding, one all-masked row and a ragged T), at every (B, T) the
@@ -41,7 +41,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches per vocoder batch, each at a shape phase 6 checked, SNR >= 15
    dB against phase 4's waveforms over all requests and for each one;
 9. profile: one more float serve and one more int8-static serve under
-   torch.profiler (device time by kernel, the device's busy and idle share).
+   torch.profiler (device time by kernel, the device's busy and idle share);
+10. flash attention with dropout against plain: the forward, dQ (with the
+   D = rowsum(dO . O) it writes) and dK/dV kernels (rows 2-4) at B=6, H=2, d_head 128 and every T the training
+   phase gives them (128, 256, 512, 1024, 2048, 3584), a ragged T and a
+   d_head 64 case, each with a row whose keys are all padded, at p = 0 and
+   0.1 on the same mask (max |diff| <= 2^-8 of max |plain|, rms <= 1e-4 of
+   rms); the keep-mask kernel (row 5) bit-identical to its plain Philox and
+   its keep rate within 5 sigma of 0.9; kernel, plain, bound and
+   scaled_dot_product_attention ms;
+11. training at full width: TTEModelConfig(n_speaker=4) and TTETrainConfig
+   defaults (warmup 0, so the first update moves the weights) through
+   pipeline/train_tte.run for 2 optimizer steps (8 micro-batches, bucket
+   pairs (128, 1024) and (256, 3584)) on a seeded synthetic corpus: finite
+   losses, weights changed at micro-steps 4 and 8 only, 8 launches of each
+   of rows 2-4 per micro-step at shapes phase 10 checked, evaluation
+   attention (row 1) at shapes phase 3 checked, the checkpoint equal to the
+   live state bit for bit and a resumed run carrying on from micro-step 8;
+   then one (256, 3584) micro-batch at dropout 0 with the kernels against
+   plain attention (loss within 1e-5, |dg|/|g| <= 1e-3, each tensor's
+   max |dg| <= 1e-2 of its max |g|);
+12. profile: one training micro-step at (256, 3584) under torch.profiler,
+   and micro-steps per second over one optimizer step (a reading).
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -73,14 +94,37 @@ FUSED_SERVE_ATOL = 1e-5      # fused serve against the float serve
 SNR_MIN_DB = 15.0            # int8-static serve against the float serve: the
                              # JAX package's envelope for random weights
 INT8_SITES = 95              # int8 convs per V1 vocoder batch
+BF16_PEAK = 989e12           # H100 SXM bf16 dense tensor-core FLOP/s (data sheet)
+# flash attention with dropout (rows 2-4) against plain on the same mask:
+# both round every product operand to bf16 at the same points and sum in
+# float32 in another order, so a few operands land on the other bf16
+# neighbour: max |diff| <= FD_MAX * max|plain|, rms diff <= FD_RMS *
+# rms(plain), each floored at 1 (tests/test_torch_kernels.py states why)
+FD_MAX, FD_RMS = 2.0**-8, 1e-4
+FD_P = 0.1                   # the TTE's attention dropout
+# (B, T, d_head) of phase 10, H=2: every (B, T) the training phase gives
+# rows 2-4 (batch 6; encoder buckets 128/256, decoder 512-3584), a ragged
+# T, a narrower head; every shape has a row whose keys are all padded
+FD_SHAPES = ([(6, t, 128) for t in (128, 256, 512, 1024, 2048, 3584)]
+             + [(6, 777, 128), (6, 512, 64)])
+TRAIN_PAIRS = ((128, 1024), (256, 3584))   # phase 11's bucket pairs
+# phase 11's training: the loss and gradients of one (256, 3584) micro-batch
+# at dropout 0 with the kernels against plain attention, both IEEE float32
+# elsewhere: the attention outputs differ by sparse bf16 re-roundings (rms
+# 1e-4 of rms, phase 10) that the network carries through linearly
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3       # |dg| / |g| over all parameters
+TRAIN_GRAD_MAX = 1e-2        # max |dg| <= this * max |g|, per tensor
 # (B, T, d_head) checked against the plain version: B=8 across T (a ragged
 # T among them), then the (B, T) of every attention call of the serving
 # phase (its decode plan: encoder buckets 64/128/256, decoder 1024/2048/
-# 3584, with 3, 5 and 1 requests), then a narrower head
+# 3584, with 3, 5 and 1 requests), then those of the training phase's
+# evaluation (batch 6 at its bucket pairs), then a narrower head
 KERNEL_SHAPES = ([(8, t, 128) for t in (64, 128, 500, 768, 2048, 3584)]
                  + [(b, t, 128) for b, ts in ((3, (64, 1024)),
                                               (5, (128, 2048)),
                                               (1, (256, 3584))) for t in ts]
+                 + [(6, t, 128) for pair in TRAIN_PAIRS for t in pair]
                  + [(8, 768, 64)])
 REPORT_SHAPE = (5, 2048, 128)  # whose times go in the kernels line: the
                                # serving phase's largest decode batch
@@ -168,11 +212,13 @@ def phase_card() -> str:
 
 def phase_build(kernels) -> None:
     t0 = time.perf_counter()
-    logs = kernels.build("flash_attn_fwd", "fused_mrf", "int8_conv")
-    print(f"build (3 nvcc in parallel): {time.perf_counter() - t0:.2f} s")
+    logs = kernels.build("flash_attn_fwd", "fused_mrf", "int8_conv",
+                         "flash_dropout")
+    print(f"build (4 nvcc in parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  {name}: {line.strip()}")
 
 
@@ -690,15 +736,437 @@ def phase_profile(serve, label: str) -> None:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
 
 
+def fd_compare(got, want, what: str) -> tuple[float, float]:
+    """Hold a flash-dropout kernel's output to its plain version (FD_MAX,
+    FD_RMS); returns the max |diff| and the rms diff over its floored
+    rms(plain)."""
+    diff = (got - want).abs()
+    err = float(diff.max())
+    lim = FD_MAX * max(1.0, float(want.abs().max()))
+    rms = float(diff.pow(2).mean().sqrt())
+    rms_ref = max(1.0, float(want.pow(2).mean().sqrt()))
+    if not (err <= lim and rms <= FD_RMS * rms_ref):
+        raise AssertionError(f"{what}: max |diff| {err:.3e} (limit {lim:.3e})"
+                             f", rms {rms:.3e} (limit {FD_RMS * rms_ref:.3e})")
+    return err, rms / rms_ref
+
+
+def fd_bounds(b: int, h: int, t: int, d: int) -> dict:
+    """(bound ms, bound_by) of each row at one launch: the products' bf16
+    operations (4, 6, 8 * B*H*T^2*d; D's 2*B*H*T*d float32 ones in dQ are
+    below 1e-3 of them and not counted) and each input read once, each
+    output written once (float32: fwd q, k, v -> o; dQ q, k, v, dO, O -> dQ;
+    dK/dV q, k, v, dO -> dK, dV; besides, bias (B, T), lse (B, H, T) and
+    D (B, H, T), which dQ writes and dK/dV reads); the keep mask writes
+    B*H*T^2 int32 (its Philox work is integer, not tensor-core)."""
+    x, side, row = 4.0 * b * h * t * d, 4.0 * (b * t + b * h * t), 4.0 * b * h * t
+    base = 2.0 * b * h * t * t * d
+    return {"fwd": bound(2 * base, BF16_PEAK, 4 * x + side),
+            "dq": bound(3 * base, BF16_PEAK, 6 * x + side + row),
+            "dkv": bound(4 * base, BF16_PEAK, 6 * x + side + row),
+            "keep_mask": bound(0.0, BF16_PEAK, 4.0 * b * h * t * t)}
+
+
+def phase_flash_dropout(fd) -> dict:
+    """Rows 2-5 against their plain versions at every FD_SHAPES shape, at
+    p = 0 and p = FD_P, on the same mask; then each one's time, its plain
+    version's, its bound and scaled_dot_product_attention's."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 3)
+    dev = torch.device("cuda")
+    rows = []
+    for b, t, d in FD_SHAPES:
+        h = 2
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, t, d))
+                                        .astype(np.float32)).to(dev)
+                       for _ in range(4))
+        lengths = rng.integers(1, t + 1, size=b)
+        lengths[0] = t
+        pad_np = np.arange(t)[None, :] >= lengths[:, None]
+        pad_np[b - 1] = True                   # a row with no valid key
+        pad = torch.from_numpy(pad_np).to(dev)
+        bias = fd.padding_bias(pad, b, t, dev)
+        scale = 1.0 / math.sqrt(d)
+        err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+        rms = dict(err)
+        for p in (0.0, FD_P):
+            seed = SEED + 7 * t + int(100 * p)
+            o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, p, scale)
+            want_o, want_lse = fd.flash_attention_dropout_reference(
+                q, k, v, bias, seed, p, scale)
+            # both backward versions on the plain forward's O and lse, and
+            # both dK/dV on the plain D
+            qkv, rest = (q, k, v, bias, seed), (want_lse, do, p, scale)
+            dq, delta = fd.flash_dropout_dq(*qkv, want_o, *rest)
+            want_dq, want_delta = fd.flash_dropout_dq_reference(
+                *qkv, want_o, *rest)
+            dk, dv = fd.flash_dropout_dkv(*qkv, want_delta, *rest)
+            torch.cuda.synchronize()
+            tag = f"B={b} T={t} d={d} p={p}"
+            torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
+            want_dk, want_dv = fd.flash_dropout_dkv_reference(
+                *qkv, want_delta, *rest)
+            for name, pairs in (
+                    ("fwd", ((o, want_o, "O"),)),
+                    ("dq", ((dq, want_dq, "dQ"), (delta, want_delta, "D"))),
+                    ("dkv", ((dk, want_dk, "dK"), (dv, want_dv, "dV")))):
+                for got, want, what in pairs:
+                    e, r = fd_compare(got, want, f"{what} {tag}")
+                    err[name], rms[name] = max(err[name], e), max(rms[name], r)
+            del (o, lse, want_o, want_lse, dq, delta, want_dq, want_delta, dk,
+                 dv, want_dk, want_dv)
+        seed = SEED + 7 * t + int(100 * FD_P)
+        mask = fd.keep_mask(b, h, t, seed, FD_P, dev)
+        torch.cuda.synchronize()
+        if not torch.equal(mask, fd.keep_mask_reference(b, h, t, seed, FD_P,
+                                                        dev)):
+            raise AssertionError(f"keep mask B={b} T={t}: not bit-identical")
+        rate = float(mask.double().mean())
+        sigma = math.sqrt(FD_P * (1 - FD_P) / mask.numel())
+        if not abs(rate - (1 - FD_P)) <= 5 * sigma:
+            raise AssertionError(f"keep rate {rate} not within 5 sigma of "
+                                 f"{1 - FD_P}")
+        del mask
+
+        # times at the training setting, p = FD_P
+        o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, FD_P, scale)
+        qkv, rest = (q, k, v, bias, seed), (lse, do, FD_P, scale)
+        _, delta = fd.flash_dropout_dq(*qkv, o, *rest)
+        reps = max(3, min(50, int(3e5 / t)))
+        plain_reps = max(2, reps // 10)
+        kern = {"fwd": lambda: fd.flash_dropout_fwd(q, k, v, bias, seed,
+                                                    FD_P, scale),
+                "dq": lambda: fd.flash_dropout_dq(*qkv, o, *rest),
+                "dkv": lambda: fd.flash_dropout_dkv(*qkv, delta, *rest),
+                "keep_mask": lambda: fd.keep_mask(b, h, t, seed, FD_P, dev)}
+        plain = {"fwd": lambda: fd.flash_attention_dropout_reference(
+                     q, k, v, bias, seed, FD_P, scale),
+                 "dq": lambda: fd.flash_dropout_dq_reference(*qkv, o, *rest),
+                 "dkv": lambda: fd.flash_dropout_dkv_reference(
+                     *qkv, delta, *rest),
+                 "keep_mask": lambda: fd.keep_mask_reference(
+                     b, h, t, seed, FD_P, dev)}
+        row = {"B": b, "H": h, "T": t, "d": d, "err": err}
+        for name in kern:
+            row[name] = {"ms": cuda_ms(kern[name], reps),
+                         "plain_ms": cuda_ms(plain[name], plain_reps,
+                                             warmup=1)}
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        attend = ~pad[:, None, None, :]
+        row["fwd"]["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                qb, kb, vb, attn_mask=attend, dropout_p=FD_P, scale=scale),
+            reps)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qb, kb, vb))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attend,
+                                             dropout_p=FD_P, scale=scale)
+        dob = do.to(torch.bfloat16)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), dob, retain_graph=True), reps)
+        row["dq"]["library_ms"] = row["dkv"]["library_ms"] = bwd_ms
+        row["keep_mask"]["library_ms"] = None
+        for name, (bms, by) in fd_bounds(b, h, t, d).items():
+            row[name].update(bound_ms=bms, bound_by=by)
+        rows.append(row)
+        print(f"flash dropout B={b} T={t:5d} d={d:3d}: max|diff| O "
+              f"{err['fwd']:.3e} dQ/D {err['dq']:.3e} dK/dV {err['dkv']:.3e}"
+              f"; rms diff / rms O {rms['fwd']:.2e} dQ/D {rms['dq']:.2e} "
+              f"dK/dV {rms['dkv']:.2e}; mask bit-identical, keep rate "
+              f"{rate:.5f}")
+        for name in kern:
+            r = row[name]
+            lib = ("" if r["library_ms"] is None else
+                   f"  sdpa {'fwd' if name == 'fwd' else 'bwd'} "
+                   f"{r['library_ms']:.4f} ms")
+            print(f"  {name:9s} kernel {r['ms']:.4f} ms  plain "
+                  f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}){lib}")
+        del q, k, v, do, o, lse, delta, qb, kb, vb, qg, kg, vg, out, dob
+    # per micro-step at the largest bucket pair: 4 encoder launches at
+    # T=256 and 4 decoder launches at T=3584
+    step = [r for r in rows if (r["T"], r["d"]) in ((256, 128), (3584, 128))]
+    report = {}
+    for name in ("fwd", "dq", "dkv", "keep_mask"):
+        report[name] = {key: (None if step[0][name][key] is None
+                              else 4 * sum(r[name][key] for r in step))
+                        for key in ("ms", "plain_ms", "bound_ms",
+                                    "library_ms")}
+        report[name]["bound_by"] = max(step, key=lambda r: r[name][
+            "bound_ms"])[name]["bound_by"]
+        print(f"{name} per (256, 3584) micro-step (8 launches): kernel "
+              f"{report[name]['ms']:.4f} ms  plain "
+              f"{report[name]['plain_ms']:.4f} ms  bound "
+              f"{report[name]['bound_ms']:.4f} ms")
+    print(f"keep-mask kernel: {fd.KEEP_MASK.launches} launches in this "
+          "phase, its oracle role (training never launches it)")
+    return {"report": report,
+            "max_abs_err": {n: max(r["err"][n] for r in rows)
+                            for n in ("fwd", "dq", "dkv")},
+            "checked": {(r["B"], r["T"], r["d"]) for r in rows}}
+
+
+def write_train_corpus(root, n_speaker: int, ranges: dict, per_pair: dict,
+                       seed: int):
+    """A seeded TTE corpus in the format `data/tte_data.py::TTEDataset`
+    reads: <root>/tte/{train,val}.txt manifests, speakers.json, and the
+    aligner's symbols under <root>/aligner. ranges: bucket pair ->
+    ((min, max) tokens, (min, max) codes); each pair gets per_pair[split]
+    utterances (durations >= 1 summing to the code count)."""
+    from pathlib import Path
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    symbols = list("abcdefghijklmnopqrstuvwxyz")
+    (root / "aligner").mkdir(parents=True)
+    (root / "aligner" / "symbols.json").write_text(json.dumps(symbols))
+    (root / "tte").mkdir()
+    speakers = {f"spk{i}": i for i in range(n_speaker)}
+    (root / "tte" / "speakers.json").write_text(json.dumps(speakers))
+    for split, count in per_pair.items():
+        lines = []
+        for (s_lo, s_hi), (t_lo, t_hi) in ranges.values():
+            for i in range(count):
+                n_tok = int(rng.integers(s_lo, s_hi + 1))
+                n_code = int(rng.integers(max(t_lo, n_tok), t_hi + 1))
+                durs = rng.multinomial(n_code - n_tok,
+                                       np.full(n_tok, 1.0 / n_tok)) + 1
+                spk = f"spk{i % n_speaker}"
+                lines.append(str({
+                    "audio": f"/corpus/{spk}_{split}_{len(lines):04d}.wav",
+                    "hubert": " ".join(map(str, rng.integers(0, 1000,
+                                                             n_code))),
+                    "duration": " ".join(map(str, durs)),
+                    "speaker": spk,
+                    "characters": " ".join(rng.choice(symbols, n_tok)),
+                }))
+        (root / "tte" / f"{split}.txt").write_text("\n".join(lines) + "\n")
+    return root / "tte", root / "aligner"
+
+
+def bucket_ranges(pairs, train_cfg, max_len: int) -> dict:
+    """(src, tgt) pair -> ((min, max) tokens, (min, max) codes) of the
+    utterances the loader puts in that pair (codes capped at max_len)."""
+    def lower(buckets, x):
+        return max((b for b in buckets if b < x), default=x // 2) + 1
+
+    return {(s, t): ((lower(train_cfg.src_buckets, s), s),
+                     (lower(train_cfg.tgt_buckets, t), min(t, max_len)))
+            for s, t in pairs}
+
+
+def phase_train(fd, fa, tcfg, train_cfg, pairs, checked: set,
+                checked_eval: set, device=None) -> dict:
+    """TTE training through pipeline/train_tte.run: 2 optimizer steps (8
+    micro-batches, 4 per bucket pair) from a seeded corpus, then the
+    checks; a resumed run; and the kernels' loss and gradients against
+    plain attention at one (256, 3584) micro-batch at dropout 0."""
+    import tempfile
+
+    from parrot_tts_tpu_torch.core.checkpoint import CheckpointManager
+    from parrot_tts_tpu_torch.core.config import PipelineConfig
+    from parrot_tts_tpu_torch.core.device import exact_numerics
+    from parrot_tts_tpu_torch.data.tte_data import BucketedLoader, TTEDataset
+    from parrot_tts_tpu_torch.models.tte import parrot
+    from parrot_tts_tpu_torch.ops import attention
+    from parrot_tts_tpu_torch.pipeline import train_tte
+    from parrot_tts_tpu_torch.train import tte as tte_train
+
+    acc = train_cfg.grad_acc_steps
+    n_blocks = tcfg.encoder.n_layer + tcfg.decoder.n_layer
+    records: list = []
+    real_step = tte_train._micro_step
+
+    def micro_step(state, batch, *args):
+        before = [p.detach().clone() for p in state.model.parameters()]
+        counts = (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches)
+        start = state.step
+        metrics = real_step(state, batch, *args)
+        changed = any(not torch.equal(a, p) for a, p in
+                      zip(before, state.model.parameters()))
+        records.append({
+            "start": start, "loss": float(metrics["total_loss"]),
+            "changed": changed, "shape": tuple(batch["codes"].shape),
+            "launches": (fd.FWD.launches - counts[0],
+                         fd.DQ.launches - counts[1],
+                         fd.DKV.launches - counts[2]),
+            "state": state})
+        return metrics
+
+    def attention_key(q, *args, **kwargs):
+        return tuple(q.shape[i] for i in (0, 2, 3))
+
+    with tempfile.TemporaryDirectory(prefix="parrot_train_") as tmp:
+        per_pair = {"train": acc * train_cfg.batch_size,
+                    "val": train_cfg.batch_size}
+        root, align = write_train_corpus(
+            tmp, tcfg.n_speaker, bucket_ranges(pairs, train_cfg,
+                                               tcfg.max_len),
+            per_pair, SEED + 4)
+        cfg = PipelineConfig(root_path=str(root), alignment_path=str(align),
+                             tte_model=tcfg, tte_train=train_cfg)
+        run_dir = f"{tmp}/run"
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(tte_train, "_micro_step",
+                                                  micro_step))
+            seen = {name: stack.enter_context(recording(fd, name,
+                                                        attention_key))
+                    for name in ("flash_dropout_fwd", "flash_dropout_dq",
+                                 "flash_dropout_dkv")}
+            seen_eval = stack.enter_context(recording(
+                attention, "flash_attention", attention_key))
+            for kern in (fd.FWD, fd.DQ, fd.DKV, fd.KEEP_MASK, fa.FLASH_FWD):
+                kern.launches = 0
+            t0 = time.perf_counter()
+            out = train_tte.run(cfg, run_dir=run_dir, max_steps=2,
+                                device=device)
+            wall = time.perf_counter() - t0
+            launches = {"fwd": fd.FWD.launches, "dq": fd.DQ.launches,
+                        "dkv": fd.DKV.launches,
+                        "keep_mask": fd.KEEP_MASK.launches,
+                        "flash_attn_fwd": fa.FLASH_FWD.launches}
+        print(f"train: {out}, {len(records)} micro-steps in {wall:.3f} s "
+              f"(first use included); launches {launches}")
+        for r in records:
+            print(f"  micro-step {r['start']}: codes {r['shape']}, loss "
+                  f"{r['loss']:.5f}, params changed {r['changed']}, rows 2-4 "
+                  f"launches {r['launches']}")
+        if out["steps"] != 2 or len(records) != 2 * acc:
+            raise AssertionError(f"{out}, {len(records)} micro-steps")
+        if not all(math.isfinite(r["loss"]) for r in records):
+            raise AssertionError("a non-finite loss")
+        if [r["changed"] for r in records] != [(i + 1) % acc == 0
+                                               for i in range(2 * acc)]:
+            raise AssertionError("params did not change at exactly every "
+                                 f"{acc}-th micro-step")
+        if any(r["launches"] != (n_blocks,) * 3 for r in records):
+            raise AssertionError(f"rows 2-4 not launched {n_blocks} times "
+                                 "each per micro-step")
+        tgts = {r["shape"][1] for r in records}
+        if tgts != {t for _, t in pairs}:
+            raise AssertionError(f"micro-batches at codes {tgts}")
+        for name, shapes in seen.items():
+            if device is None and not shapes <= checked:
+                raise AssertionError(f"{name} at {sorted(shapes - checked)},"
+                                     " which phase 10 did not check")
+        if device is None and not seen_eval <= checked_eval:
+            raise AssertionError(f"evaluation attention at "
+                                 f"{sorted(seen_eval - checked_eval)}, "
+                                 "which phase 3 did not check")
+
+        # the checkpoint holds the live state, bit for bit
+        state = records[-1]["state"]
+        mgr = CheckpointManager(f"{run_dir}/ckpt")
+        saved = mgr.restore()
+        live = state.state_dict()
+        for part in ("params", "mu", "nu", "acc"):
+            for key, x in live[part].items():
+                if not torch.equal(saved[part][key], x.cpu()):
+                    raise AssertionError(f"checkpoint {part}.{key} differs")
+        if (saved["step"], saved["count"], mgr.latest_step()) != (
+                2 * acc, 2, 2):
+            raise AssertionError(f"checkpoint step {saved['step']}, count "
+                                 f"{saved['count']}")
+        # a resumed run carries on from micro-step 2 * acc
+        records.clear()
+        with mock.patch.object(tte_train, "_micro_step", micro_step):
+            out2 = train_tte.run(cfg, run_dir=run_dir, max_steps=3,
+                                 device=device)
+        if out2["steps"] != 3 or records[0]["start"] != 2 * acc:
+            raise AssertionError(f"resume: {out2}, first micro-step "
+                                 f"{records[0]['start']}")
+        print(f"resumed: {out2}, first micro-step {records[0]['start']}; "
+              "checkpoint restored params, moments and step bit for bit")
+
+        # kernels against plain attention at one (256, 3584) micro-batch,
+        # dropout 0, IEEE float32 elsewhere
+        ds = TTEDataset(root, align, "train", tcfg.hubert_codes)
+        loader = BucketedLoader(ds, train_cfg.batch_size,
+                                train_cfg.src_buckets, train_cfg.tgt_buckets,
+                                seed=train_cfg.seed)
+        batch_np = next(b for b in loader.batches(0)
+                        if b["codes"].shape[1] == pairs[-1][1])
+    cfg0 = dataclasses.replace(
+        state.model.cfg, dur_dropout_p=0.0,
+        encoder=dataclasses.replace(tcfg.encoder, dropout_p=0.0),
+        decoder=dataclasses.replace(tcfg.decoder, dropout_p=0.0))
+    model0 = parrot.Parrot(cfg0).to(state.model.pe.device)
+    model0.load_state_dict(state.model.state_dict())
+    batch = tte_train.to_batch(batch_np, model0.pe.device)
+    out_len = batch_np["codes"].shape[1]
+    params = list(model0.parameters())
+
+    def loss_and_grads():
+        with exact_numerics(True):
+            total, _ = tte_train.loss_fn(model0, batch, cfg0, out_len,
+                                         (SEED, 0))
+            return float(total.detach()), torch.autograd.grad(total,
+                                                              params)
+
+    before = fd.FWD.launches
+    loss_k, grads_k = loss_and_grads()
+    kernel_launches = fd.FWD.launches - before
+    with mock.patch.object(fd, "flash_dropout_fwd",
+                           fd.flash_attention_dropout_reference), \
+            mock.patch.object(fd, "flash_dropout_dq",
+                              fd.flash_dropout_dq_reference), \
+            mock.patch.object(fd, "flash_dropout_dkv",
+                              fd.flash_dropout_dkv_reference):
+        loss_p, grads_p = loss_and_grads()
+    if device is None and kernel_launches != n_blocks:
+        raise AssertionError(f"{kernel_launches} forward launches")
+    dl = abs(loss_k - loss_p) / abs(loss_p)
+    num = sum(float((a - b).pow(2).sum()) for a, b in zip(grads_k, grads_p))
+    den = sum(float(b.pow(2).sum()) for b in grads_p)
+    rel = math.sqrt(num / den)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(grads_k, grads_p))
+    print(f"kernels against plain attention at codes {tuple(batch_np['codes'].shape)},"
+          f" dropout 0: loss {loss_k:.6f} vs {loss_p:.6f} (rel {dl:.2e}), "
+          f"|dg|/|g| {rel:.2e}, worst tensor max|dg|/max|g| {worst:.2e}")
+    if not (dl <= TRAIN_LOSS_RTOL and rel <= TRAIN_GRAD_RTOL
+            and worst <= TRAIN_GRAD_MAX):
+        raise AssertionError("training with the kernels departs from plain "
+                             "attention")
+    return {"launches": launches, "state": state, "cfg": state.model.cfg,
+            "batch": batch, "out_len": out_len}
+
+
+def phase_train_profile(state, model_cfg, train_cfg, batch, out_len) -> None:
+    """One more micro-step at (256, 3584) under torch.profiler, and
+    micro-steps per second over one optimizer step (a reading, not a
+    benchmark)."""
+    from parrot_tts_tpu_torch.train import tte as tte_train
+
+    def step():
+        tte_train.train_step(state, batch, SEED, model_cfg, train_cfg,
+                             out_len)
+        torch.cuda.synchronize()
+
+    step()
+    phase_profile(step, f"training micro-step at codes "
+                        f"{tuple(batch['codes'].shape)}")
+    n = train_cfg.grad_acc_steps
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    dt = time.perf_counter() - t0
+    print(f"training reading: {n} micro-steps (one optimizer step) in "
+          f"{dt:.3f} s = {n / dt:.3f} micro-steps/s at codes "
+          f"{tuple(batch['codes'].shape)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from parrot_tts_tpu_torch.core import kernels
     from parrot_tts_tpu_torch.core.config import (TTEModelConfig,
+                                                  TTETrainConfig,
                                                   VocoderModelConfig)
     from parrot_tts_tpu_torch.core.device import exact_numerics
     from parrot_tts_tpu_torch.ops import flash_attention as fa
+    from parrot_tts_tpu_torch.ops import flash_dropout as fd
     from parrot_tts_tpu_torch.ops import fused_mrf as fm
     from parrot_tts_tpu_torch.ops import qconv as qc
 
@@ -721,6 +1189,15 @@ def main() -> int:
         q8["checked"])
     phase_profile(base["serve"], "float serve")
     phase_profile(int8["serve"], "int8-static serve")
+    fdk = phase_flash_dropout(fd)
+    # TTETrainConfig() defaults (batch 6, 4 micro-batches per step, the
+    # reference's buckets) with an lr that is not 0 at the first update
+    train_cfg = TTETrainConfig(warmup_steps=0, log_every=1, val_every=2,
+                               save_every=1)
+    tr = phase_train(fd, fa, tcfg, train_cfg, TRAIN_PAIRS, fdk["checked"],
+                     set(KERNEL_SHAPES))
+    phase_train_profile(tr["state"], tr["cfg"], train_cfg, tr["batch"],
+                        tr["out_len"])
     rep = kern["report"]
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
@@ -754,7 +1231,18 @@ def main() -> int:
         **{k: q8["report"][k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")},
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "parrot_tts_tpu_torch/csrc/flash_dropout.cu",
+        "replaces": f"parrot_tts_tpu/ops/flash_dropout.py:{line}",
+        "launches": tr["launches"][key],
+        "max_abs_err": fdk["max_abs_err"].get(key, 0.0),
+        **fdk["report"][key],
+    } for name, key, line in (("flash_dropout_fwd", "fwd", 87),
+                              ("flash_dropout_dq", "dq", 173),
+                              ("flash_dropout_dkv", "dkv", 207),
+                              ("keep_mask", "keep_mask", 362))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,6 +7,9 @@ a state dict under the reference's keys, in torch layouts, that the port's
 modules load with `strict=True`. It is the inverse of the JAX package's
 `models/tte/convert.py::params_from_torch` and
 `models/vocoder/convert.py::generator_params_from_torch`.
+
+Parameters only: a JAX run's optimizer state is not carried across,
+because the port's training checkpoints are its own (`core/checkpoint.py`).
 """
 
 from __future__ import annotations

@@ -1,8 +1,15 @@
-"""Model configurations for the port: a copy of `TransformerStackConfig`,
-`TTEModelConfig` and `VocoderModelConfig` from `parrot_tts_tpu/core/config.py`
-(defaults are the reference's full-width model). Training configs, the
-reference-file loaders and the TPU-only fields (`remat*`, `dtype`,
-`fold_tail`) are not copied. The vocoder keeps `f0`, `fused_mrf` and
+"""Configurations for the port: copies of `TransformerStackConfig`,
+`TTEModelConfig`, `TTETrainConfig` and `VocoderModelConfig` from
+`parrot_tts_tpu/core/config.py` (defaults are the reference's full-width
+model and recipe), the fields of `PipelineConfig` that TTE training reads,
+and `to_json`.
+
+Not copied: the reference-file loaders, the other stages' configs, and the
+TPU-only fields. `dtype` and `fold_tail` select TPU layouts. `remat` /
+`remat_min_len` rematerialised FFT blocks in the backward pass so the XLA
+attention's saved (B, H, T, T) weights fit in memory; the port's training
+attention (`ops/flash_dropout.py`) never stores (B, H, T, T) scores, so
+there is nothing to rematerialise. The vocoder keeps `f0`, `fused_mrf` and
 `quant`; the port serves `fused_mrf=True` and `quant="int8-static"` and
 refuses `f0=True` and the dynamic `quant="int8"` / `"int8-tail"` until a
 later slice ports them.
@@ -10,7 +17,10 @@ later slice ports them.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -44,6 +54,45 @@ class TTEModelConfig:
     #   double QKV projection through an extra qkv/wo   (modules/fft.py:48-57)
     #   duration-predictor conv2 hardcoded padding=1    (modules/duration.py:34)
     reference_compat: bool = True
+
+
+@dataclass(frozen=True)
+class TTETrainConfig:
+    """Reference `optimizer:` + `train:` sections of TTE_config.yaml."""
+
+    init_lr: float = 1e-4
+    # the reference's configure_optimizers ignores its own betas
+    # (train.py:98-109); AdamW runs with (0.9, 0.999) whatever this says
+    betas: tuple[float, float] = (0.9, 0.98)
+    weight_decay: float = 0.0
+    warmup_steps: int = 2000
+    total_steps: int = 50_000
+    log_every: int = 10
+    val_every: int = 1000
+    save_every: int = 1000
+    batch_size: int = 6
+    grad_acc_steps: int = 4
+    grad_clip: float = 1.0
+    seed: int = 42
+    # length buckets: a batch is padded to a (src, tgt) bucket pair
+    src_buckets: tuple[int, ...] = (128, 256)
+    tgt_buckets: tuple[int, ...] = (512, 1024, 2048, 3584)
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """The fields of the JAX package's `PipelineConfig` that TTE training
+    reads: the corpus and aligner directories and the TTE configs."""
+
+    root_path: str = "runs/TTE"
+    alignment_path: str = "runs/aligner"
+    tte_model: TTEModelConfig = field(default_factory=TTEModelConfig)
+    tte_train: TTETrainConfig = field(default_factory=TTETrainConfig)
+
+
+def to_json(cfg: Any) -> str:
+    """Serialize any config dataclass (saved beside checkpoints)."""
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
 
 
 @dataclass(frozen=True)

@@ -104,9 +104,12 @@ class FFTBlock(nn.Module):
 
 
 def apply_fft_block(block: FFTBlock, x: torch.Tensor, *,
-                    key_padding_mask: torch.Tensor | None = None
+                    key_padding_mask: torch.Tensor | None = None,
+                    dropout_p: float = 0.0, seed: int | None = None
                     ) -> torch.Tensor:
-    """One FFT block on x (B, T, D); key_padding_mask (B, T) True = IGNORE."""
+    """One FFT block on x (B, T, D); key_padding_mask (B, T) True = IGNORE.
+    seed: the attention's dropout stream (training, with `dropout_p` on
+    the attention weights); None for the deterministic forward."""
     valid = None
     if key_padding_mask is not None:
         valid = (~key_padding_mask)[:, :, None].to(x.dtype)
@@ -117,12 +120,14 @@ def apply_fft_block(block: FFTBlock, x: torch.Tensor, *,
         q, k, v = F.linear(h, a.qkv.weight).chunk(3, dim=-1)
         y = multi_head_attention(q, k, v, a.mha.in_proj_weight,
                                  a.mha.out_proj.weight, block.n_head,
-                                 key_padding_mask=key_padding_mask)
+                                 key_padding_mask=key_padding_mask,
+                                 dropout_p=dropout_p, seed=seed)
         y = F.linear(y, a.wo.weight)
     else:
         y = multi_head_attention(h, h, h, a.mha.in_proj_weight,
                                  a.mha.out_proj.weight, block.n_head,
-                                 key_padding_mask=key_padding_mask)
+                                 key_padding_mask=key_padding_mask,
+                                 dropout_p=dropout_p, seed=seed)
     h = x + y
 
     c = layer_norm(h, block.conv_norm.weight, block.conv_norm.bias)

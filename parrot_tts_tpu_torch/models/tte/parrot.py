@@ -1,10 +1,17 @@
-"""Parrot TTE model, inference path: character tokens -> HuBERT-unit codes.
+"""Parrot TTE model: character tokens -> HuBERT-unit codes.
 
 Port of `parrot_tts_tpu/models/tte/parrot.py` (reference
 `modules/parrot.py`). Encoder FFT stack -> (+speaker embedding) ->
 duration predict / length regulate -> decoder FFT stack -> 1000-way linear
 head. Masks in a batch are True = VALID; they are inverted into torch-style
 True = IGNORE key-padding masks internally.
+
+`apply_parrot` is the inference forward (predicted durations);
+`apply_parrot_train` the training forward, which the JAX package runs as
+`apply_parrot(..., inference=False)`: ground-truth durations and the
+batch's `tgt_mask`, and, given a `(run seed, micro-step)` pair, attention
+and duration-predictor dropout whose streams derive from that pair and the
+site alone (`dropout_seed`), so a step is reproducible from its inputs.
 
 Precision: `exact=True` (the default) runs every matmul and convolution in
 IEEE float32 — TF32 off for matmul and cuDNN alike — because a TF32 pass
@@ -59,21 +66,52 @@ class DurationPredictor(nn.Module):
         self.proj = nn.Linear(n_filter, 1)
 
 
+_M64 = (1 << 64) - 1
+# dropout sites (the JAX package's fold-ins, parrot.py:230, 240, 269)
+ENCODER_SITE, PREDICTOR_SITE, DECODER_SITE = 100, 200, 300
+
+
+def dropout_seed(*values: int) -> int:
+    """A 64-bit stream id from integers alone (splitmix64 over them), e.g.
+    (run seed, micro-step, site, layer)."""
+    h = 0
+    for v in values:
+        z = (h + 0x9E3779B97F4A7C15 + (v & _M64)) & _M64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+        h = z ^ (z >> 31)
+    return h
+
+
+def _dropout(h: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+    """Elementwise dropout drawn from a torch.Generator seeded with `seed`
+    (F.dropout takes no generator): keep with probability 1 - p."""
+    gen = torch.Generator(device=h.device).manual_seed(seed)
+    keep = torch.rand(h.shape, generator=gen, device=h.device) < 1.0 - p
+    return torch.where(keep, h / (1.0 - p), 0.0)
+
+
 def apply_duration_predictor(dp: DurationPredictor, x: torch.Tensor,
-                             pad_mask: torch.Tensor,
-                             cfg: TTEModelConfig) -> torch.Tensor:
+                             pad_mask: torch.Tensor, cfg: TTEModelConfig, *,
+                             seed: int | None = None) -> torch.Tensor:
     """Log-duration prediction; pad_mask True = PAD, padded outputs 0.
     Reference quirk (duration.py:34): conv2 hardcodes padding=1 whatever
-    the kernel size (under cfg.reference_compat)."""
+    the kernel size (under cfg.reference_compat). seed: dropout after each
+    LayerNorm (training, `cfg.dur_dropout_p`); None for no dropout."""
     ks = dp.kernel_size
+    p = cfg.dur_dropout_p if seed is not None else 0.0
     valid = (~pad_mask)[:, :, None].to(x.dtype)
     c1, ln1, c2, ln2 = (dp.layers[0].conv, dp.layers[2], dp.layers[4].conv,
                         dp.layers[6])
     h = conv_ops.conv1d(x * valid, c1.weight, c1.bias, padding=(ks - 1) // 2)
     h = fft.layer_norm(torch.relu(h), ln1.weight, ln1.bias)
+    if p > 0:
+        h = _dropout(h, p, dropout_seed(seed, 1))
     pad2 = 1 if cfg.reference_compat else (ks - 1) // 2
     h = conv_ops.conv1d(h * valid, c2.weight, c2.bias, padding=pad2)
     h = fft.layer_norm(torch.relu(h), ln2.weight, ln2.bias)
+    if p > 0:
+        h = _dropout(h, p, dropout_seed(seed, 2))
     out = torch.nn.functional.linear(h, dp.proj.weight, dp.proj.bias)[..., 0]
     return torch.where(pad_mask, 0.0, out)
 
@@ -163,42 +201,81 @@ def init_parrot(cfg: TTEModelConfig, gen: torch.Generator) -> dict:
     return sd
 
 
+def _run_stack(layers, x: torch.Tensor, pad_mask: torch.Tensor,
+               dropout_p: float, seed: int | None) -> torch.Tensor:
+    for i, blk in enumerate(layers):
+        x = fft.apply_fft_block(
+            blk, x, key_padding_mask=pad_mask, dropout_p=dropout_p,
+            seed=None if seed is None else dropout_seed(seed, i))
+    return x
+
+
+def _encode(model: Parrot, batch: dict, seed: int | None):
+    """Embedding, encoder stack, speaker embedding and duration predictor:
+    (encoder states (B, S, D), log_dur_pred (B, S))."""
+    cfg = model.cfg
+    src_mask = batch["src_mask"]
+    src_pad = ~src_mask
+    x = model.tok_emb.weight[batch["phones"]]
+    x = fft.add_pos_emb(x, model.pe, src_mask.sum(dim=1),
+                        reference_compat=cfg.reference_compat)
+    x = x * src_mask[:, :, None].to(x.dtype)   # pads stay batch-invariant
+    x = _run_stack(model.encoder_layers, x, src_pad, cfg.encoder.dropout_p,
+                   None if seed is None else dropout_seed(seed, ENCODER_SITE))
+    if cfg.n_speaker > 1:
+        x = x + model.speaker_emb.weight[batch["speaker"]][:, None, :]
+        x = x * src_mask[:, :, None].to(x.dtype)
+    log_dur_pred = apply_duration_predictor(
+        model.duration_predictor, x, src_pad, cfg,
+        seed=None if seed is None else dropout_seed(seed, PREDICTOR_SITE))
+    return x, log_dur_pred
+
+
+def _decode(model: Parrot, x: torch.Tensor, tgt_mask: torch.Tensor,
+            pe_rows: torch.Tensor, seed: int | None) -> torch.Tensor:
+    """Positional row, decoder stack and head over regulated states."""
+    cfg = model.cfg
+    x = fft.add_pos_emb(x, model.pe, pe_rows.clamp(0, cfg.max_len - 1),
+                        reference_compat=cfg.reference_compat)
+    x = x * tgt_mask[:, :, None].to(x.dtype)
+    x = _run_stack(model.decoder_layers, x, ~tgt_mask, cfg.decoder.dropout_p,
+                   None if seed is None else dropout_seed(seed, DECODER_SITE))
+    return torch.nn.functional.linear(x, model.head.weight, model.head.bias)
+
+
 def apply_parrot(model: Parrot, batch: dict, *, out_len: int):
     """Inference forward (reference parrot.py:90-120 with predicted
     durations). batch: phones (B, S) int, src_mask (B, S) bool True=valid,
     speaker (B,) int, all on the model's device. out_len: decoder length
     (bucket >= total duration). Returns (logits (B, out_len, n_codes),
     tgt_mask (B, out_len) True=valid, log_dur_pred (B, S))."""
-    cfg = model.cfg
-    pe = model.pe
     src_mask = batch["src_mask"]
-    src_pad = ~src_mask
-    src_lengths = src_mask.sum(dim=1)
-
-    x = model.tok_emb.weight[batch["phones"]]
-    x = fft.add_pos_emb(x, pe, src_lengths,
-                        reference_compat=cfg.reference_compat)
-    x = x * src_mask[:, :, None].to(x.dtype)   # pads stay batch-invariant
-    for blk in model.encoder_layers:
-        x = fft.apply_fft_block(blk, x, key_padding_mask=src_pad)
-    if cfg.n_speaker > 1:
-        x = x + model.speaker_emb.weight[batch["speaker"]][:, None, :]
-        x = x * src_mask[:, :, None].to(x.dtype)
-    log_dur_pred = apply_duration_predictor(model.duration_predictor, x,
-                                            src_pad, cfg)
-
+    x, log_dur_pred = _encode(model, batch, None)
     durations = torch.where(src_mask,
                             lr_ops.durations_from_log_pred(log_dur_pred), 0)
     # exclusive mask: the decode covers exactly sum(dur) frames (the
     # reference's canonical batch-1 decode)
     x, tgt_mask = lr_ops.length_regulator(x, durations, out_len)
-    total = durations.sum(dim=1)
-    x = fft.add_pos_emb(x, pe, total.clamp(0, cfg.max_len - 1),
-                        reference_compat=cfg.reference_compat)
-    x = x * tgt_mask[:, :, None].to(x.dtype)
-    for blk in model.decoder_layers:
-        x = fft.apply_fft_block(blk, x, key_padding_mask=~tgt_mask)
-    logits = torch.nn.functional.linear(x, model.head.weight, model.head.bias)
+    logits = _decode(model, x, tgt_mask, durations.sum(dim=1), None)
+    return logits, tgt_mask, log_dur_pred
+
+
+def apply_parrot_train(model: Parrot, batch: dict, *, out_len: int,
+                       dropout: tuple[int, int] | None = None):
+    """Training forward (JAX `apply_parrot(..., inference=False)`,
+    `parrot.py:257-261`): ground-truth `duration` (B, S) and the batch's
+    `tgt_mask` (B, out_len) True=valid, besides the inference keys.
+    dropout: (run seed, micro-step) turns on attention dropout (every
+    attention through `ops/flash_dropout.py`, rows 2-4, even at p = 0) and
+    duration-predictor dropout, each site's stream from dropout_seed(run
+    seed, micro-step, site[, layer]); None is the deterministic forward of
+    `eval_step` (attention through row 1). Returns (logits, tgt_mask,
+    log_dur_pred)."""
+    seed = None if dropout is None else dropout_seed(*dropout)
+    tgt_mask = batch["tgt_mask"]
+    x, log_dur_pred = _encode(model, batch, seed)
+    x, _ = lr_ops.length_regulator(x, batch["duration"], out_len)
+    logits = _decode(model, x, tgt_mask, tgt_mask.sum(dim=1), seed)
     return logits, tgt_mask, log_dur_pred
 
 

@@ -6,9 +6,17 @@ reference's double projection (qkv Linear before MHA, wo after) lives in
 the FFT block (`models/tte/fft.py`). Weights are in torch layout:
 in_proj_weight (3D, D), out_proj_weight (D, D).
 
-Every call goes through `ops/flash_attention.py::flash_attention`: the
-CUDA kernel on the card at any T (the TPU needed T >= 512 and a multiple
-of 128 for its Pallas path), the plain version on the CPU.
+Two paths, the JAX package's split at `attention.py:93-97`:
+
+- `seed=None` (serving, `eval_step`): `ops/flash_attention.py::
+  flash_attention`, row 1 of PERF.md's kernel table, forward only;
+- a `seed` (training): `ops/flash_dropout.py::flash_attention_dropout`,
+  rows 2-4, with attention-weight dropout `dropout_p` drawn from that seed.
+  Training takes it even at `dropout_p == 0`, so the port has one backward.
+
+Both run their CUDA kernels on the card at any T (the TPU needed T >= 512
+and a multiple of 128 for its Pallas paths) and the plain versions on the
+CPU.
 """
 
 from __future__ import annotations
@@ -19,15 +27,19 @@ import torch
 import torch.nn.functional as F
 
 from parrot_tts_tpu_torch.ops.flash_attention import flash_attention
+from parrot_tts_tpu_torch.ops.flash_dropout import (flash_attention_dropout,
+                                                    padding_bias)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          in_proj_weight: torch.Tensor,
                          out_proj_weight: torch.Tensor, n_head: int, *,
-                         key_padding_mask: torch.Tensor | None = None
+                         key_padding_mask: torch.Tensor | None = None,
+                         dropout_p: float = 0.0, seed: int | None = None
                          ) -> torch.Tensor:
     """q, k, v: (B, T, D); key_padding_mask: (B, T) bool, True = IGNORE
-    that key (torch convention). Returns (B, T, D)."""
+    that key (torch convention). seed: this call's 64-bit dropout stream;
+    None for the deterministic forward. Returns (B, T, D)."""
     b, t, d = q.shape
     if d % n_head:
         raise ValueError(f"d_model {d} % n_head {n_head} != 0")
@@ -38,7 +50,13 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (F.linear(x, w).reshape(b, -1, n_head, d_head)
                 .transpose(1, 2).contiguous())          # (B, H, T, dh)
 
-    out = flash_attention(heads(q, wq), heads(k, wk), heads(v, wv),
-                          key_padding_mask, 1.0 / math.sqrt(d_head))
+    qh, kh, vh = heads(q, wq), heads(k, wk), heads(v, wv)
+    scale = 1.0 / math.sqrt(d_head)
+    if seed is None:
+        out = flash_attention(qh, kh, vh, key_padding_mask, scale)
+    else:
+        bias = padding_bias(key_padding_mask, b, t, q.device)
+        out = flash_attention_dropout(qh, kh, vh, bias, seed, dropout_p,
+                                      scale)
     out = out.transpose(1, 2).reshape(b, t, d)
     return F.linear(out, out_proj_weight)

@@ -82,8 +82,8 @@ def test_seeded_init_loads_and_repeats():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, the lazily loaded ones included, and
-    chip_smoke."""
+    """Every module of the port, the lazily loaded ones and the training
+    slice's included, and chip_smoke."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import parrot_tts_tpu_torch as pkg\n"
@@ -93,6 +93,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(name)\n"
         "assert len(mods) > 25, mods\n"
         "assert 'parrot_tts_tpu_torch.models.vocoder.generator_staticq' in mods\n"
+        "for name in ('train.tte', 'pipeline.train_tte', 'ops.flash_dropout',\n"
+        "             'core.checkpoint', 'data.tte_data'):\n"
+        "    assert 'parrot_tts_tpu_torch.' + name in mods, name\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'parrot_tts_tpu' or m.startswith('parrot_tts_tpu.')]\n"
         "assert not bad, bad\n")

@@ -16,6 +16,7 @@ import torch
 
 from parrot_tts_tpu_torch.core.device import exact_numerics
 from parrot_tts_tpu_torch.ops import flash_attention as fa
+from parrot_tts_tpu_torch.ops import flash_dropout as fd
 from parrot_tts_tpu_torch.ops import fused_mrf, qconv
 
 
@@ -253,3 +254,154 @@ def test_fused_mrf_matches_plain_on_card(cuda_device, b, t, c):
     # IEEE float32 both; only the order of the sums differs
     err = float((got - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max()), err
+
+
+# ---- rows 2-5: flash attention with dropout (ops/flash_dropout.py,
+# csrc/flash_dropout.cu) ------------------------------------------------------
+
+
+def _fd_inputs(rng, b, h, t, d, device="cpu", all_padded_row=None):
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, t, d))
+                                    .astype(np.float32)).to(device)
+                   for _ in range(4))
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[0] = t
+    pad = np.arange(t)[None, :] >= lengths[:, None]
+    if all_padded_row is not None:
+        pad[all_padded_row] = True
+    bias = fd.padding_bias(torch.from_numpy(pad), b, t, "cpu").to(device)
+    return q, k, v, do, bias
+
+
+@pytest.mark.parametrize("bad", ["dtype", "width", "shape", "bias", "layout",
+                                 "p"])
+def test_flash_dropout_rejects_what_the_kernels_do_not_take(rng, bad):
+    q, k, v, _, bias = _fd_inputs(rng, 2, 2, 8, 128)
+    p = 0.1
+    if bad == "dtype":
+        v = v.double()
+    elif bad == "width":
+        q, k, v = (x[..., :32].contiguous() for x in (q, k, v))
+    elif bad == "shape":
+        k = k[:, :, :4].contiguous()
+    elif bad == "bias":
+        bias = bias[:, :4].contiguous()
+    elif bad == "layout":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        p = 1.0
+    with pytest.raises((TypeError, ValueError)):
+        fd._check(q, k, v, bias, p)
+
+
+def test_flash_dropout_cpu_tensors_take_the_plain_versions(rng):
+    q, k, v, do, bias = _fd_inputs(rng, 2, 2, 12, 64)
+    before = (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches,
+              fd.KEEP_MASK.launches)
+    o, lse = fd.flash_dropout_fwd(q, k, v, bias, 5, 0.1, 0.125)
+    want_o, want_lse = fd.flash_attention_dropout_reference(
+        q, k, v, bias, 5, 0.1, 0.125)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    dq, delta = fd.flash_dropout_dq(q, k, v, bias, 5, o, lse, do, 0.1, 0.125)
+    dk, dv = fd.flash_dropout_dkv(q, k, v, bias, 5, delta, lse, do, 0.1,
+                                  0.125)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dq, delta), fd.flash_dropout_dq_reference(q, k, v, bias, 5, o, lse,
+                                                   do, 0.1, 0.125)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dk, dv), fd.flash_dropout_dkv_reference(q, k, v, bias, 5, delta,
+                                                 lse, do, 0.1, 0.125)))
+    assert torch.equal(fd.keep_mask(2, 2, 12, 5, 0.1, "cpu"),
+                       fd.keep_mask_reference(2, 2, 12, 5, 0.1))
+    assert before == (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches,
+                      fd.KEEP_MASK.launches)
+
+
+# Kernels against plain on the same mask. Both round every product operand
+# to bf16 at the same points and sum in float32, but in another order, so
+# a few operands (about 1 in 10^4 P or dS values) land on the other bf16
+# neighbour; each such moves the outputs of its row by at most one bf16
+# ulp of one term. So the largest difference stays within 2^-8 of the
+# largest value (FD_MAX), and the rms difference, which any systematic
+# fault (a wrong mask element, tile or row) would raise, within 1e-4 of
+# the rms value (FD_RMS); both floored at 1 for outputs near zero.
+FD_MAX, FD_RMS = 2.0**-8, 1e-4
+
+
+def _close(got, want, what):
+    diff = (got - want).abs()
+    err, lim = float(diff.max()), FD_MAX * max(1.0, float(want.abs().max()))
+    assert err <= lim, f"{what}: max |diff| {err} > {lim}"
+    rms = float(diff.pow(2).mean().sqrt())
+    lim = FD_RMS * max(1.0, float(want.pow(2).mean().sqrt()))
+    assert rms <= lim, f"{what}: rms diff {rms} > {lim}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,p", [(1, 128, 0.1), (100, 128, 0.1),
+                                   (256, 128, 0.0), (256, 128, 0.1),
+                                   (333, 64, 0.1), (1024, 128, 0.1)])
+def test_flash_dropout_kernels_match_plain_on_card(cuda_device, t, d, p):
+    rng = np.random.default_rng(t)
+    b, h, seed, scale = 3, 2, 12345 + t, 1.0 / math.sqrt(d)
+    q, k, v, do, bias = _fd_inputs(rng, b, h, t, d, cuda_device,
+                                   all_padded_row=1 if t > 1 else None)
+    before = (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches)
+    o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, p, scale)
+    torch.cuda.synchronize()
+    want_o, want_lse = fd.flash_attention_dropout_reference(
+        q, k, v, bias, seed, p, scale)
+    _close(o, want_o, "O")
+    # lse: rows with no valid key hold -1e30 on both sides
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
+    # the backward of both on the plain forward's O and lse, and dK/dV of
+    # both on the plain D
+    dq, delta = fd.flash_dropout_dq(q, k, v, bias, seed, want_o, want_lse, do,
+                                    p, scale)
+    want_dq, want_delta = fd.flash_dropout_dq_reference(
+        q, k, v, bias, seed, want_o, want_lse, do, p, scale)
+    args = (q, k, v, bias, seed, want_delta, want_lse, do, p, scale)
+    dk, dv = fd.flash_dropout_dkv(*args)
+    torch.cuda.synchronize()
+    assert (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches) == tuple(
+        n + 1 for n in before)
+    _close(dq, want_dq, "dQ")
+    _close(delta, want_delta, "D")
+    want_dk, want_dv = fd.flash_dropout_dkv_reference(*args)
+    _close(dk, want_dk, "dK")
+    _close(dv, want_dv, "dV")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,p", [(1, 1, 1, 0.1), (2, 2, 130, 0.1),
+                                     (1, 3, 257, 0.5), (2, 1, 64, 0.0)])
+def test_keep_mask_kernel_bit_identical_on_card(cuda_device, b, h, t, p):
+    before = fd.KEEP_MASK.launches
+    got = fd.keep_mask(b, h, t, 99 + t, p, cuda_device)
+    torch.cuda.synchronize()
+    assert fd.KEEP_MASK.launches == before + 1
+    assert torch.equal(got, fd.keep_mask_reference(b, h, t, 99 + t, p,
+                                                   cuda_device))
+
+
+@pytest.mark.cuda
+def test_flash_dropout_autograd_runs_the_kernels_on_card(cuda_device):
+    rng = np.random.default_rng(7)
+    q, k, v, do, bias = _fd_inputs(rng, 2, 2, 200, 128, cuda_device)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches)
+    o = fd.flash_attention_dropout(q, k, v, bias, 3, 0.1, 0.1)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches) == tuple(
+        n + 1 for n in before)
+    qkv = (q.detach(), k.detach(), v.detach(), bias, 3)
+    lse = fd.flash_attention_dropout_reference(*qkv, 0.1, 0.1)[1]
+    want_dq, delta = fd.flash_dropout_dq_reference(*qkv, o.detach(), lse, do,
+                                                   0.1, 0.1)
+    want_dk, want_dv = fd.flash_dropout_dkv_reference(*qkv, delta, lse, do,
+                                                      0.1, 0.1)
+    _close(q.grad, want_dq, "dQ")
+    # dK/dV read the kernel's D, written by the dQ launch before them
+    _close(k.grad, want_dk, "dK")
+    _close(v.grad, want_dv, "dV")
