@@ -7,7 +7,7 @@ check it. Run from the root of the checkout:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch / CUDA versions, TF32 flags;
-2. build: the four kernel sources in csrc/ with nvcc (sm_90a), one nvcc
+2. build: the five kernel sources in csrc/ with nvcc (sm_90a), one nvcc
    per source in parallel, with each one's ptxas register and spill report;
 3. flash attention against plain: the flash-attention forward against its
    plain PyTorch version, H=2, d_head=128, at B=8 and T up to 3584 (with
@@ -27,11 +27,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch), a ragged T and a batch whose rows end at different lengths;
    max |diff| <= 1e-5 * max |plain|; kernel, plain and bound ms;
 6. int8 conv against plain: the int8 conv kernel at every distinct site
-   shape of every int8-static vocoder batch, with that batch's rows (5
-   polyphase upsamples, the MRF convs at k 3/7/11 and dilation 1/3/5 with
-   the leaky epilogue and without it; the per-channel scale broadcast over
-   the batch, as the serve passes it), bit-identical; kernel, plain and
-   bound ms;
+   shape of every int8-static and "int8" vocoder batch, with that batch's
+   rows (5 polyphase upsamples, the MRF convs at k 3/7/11 and dilation
+   1/3/5 with the leaky epilogue and without it), each with the scale the
+   serve passes: the int8-static serve's per-channel scale broadcast over
+   the batch, the dynamic serves' per-row (B, Co) scales ("int8-tail"'s
+   sites are a subset of "int8"'s), bit-identical; kernel, plain and bound
+   ms;
 7. fused serve: ParrotTTS with VocoderModelConfig(fused_mrf=True) on the
    same requests and weights: waveforms within 1e-5 of phase 4's, 3 fused
    launches per vocoder batch, each at a shape phase 5 checked;
@@ -40,7 +42,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    twice: deterministic, lengths len(units)*320, finite, 95 int8 conv
    launches per vocoder batch, each at a shape phase 6 checked, SNR >= 15
    dB against phase 4's waveforms over all requests and for each one;
-9. profile: one more float serve and one more int8-static serve under
+8b. dynamic int8 serves: ParrotTTS with quant="int8" and with
+   quant="int8-tail" on the same requests and weights, each served twice:
+   deterministic, lengths len(units)*320, finite, 95 and 56 int8 conv
+   launches per vocoder batch, each at a shape phase 6 checked with
+   per-row scales, SNR >= 15 dB against phase 4's waveforms over all
+   requests and for each one; then the dynamic int8 conv on the card is
+   batch-invariant: a quiet row alone and beside a loud row gives the same
+   bits;
+9. profile: one more float serve, int8-static serve and "int8" serve under
    torch.profiler (device time by kernel, the device's busy and idle share);
 10. flash attention with dropout against plain: the forward, dQ (with the
    D = rowsum(dO . O) it writes) and dK/dV kernels (rows 2-4) at B=6, H=2, d_head 128 and every T the training
@@ -62,7 +72,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain attention (loss within 1e-5, |dg|/|g| <= 1e-3, each tensor's
    max |dg| <= 1e-2 of its max |g|);
 12. profile: one training micro-step at (256, 3584) under torch.profiler,
-   and micro-steps per second over one optimizer step (a reading).
+   and micro-steps per second over one optimizer step (a reading);
+13. GEMM against plain: the row-8 kernel at the int8 experiment's (8192,
+   4096, 4096) in int8 and bf16, at a ragged (1000, 1000, 1000) and a
+   small (17, 33, 9) in int8, bf16 and float32: int8 equal, bf16 and
+   float32 within MM_RTOL * sqrt(K) of max |plain|; kernel, plain, bound
+   and torch._int_mm / torch.matmul ms at the rate shape; then the ported
+   int8 experiment (`python -m parrot_tts_tpu_torch.scripts.exp_int8_rate`)
+   parts 1 and 2 with few repetitions, its GEMM launches counted.
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -93,7 +110,14 @@ MRF_RTOL = 1e-5              # fused MRF: max |diff| <= MRF_RTOL * max |plain|
 FUSED_SERVE_ATOL = 1e-5      # fused serve against the float serve
 SNR_MIN_DB = 15.0            # int8-static serve against the float serve: the
                              # JAX package's envelope for random weights
-INT8_SITES = 95              # int8 convs per V1 vocoder batch
+# int8 convs per V1 vocoder batch: every conv between conv_pre and
+# conv_post; "int8-tail" only the 64-, 32- and 16-channel stages' MRF convs
+# (3 x 18) and the two upsamples after the first of them
+INT8_SITES = {"int8-static": 95, "int8": 95, "int8-tail": 56}
+# the GEMM's bf16 and float32 results against plain: the same float32
+# products summed in another order (tests/test_torch_kernels.py states why)
+MM_RTOL = 1e-5
+RATE_SHAPE = (8192, 4096, 4096)   # (M, K, N) of the int8 experiment
 BF16_PEAK = 989e12           # H100 SXM bf16 dense tensor-core FLOP/s (data sheet)
 # flash attention with dropout (rows 2-4) against plain on the same mask:
 # both round every product operand to bf16 at the same points and sum in
@@ -189,10 +213,13 @@ def mrf_key(x, w, b, plan) -> tuple:
 
 def int8_key(xq, wt, scale, bias=None, *, pads, dilation=1, leaky=None
              ) -> tuple:
-    """(B, T, Ci, Co, K, dilation, pads, leaky) of an int8 conv call."""
+    """(B, T, Ci, Co, K, dilation, pads, leaky, per_row) of an int8 conv
+    call; per_row: the (B, Co) scale is materialised per row, not one (Co,)
+    vector broadcast over the batch."""
     b, t, ci = xq.shape
     k, co, _ = wt.shape
-    return (b, t, ci, co, k, dilation, tuple(pads), leaky)
+    return (b, t, ci, co, k, dilation, tuple(pads), leaky,
+            scale.stride(0) != 0)
 
 
 def phase_card() -> str:
@@ -213,8 +240,8 @@ def phase_card() -> str:
 def phase_build(kernels) -> None:
     t0 = time.perf_counter()
     logs = kernels.build("flash_attn_fwd", "fused_mrf", "int8_conv",
-                         "flash_dropout")
-    print(f"build (4 nvcc in parallel): {time.perf_counter() - t0:.2f} s")
+                         "flash_dropout", "int8_gemm")
+    print(f"build (5 nvcc in parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -495,12 +522,19 @@ def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches) -> dict:
             "checked": {(r["B"], r["T"], r["C"]) for r in serve}}
 
 
-def int8_sites(vcfg, n: int, t: int) -> dict:
-    """(B, T, Ci, Co, K, dilation, pads, leaky) -> count, for every int8
-    conv of one int8-static vocoder batch of n rows of t codes."""
-    from parrot_tts_tpu_torch.models.vocoder.generator import LRELU_SLOPE
+def int8_sites(vcfg, n: int, t: int, mode: str) -> dict:
+    """(B, T, Ci, Co, K, dilation, pads, leaky, per_row) -> count, for
+    every int8 conv of one vocoder batch of n rows of t codes in quant
+    mode `mode`: every conv under "int8-static" (its scale broadcast over
+    the batch), the sites of `generator.quant_plan` under "int8" and
+    "int8-tail" (per-row scales)."""
+    from parrot_tts_tpu_torch.models.vocoder.generator import (LRELU_SLOPE,
+                                                               quant_plan)
     from parrot_tts_tpu_torch.ops import conv as conv_ops
 
+    per_row = mode != "int8-static"
+    plan = (quant_plan(dataclasses.replace(vcfg, quant=mode), t) if per_row
+            else [(True, True)] * len(vcfg.upsample_rates))
     sites: dict = {}
 
     def add(key):
@@ -511,27 +545,30 @@ def int8_sites(vcfg, n: int, t: int) -> dict:
                                    vcfg.upsample_kernel_sizes)):
         cin = vcfg.upsample_initial_channel // 2 ** i
         ch = cin // 2
+        ups_q, mrf_q = plan[i]
         *_, pad_left, q_len = conv_ops._polyphase_plan(k, u, (k - u) // 2)
-        add((n, t * hop, cin, u * ch, q_len, 1,
-             (pad_left, q_len - 1 - pad_left), None))
+        if ups_q:
+            add((n, t * hop, cin, u * ch, q_len, 1,
+                 (pad_left, q_len - 1 - pad_left), None, per_row))
         hop *= u
         for rk, ds in zip(vcfg.resblock_kernel_sizes,
                           vcfg.resblock_dilation_sizes):
-            for d in ds:
+            for d in ds if mrf_q else ():
                 p1, p2 = conv_ops.get_padding(rk, d), conv_ops.get_padding(rk)
-                add((n, t * hop, ch, ch, rk, d, (p1, p1), LRELU_SLOPE))
-                add((n, t * hop, ch, ch, rk, 1, (p2, p2), None))
+                add((n, t * hop, ch, ch, rk, d, (p1, p1), LRELU_SLOPE,
+                     per_row))
+                add((n, t * hop, ch, ch, rk, 1, (p2, p2), None, per_row))
     return sites
 
 
-def int8_serve_sites(vcfg, batches) -> dict:
+def int8_serve_sites(vcfg, batches, mode: str) -> dict:
     """int8_sites summed over the vocoder batches of one serve."""
     sites: dict = {}
     for n, t_codes in batches:
-        batch = int8_sites(vcfg, n, t_codes)
-        if sum(batch.values()) != INT8_SITES:
-            raise AssertionError(f"{sum(batch.values())} int8 sites, want "
-                                 f"{INT8_SITES}")
+        batch = int8_sites(vcfg, n, t_codes, mode)
+        if sum(batch.values()) != INT8_SITES[mode]:
+            raise AssertionError(f"{mode}: {sum(batch.values())} int8 sites,"
+                                 f" want {INT8_SITES[mode]}")
         for key, count in batch.items():
             sites[key] = sites.get(key, 0) + count
     return sites
@@ -539,21 +576,29 @@ def int8_serve_sites(vcfg, batches) -> dict:
 
 def phase_int8_kernel(qc, vcfg, batches) -> dict:
     """The int8 conv kernel against its plain version, bit for bit, at
-    every distinct site shape of every int8-static vocoder batch."""
+    every distinct site shape of every int8-static and "int8" vocoder
+    batch, with the scale each serve passes ("int8-tail"'s sites are a
+    subset of "int8"'s)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
     def ints(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device="cuda",
                              dtype=torch.int8)
 
-    sites = int8_serve_sites(vcfg, batches)
+    serves = {mode: int8_serve_sites(vcfg, batches, mode)
+              for mode in INT8_SITES}
+    if not set(serves["int8-tail"]) <= set(serves["int8"]):
+        raise AssertionError("int8-tail sites outside the int8 sites")
+    sites = {**serves["int8-static"], **serves["int8"]}
     rows = []
-    for key, count in sites.items():
-        n, t, ci, co, k, d, pads, leaky = key
+    for key in sites:
+        n, t, ci, co, k, d, pads, leaky, per_row = key
         xq, wt = ints(n, t, ci), ints(k, co, ci)
-        # the serve's scale: one (Co,) vector broadcast over the batch
-        scale = (torch.rand(co, generator=gen, device="cuda") * 1e-4
-                 + 1e-6).expand(n, -1)
+        # the serve's scale: per row (B, Co), or one (Co,) vector broadcast
+        # over the batch
+        scale = torch.rand(*((n,) if per_row else ()), co, generator=gen,
+                           device="cuda") * 1e-4 + 1e-6
+        scale = scale.expand(n, -1)
         bias = torch.randn(co, generator=gen, device="cuda") * 0.1
 
         def kern():
@@ -577,26 +622,39 @@ def phase_int8_kernel(qc, vcfg, batches) -> dict:
         bound_ms, bound_by = bound(
             2.0 * n * t_out * k * ci * co, INT8_PEAK,
             n * t * ci + k * ci * co + 4.0 * (co + co + n * t_out * co))
-        rows.append({"key": key, "count": count,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
+        rows.append({"key": key, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
         print(f"int8 conv B={n} T={t:7d} Ci={ci:3d} Co={co:4d} K={k:2d} "
-              f"d={d} leaky={int(leaky is not None)} x{count}: bit-identical"
-              f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"d={d} leaky={int(leaky is not None)} per_row={int(per_row)}"
+              f": bit-identical  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+              f"  bound {bound_ms:.4f} ms ({bound_by})")
         del xq, wt, got, want
     by_key = {r["key"]: r for r in rows}
-    for n, t_codes in batches:
-        rep = total([{**by_key[key], "count": count} for key, count
-                     in int8_sites(vcfg, n, t_codes).items()])
-        print(f"int8 conv per vocoder batch of {n} x {t_codes} codes "
-              f"({INT8_SITES} launches): kernel {rep['ms']:.4f} ms  plain "
-              f"{rep['plain_ms']:.4f} ms  bound {rep['bound_ms']:.4f} ms")
-    rep = total(rows)
-    print(f"int8 conv per serve ({len(rows)} distinct shapes, "
-          f"{INT8_SITES * len(batches)} launches): kernel {rep['ms']:.4f} ms"
-          f"  plain {rep['plain_ms']:.4f} ms  bound {rep['bound_ms']:.4f} ms")
-    return {"report": rep, "max_abs_err": max(r["max_abs_err"] for r in rows),
+
+    def report(site_counts: dict) -> dict:
+        return total([{**by_key[key], "count": count}
+                      for key, count in site_counts.items()])
+
+    for mode in INT8_SITES:
+        for n, t_codes in batches:
+            r = report(int8_sites(vcfg, n, t_codes, mode))
+            print(f"int8 conv per {mode} vocoder batch of {n} x {t_codes} "
+                  f"codes ({INT8_SITES[mode]} launches): kernel "
+                  f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+                  f"{r['bound_ms']:.4f} ms")
+        r = report(serves[mode])
+        print(f"int8 conv per {mode} serve ({len(serves[mode])} distinct "
+              f"shapes, {INT8_SITES[mode] * len(batches)} launches): kernel "
+              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms")
+    # the three serves together, whose launches the kernels line counts
+    all_serves: dict = {}
+    for site_counts in serves.values():
+        for key, count in site_counts.items():
+            all_serves[key] = all_serves.get(key, 0) + count
+    return {"report": report(all_serves),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
             "checked": set(sites)}
 
 
@@ -642,20 +700,25 @@ def phase_fused_serve(fm, tcfg, vcfg, base: dict, checked: set,
 
 def phase_int8_serve(qc, tcfg, vcfg, base: dict, checked: set,
                      device=None) -> dict:
-    """The same requests through ParrotTTS with quant="int8-static"."""
+    """The same requests through ParrotTTS with vcfg.quant an int8 mode,
+    served twice; "int8-static" calibrates first on a batch built from the
+    serve's own units."""
+    mode = vcfg.quant
     tts = make_tts(tcfg, vcfg, device)
     units, speakers = base["units"], base["speakers"]
     batches = vocoder_batches(units)
-    length = max(t for _, t in batches)
-    rows = [np.tile(u, -(-length // len(u)))[:length] for u in units if len(u)]
-    spk = [s for u, s in zip(units, speakers) if len(u)]
-    t0 = time.perf_counter()
-    tts.vocoder.calibrate(rows, spk)
-    torch.cuda.synchronize()
-    print(f"int8-static calibration on {len(rows)} x {length} codes: "
-          f"{time.perf_counter() - t0:.3f} s, "
-          f"{len(tts.vocoder.staticq.scales)} sites")
-    want = INT8_SITES * len(batches)
+    if mode == "int8-static":
+        length = max(t for _, t in batches)
+        rows = [np.tile(u, -(-length // len(u)))[:length] for u in units
+                if len(u)]
+        spk = [s for u, s in zip(units, speakers) if len(u)]
+        t0 = time.perf_counter()
+        tts.vocoder.calibrate(rows, spk)
+        torch.cuda.synchronize()
+        print(f"int8-static calibration on {len(rows)} x {length} codes: "
+              f"{time.perf_counter() - t0:.3f} s, "
+              f"{len(tts.vocoder.staticq.scales)} sites")
+    want = INT8_SITES[mode] * len(batches)
     runs = []
     for run in range(2):
         with recording(qc, "int8_conv", int8_key) as shapes:
@@ -666,7 +729,7 @@ def phase_int8_serve(qc, tcfg, vcfg, base: dict, checked: set,
             raise AssertionError(f"int8 conv shapes {sorted(shapes - checked)}"
                                  " of the serve were not checked against "
                                  "plain")
-        serve_line(f"int8-static serve {run}", tts.last_stats, launches)
+        serve_line(f"{mode} serve {run}", tts.last_stats, launches)
         if launches != want:
             raise AssertionError(f"{launches} int8 conv launches, want {want}")
         runs.append((wavs, launches))
@@ -675,7 +738,8 @@ def phase_int8_serve(qc, tcfg, vcfg, base: dict, checked: set,
     for i, (a, b, u, f) in enumerate(zip(runs[0][0], runs[1][0], units,
                                          base["wavs"])):
         if not np.array_equal(a, b):
-            raise AssertionError(f"request {i}: int8 serve not deterministic")
+            raise AssertionError(f"request {i}: {mode} serve not "
+                                 "deterministic")
         if len(a) != len(u) * vcfg.total_upsample:
             raise AssertionError(f"request {i}: {len(a)} samples for "
                                  f"{len(u)} units")
@@ -688,13 +752,33 @@ def phase_int8_serve(qc, tcfg, vcfg, base: dict, checked: set,
             dev = max(dev, float(np.abs(a - f).max()))
             worst = min(worst, 10 * math.log10(s / max(e, 1e-30)))
     snr = 10 * math.log10(sig / max(err, 1e-30))
-    print(f"int8-static serve against the float serve: SNR {snr:.2f} dB "
+    print(f"{mode} serve against the float serve: SNR {snr:.2f} dB "
           f"(worst request {worst:.2f} dB), max |dev| {dev:.4e}")
     if not (snr >= SNR_MIN_DB and worst >= SNR_MIN_DB):
-        raise AssertionError(f"int8-static SNR {snr:.2f} dB (worst request "
+        raise AssertionError(f"{mode} SNR {snr:.2f} dB (worst request "
                              f"{worst:.2f} dB) < {SNR_MIN_DB}")
     return {"launches": runs[0][1], "snr_db": snr,
             "serve": lambda: tts.tts(TEXTS, speakers=speakers)}
+
+
+def phase_batch_invariance(quant, device="cuda") -> None:
+    """The dynamic int8 conv at a V1 stage-1 MRF site: a quiet row gives the
+    same bits alone and beside a loud row (per-row scales)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    quiet, loud = randn(1, 1250, 256, scale=0.01), randn(1, 1250, 256,
+                                                         scale=10.0)
+    w = randn(3, 256, 256, scale=0.05)
+    solo = quant.int8_conv_nwc(quiet, w, None, pads=(1, 1))
+    pair = quant.int8_conv_nwc(torch.cat([quiet, loud]), w, None, pads=(1, 1))
+    if not torch.equal(solo[0], pair[0]):
+        raise AssertionError("dynamic int8 conv: a quiet row changes beside "
+                             "a loud one")
+    print("dynamic int8 conv batch-invariant: a quiet row (std 0.01) gives "
+          "the same bits alone and beside a loud row (std 10)")
 
 
 def phase_profile(serve, label: str) -> None:
@@ -1156,6 +1240,83 @@ def phase_train_profile(state, model_cfg, train_cfg, batch, out_len) -> None:
           f"{tuple(batch['codes'].shape)}")
 
 
+def phase_gemm(qc) -> dict:
+    """The row-8 GEMM against its plain version (int8 equal, bf16 and
+    float32 within MM_RTOL * sqrt(K) of max |plain|) at the rate shape, a
+    ragged and a small shape; kernel, plain, bound and library ms at the
+    rate shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases = [(RATE_SHAPE, (torch.int8, torch.bfloat16))] + [
+        (shape, (torch.int8, torch.bfloat16, torch.float32))
+        for shape in ((1000, 1000, 1000), (17, 33, 9))]
+    report, err_max = {}, 0.0
+    for (m, k, n), dtypes in cases:
+        for dtype in dtypes:
+            if dtype == torch.int8:
+                a, b = (torch.randint(-127, 128, s, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+                        for s in ((m, k), (k, n)))
+            else:
+                a, b = (torch.randn(s, generator=gen, device="cuda"
+                                    ).to(dtype) for s in ((m, k), (k, n)))
+            got = qc.matmul(a, b)
+            want = qc.matmul_reference(a, b)
+            torch.cuda.synchronize()
+            if dtype == torch.int8:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"GEMM int8 {(m, k, n)}: not equal")
+                err, lim = 0.0, 0.0
+            else:
+                err = float((got - want).abs().max())
+                lim = MM_RTOL * math.sqrt(k) * float(want.abs().max())
+                if not err <= lim:
+                    raise AssertionError(f"GEMM {dtype} {(m, k, n)}: max "
+                                         f"|diff| {err} > {lim}")
+            err_max = max(err_max, err)
+            line = (f"GEMM (M, K, N) = {(m, k, n)} {str(dtype)[6:]}: "
+                    f"max|diff| {err:.3e} (limit {lim:.3e})")
+            if (m, k, n) == RATE_SHAPE:
+                ops = 2.0 * m * k * n
+                esize = a.element_size()
+                bound_ms, bound_by = bound(
+                    ops, INT8_PEAK if dtype == torch.int8 else BF16_PEAK,
+                    esize * (m * k + k * n) + 4.0 * m * n)
+                row = {"ms": cuda_ms(lambda: qc.matmul(a, b), 20),
+                       "plain_ms": cuda_ms(lambda: qc.matmul_reference(a, b),
+                                           3, warmup=1),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": cuda_ms(
+                           (lambda: torch._int_mm(a, b)) if dtype == torch.int8
+                           else (lambda: torch.matmul(a, b)), 20)}
+                report[dtype] = row
+                unit = "TOP/s" if dtype == torch.int8 else "TFLOP/s"
+                line += (f"  kernel {row['ms']:.4f} ms "
+                         f"({ops / row['ms'] / 1e9:.1f} {unit})  plain "
+                         f"{row['plain_ms']:.4f} ms  bound {bound_ms:.4f} ms "
+                         f"({bound_by})  "
+                         f"{'torch._int_mm' if dtype == torch.int8 else 'torch.matmul'}"
+                         f" {row['library_ms']:.4f} ms")
+            print(line)
+            del a, b, got, want
+    return {"report": report[torch.int8], "max_abs_err": err_max}
+
+
+def phase_int8_experiment(qc) -> int:
+    """The ported int8 experiment, parts 1 and 2, with few repetitions;
+    returns the GEMM launches it made."""
+    from parrot_tts_tpu_torch.scripts import exp_int8_rate
+
+    qc.MATMUL.launches = 0
+    t0 = time.perf_counter()
+    exp_int8_rate.run(reps=3, out=lambda line: print(f"  {line}"))
+    launches = qc.MATMUL.launches
+    print(f"int8 experiment: {time.perf_counter() - t0:.2f} s, GEMM "
+          f"launches {launches}")
+    if launches == 0:
+        raise AssertionError("the int8 experiment never launched the GEMM")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1169,6 +1330,7 @@ def main() -> int:
     from parrot_tts_tpu_torch.ops import flash_dropout as fd
     from parrot_tts_tpu_torch.ops import fused_mrf as fm
     from parrot_tts_tpu_torch.ops import qconv as qc
+    from parrot_tts_tpu_torch.ops import quant
 
     phase_card()
     phase_build(kernels)
@@ -1184,11 +1346,16 @@ def main() -> int:
     fused_launches = phase_fused_serve(
         fm, tcfg, dataclasses.replace(vcfg, fused_mrf=True), base,
         mrf["checked"])
-    int8 = phase_int8_serve(
-        qc, tcfg, dataclasses.replace(vcfg, quant="int8-static"), base,
-        q8["checked"])
+    int8 = {mode: phase_int8_serve(
+        qc, tcfg, dataclasses.replace(vcfg, quant=mode), base, q8["checked"])
+        for mode in INT8_SITES}
+    print("int8 conv launches per serve: " + ", ".join(
+        f"{mode} {r['launches']}" for mode, r in int8.items())
+        + f" (total {sum(r['launches'] for r in int8.values())})")
+    phase_batch_invariance(quant)
     phase_profile(base["serve"], "float serve")
-    phase_profile(int8["serve"], "int8-static serve")
+    phase_profile(int8["int8-static"]["serve"], "int8-static serve")
+    phase_profile(int8["int8"]["serve"], "int8 serve")
     fdk = phase_flash_dropout(fd)
     # TTETrainConfig() defaults (batch 6, 4 micro-batches per step, the
     # reference's buckets) with an lr that is not 0 at the first update
@@ -1198,6 +1365,8 @@ def main() -> int:
                      set(KERNEL_SHAPES))
     phase_train_profile(tr["state"], tr["cfg"], train_cfg, tr["batch"],
                         tr["out_len"])
+    gemm = phase_gemm(qc)
+    gemm_launches = phase_int8_experiment(qc)
     rep = kern["report"]
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
@@ -1226,11 +1395,19 @@ def main() -> int:
         "route": "cuda",
         "source": "parrot_tts_tpu_torch/csrc/int8_conv.cu",
         "replaces": "parrot_tts_tpu/ops/pallas_qconv.py:42",
-        "launches": int8["launches"],
+        "launches": sum(r["launches"] for r in int8.values()),
         "max_abs_err": q8["max_abs_err"],
         **{k: q8["report"][k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")},
         "library_ms": None,
+    }, {
+        "name": "int8_gemm",
+        "route": "cuda",
+        "source": "parrot_tts_tpu_torch/csrc/int8_gemm.cu",
+        "replaces": "parrot_tts_tpu/ops/pallas_qconv.py:162",
+        "launches": gemm_launches,
+        "max_abs_err": gemm["max_abs_err"],
+        **gemm["report"],
     }] + [{
         "name": name,
         "route": "cuda",

@@ -10,6 +10,10 @@ modules load with `strict=True`. It is the inverse of the JAX package's
 
 Parameters only: a JAX run's optimizer state is not carried across,
 because the port's training checkpoints are its own (`core/checkpoint.py`).
+The vocoder's int8 serving modes need nothing more: their int8 weights are
+derived from the float state (`CodeGenerator.pack_int8`,
+`generator_staticq.quantize_generator`), and the int8 GEMM of `ops/qconv.py`
+has no weights.
 """
 
 from __future__ import annotations

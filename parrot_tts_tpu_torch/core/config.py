@@ -10,9 +10,9 @@ TPU-only fields. `dtype` and `fold_tail` select TPU layouts. `remat` /
 attention's saved (B, H, T, T) weights fit in memory; the port's training
 attention (`ops/flash_dropout.py`) never stores (B, H, T, T) scores, so
 there is nothing to rematerialise. The vocoder keeps `f0`, `fused_mrf` and
-`quant`; the port serves `fused_mrf=True` and `quant="int8-static"` and
-refuses `f0=True` and the dynamic `quant="int8"` / `"int8-tail"` until a
-later slice ports them.
+`quant`; the port serves `fused_mrf=True` and every `quant` mode ("int8",
+"int8-tail", "int8-static") and refuses `f0=True` until a later slice
+ports it.
 """
 
 from __future__ import annotations
@@ -111,10 +111,16 @@ class VocoderModelConfig:
     multispkr: str | None = "_"
     num_speakers: int = 10           # reference hardcodes nn.Embedding(10, ...) models.py:130
     # fused_mrf=True: the ResBlock1 stages below 128 channels run as one
-    # fused kernel each (ops/fused_mrf.py); quant="int8-static": every conv
-    # between conv_pre and conv_post runs int8 with calibrated static
-    # scales (models/vocoder/generator_staticq.py). Not ported yet: the
-    # generator raises on f0=True and on quant "int8" / "int8-tail".
+    # fused kernel each (ops/fused_mrf.py). quant: "none" | "int8" |
+    # "int8-tail" | "int8-static". "int8": every MRF conv and upsample runs
+    # int8 with per-batch-row activation scales taken on each call;
+    # "int8-tail": only those of the stages the JAX package folds
+    # (models/vocoder/generator.py::quant_plan; at V1 the 64-, 32- and
+    # 16-channel stages); int8 supersedes the fused MRF on a stage.
+    # "int8-static": every conv between conv_pre and conv_post runs int8
+    # with calibrated static scales (models/vocoder/generator_staticq.py).
+    # conv_pre and conv_post stay float32. Not ported yet: the generator
+    # raises on f0=True.
     f0: bool = False
     fused_mrf: bool = False
     quant: str = "none"

@@ -2,9 +2,10 @@
 
 Port of `parrot_tts_tpu/infer/synthesize.py::{VocoderSynthesizer,
 peak_normalize}`, single device: the float generator (with the fused MRF
-kernel under `fused_mrf=True`) and the int8-static generator
-(`quant="int8-static"`, calibrated explicitly or on the first served
-batch). Code sequences are
+kernel under `fused_mrf=True`), the dynamic int8 generator (`quant="int8"`
+or `"int8-tail"`: per-row activation scales taken on every call, nothing
+to calibrate) and the int8-static generator (`quant="int8-static"`,
+calibrated explicitly or on the first served batch). Code sequences are
 batched per length bucket (`CODE_BUCKETS`; longer sequences are cropped to
 the largest bucket, as in the JAX package), short rows are repeat-padded
 with their own codes, and each waveform is trimmed to len(units) * hop.
@@ -42,7 +43,8 @@ class VocoderSynthesizer:
     without one); pass "cpu" to run on the host. calib_margin scales the
     int8-static activation scales (quant="int8-static" only); `staticq`
     holds the int8-static state once calibrated. Under fused_mrf=True each
-    fused stage's weights are packed once, here."""
+    fused stage's weights are packed once, here, and under quant="int8" /
+    "int8-tail" every MRF conv's and upsample's int8 weight."""
 
     def __init__(self, state: dict, cfg: VocoderModelConfig, *,
                  sample_rate: int = 16_000,
@@ -59,6 +61,7 @@ class VocoderSynthesizer:
         self.model.load_state_dict(state, strict=True)
         self.model.to(self.device).eval()
         self.model.pack_fused_mrf()
+        self.model.pack_int8()
         self.calib_margin = calib_margin
         self.staticq: sq.StaticQ | None = None
         self.last_rtf: float | None = None

@@ -8,13 +8,17 @@ HuBERT codes and a speaker id, repeats the speaker vector over frames and
 concatenates channels.
 
 Activations are (B, T, C) at every function boundary, as in the JAX
-package; the convs are cuDNN's (`ops/conv.py`). Only the plain layout is
-ported, with no folded tail. `fused_mrf=True` runs each ResBlock1 stage
-below 128 channels as one fused kernel (`ops/fused_mrf.py`) when weight
-norm is folded, on weights packed once by `CodeGenerator.pack_fused_mrf`;
-`quant="int8-static"` is served by
-`generator_staticq.py`. f0 conditioning and the dynamic int8 modes are
-not ported.
+package; the float convs are cuDNN's (`ops/conv.py`). Only the plain
+layout is ported, with no folded tail. `fused_mrf=True` runs each ResBlock1
+stage below 128 channels as one fused kernel (`ops/fused_mrf.py`) when
+weight norm is folded, on weights packed once by
+`CodeGenerator.pack_fused_mrf`. The dynamic int8 modes run their sites as
+the dynamic int8 conv (`ops/quant.py`, the kernel `csrc/int8_conv.cu` on
+the card), on int8 weights quantized once by `CodeGenerator.pack_int8`:
+"int8" every MRF conv and upsample, "int8-tail" those of the stages the
+JAX package folds (`quant_plan`). int8 supersedes the fused MRF on a
+stage, as in the JAX package. `quant="int8-static"` is served by
+`generator_staticq.py`. f0 conditioning is not ported.
 
 Weight norm is kept as plain `weight_g` / `weight_v` parameters under the
 reference's state_dict keys; `fold_params` collapses them into `weight`
@@ -33,12 +37,15 @@ from parrot_tts_tpu_torch.core.device import exact_numerics, resolve_device
 from parrot_tts_tpu_torch.ops import conv as conv_ops
 from parrot_tts_tpu_torch.ops import fused_mrf
 from parrot_tts_tpu_torch.ops import init as init_ops
+from parrot_tts_tpu_torch.ops import quant as quant_ops
 from parrot_tts_tpu_torch.ops.weight_norm import wn_init, wn_resolve
 
 LRELU_SLOPE = 0.1  # reference models.py:11
 # the JAX package fuses the stages it folds, those below its 128-lane
 # target (generator.py:142, 219-222): 64, 32 and 16 channels at V1
 FUSED_BELOW_CHANNELS = 128
+LANE_TARGET = 128      # the JAX package's apply_generator(lane_target=128)
+DYNAMIC_QUANT = ("int8", "int8-tail")
 
 
 class WNConv(nn.Module):
@@ -59,6 +66,15 @@ class WNConv(nn.Module):
         if hasattr(self, "weight_v"):
             return wn_resolve(self.weight_g, self.weight_v)
         return self.weight
+
+    def int8(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The int8 weight (K, Co, Ci) and its (Co,) scales that
+        `CodeGenerator.pack_int8` made of this conv."""
+        if not hasattr(self, "qweight"):
+            raise RuntimeError("quant='int8' / 'int8-tail': quantize the "
+                               "weights with model.pack_int8() once they "
+                               "are loaded")
+        return self.qweight, self.qscale
 
 
 def _conv1d(channels_in: int, channels_out: int, k: int, wn: bool) -> WNConv:
@@ -94,28 +110,37 @@ class ResBlock2(nn.Module):
         return apply_resblock2(self, x)
 
 
-def apply_resblock1(rb: ResBlock1, x: torch.Tensor) -> torch.Tensor:
+def _conv(c: WNConv, x: torch.Tensor, *, padding: int, dilation: int = 1,
+          quant: bool = False, leaky: float | None = None) -> torch.Tensor:
+    """The conv c on x, in float or (quant) as the dynamic int8 conv on
+    c's packed int8 weight; `leaky` is the ReLU that follows it."""
+    return conv_ops.conv1d(x, c.kernel(), c.bias, padding=padding,
+                           dilation=dilation, quant=quant,
+                           qweight=c.int8() if quant else None, leaky=leaky)
+
+
+def apply_resblock1(rb: ResBlock1, x: torch.Tensor,
+                    quant: bool = False) -> torch.Tensor:
     """ResBlock1 (reference models.py:13-44): pairs of (dilated, plain)
     convs with leaky relus and residual adds."""
     k = rb.kernel_size
     for c1, c2, d in zip(rb.convs1, rb.convs2, rb.dilations):
         xt = F.leaky_relu(x, LRELU_SLOPE)
-        xt = conv_ops.conv1d(xt, c1.kernel(), c1.bias,
-                             padding=conv_ops.get_padding(k, d), dilation=d)
-        xt = F.leaky_relu(xt, LRELU_SLOPE)
-        xt = conv_ops.conv1d(xt, c2.kernel(), c2.bias,
-                             padding=conv_ops.get_padding(k, 1))
+        xt = _conv(c1, xt, padding=conv_ops.get_padding(k, d), dilation=d,
+                   quant=quant, leaky=LRELU_SLOPE)
+        xt = _conv(c2, xt, padding=conv_ops.get_padding(k, 1), quant=quant)
         x = xt + x
     return x
 
 
-def apply_resblock2(rb: ResBlock2, x: torch.Tensor) -> torch.Tensor:
+def apply_resblock2(rb: ResBlock2, x: torch.Tensor,
+                    quant: bool = False) -> torch.Tensor:
     """ResBlock2 (reference models.py:47-66)."""
     k = rb.kernel_size
     for c, d in zip(rb.convs, rb.dilations):
         xt = F.leaky_relu(x, LRELU_SLOPE)
-        xt = conv_ops.conv1d(xt, c.kernel(), c.bias,
-                             padding=conv_ops.get_padding(k, d), dilation=d)
+        xt = _conv(c, xt, padding=conv_ops.get_padding(k, d), dilation=d,
+                   quant=quant)
         x = xt + x
     return x
 
@@ -126,10 +151,11 @@ class CodeGenerator(nn.Module):
 
     def __init__(self, cfg: VocoderModelConfig, *, weight_norm: bool = True):
         super().__init__()
-        if cfg.f0 or cfg.quant not in ("none", "int8-static"):
+        if cfg.f0:
             raise NotImplementedError(
-                "the port does not serve f0 conditioning or the dynamic "
-                "int8 modes yet (f0=False, quant 'none' or 'int8-static')")
+                "the port does not serve f0 conditioning yet (f0=False)")
+        if cfg.quant not in ("none", "int8-static", *DYNAMIC_QUANT):
+            raise ValueError(f"unknown quant mode {cfg.quant!r}")
         self.cfg = cfg
         wn = weight_norm
         c0 = cfg.upsample_initial_channel
@@ -159,15 +185,79 @@ class CodeGenerator(nn.Module):
         self.mrf_plans = {}
         with torch.no_grad():
             for i in range(len(self.cfg.upsample_rates)):
-                if _fuses(self, i):
+                # "int8" quantizes every stage; which stages "int8-tail"
+                # quantizes depends on the length served
+                if _fuses(self, i, quant=self.cfg.quant == "int8"):
                     w, b, plan = pack_stage(self, i)
                     self.register_buffer(f"mrf_w{i}", w, persistent=False)
                     self.register_buffer(f"mrf_b{i}", b, persistent=False)
                     self.mrf_plans[i] = plan
 
+    def pack_int8(self) -> None:
+        """Under quant "int8" / "int8-tail", quantize the weight of every
+        MRF conv and every upsample (in its polyphase form) once, for
+        serving: per conv an int8 (K, Co, Ci) kernel and its (Co,) scales
+        as buffers (moved with the module, left out of its state_dict). A
+        no-op in the other modes. Call it after the final weights are
+        loaded; weights changed later need a new call."""
+        if self.cfg.quant not in DYNAMIC_QUANT:
+            return
+        with torch.no_grad():
+            for i, (u, k) in enumerate(zip(self.cfg.upsample_rates,
+                                           self.cfg.upsample_kernel_sizes)):
+                up = self.ups[i]
+                if conv_ops.polyphase_applies(k, u, (k - u) // 2):
+                    w = conv_ops.polyphase_weights(
+                        up.kernel().permute(2, 0, 1), u, (k - u) // 2)[0]
+                    _register_int8(up, quant_ops.quantize_weight(w))
+            for rb in self.resblocks:
+                for c in rb.modules():
+                    if isinstance(c, WNConv):
+                        _register_int8(c, quant_ops.quantize_weight(
+                            c.kernel().permute(2, 1, 0)))
+
     def forward(self, code: torch.Tensor,
                 spkr: torch.Tensor | None) -> torch.Tensor:
         return _code_generator(self, code, spkr)
+
+
+def _register_int8(c: WNConv, qweight: tuple) -> None:
+    c.register_buffer("qweight", qweight[0], persistent=False)
+    c.register_buffer("qscale", qweight[1], persistent=False)
+
+
+def _quant_stage(cfg: VocoderModelConfig, g: int) -> bool:
+    """Whether a site at fold factor g runs int8 (JAX generator.py:85-91)."""
+    if cfg.quant == "int8":
+        return True
+    if cfg.quant == "int8-tail":
+        return g > 1
+    return False
+
+
+def quant_plan(cfg: VocoderModelConfig, t: int) -> list[tuple[bool, bool]]:
+    """Per upsample stage, whether its upsample and its MRF convs run int8
+    for t frames at conv_pre. The port has no fold; it keeps the JAX
+    package's bookkeeping of the fold factor g (generator.py:202-222 with
+    its defaults fold_tail=True, lane_target=128) as arithmetic only, so
+    "int8-tail" quantizes the sites JAX quantizes: while g = 1, a stage
+    with cout < 128 folds by want = 128 // cout right after its upsample
+    when its length is a multiple of want; each later upsample multiplies g
+    by its stride; a stage's MRF runs int8 iff g > 1 there, an upsample iff
+    g > 1 before it. "int8" quantizes every site."""
+    plan, g = [], 1
+    for i, u in enumerate(cfg.upsample_rates):
+        cout = cfg.upsample_initial_channel // (2 ** (i + 1))
+        ups_q = _quant_stage(cfg, g)
+        t *= u
+        if g > 1:
+            g *= u
+        else:
+            want = max(1, LANE_TARGET // cout)
+            if want > 1 and t % want == 0:
+                g = want
+        plan.append((ups_q, _quant_stage(cfg, g)))
+    return plan
 
 
 def apply_generator(model: CodeGenerator, x: torch.Tensor) -> torch.Tensor:
@@ -175,21 +265,26 @@ def apply_generator(model: CodeGenerator, x: torch.Tensor) -> torch.Tensor:
     model_in_dim) -> waveform (B, T*prod(upsample_rates), 1)."""
     cfg = model.cfg
     nk = len(cfg.resblock_kernel_sizes)
+    apply_rb = apply_resblock1 if cfg.resblock == "1" else apply_resblock2
+    plan = quant_plan(cfg, x.shape[1])
     x = conv_ops.conv1d(x, model.conv_pre.kernel(), model.conv_pre.bias,
                         padding=3)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates,
                                    cfg.upsample_kernel_sizes)):
+        ups_q, mrf_q = plan[i]
         x = F.leaky_relu(x, LRELU_SLOPE)
-        up = model.ups[i]
-        x = conv_ops.conv_transpose1d(x, up.kernel(), up.bias, stride=u,
-                                      padding=(k - u) // 2)
-        y = _mrf_stage_fused(model, i, x)
+        up, pad = model.ups[i], (k - u) // 2
+        packed = ups_q and conv_ops.polyphase_applies(k, u, pad)
+        x = conv_ops.conv_transpose1d(
+            x, up.kernel(), up.bias, stride=u, padding=pad, quant=ups_q,
+            qweight=up.int8() if packed else None)
+        y = _mrf_stage_fused(model, i, x, mrf_q)
         if y is not None:
             x = y
         else:
             acc = None
             for rb in model.resblocks[i * nk:(i + 1) * nk]:
-                y = rb(x)
+                y = apply_rb(rb, x, mrf_q)
                 acc = y if acc is None else acc + y
             x = acc / nk
     # final leaky uses torch's DEFAULT slope 0.01 (reference models.py:107)
@@ -199,23 +294,24 @@ def apply_generator(model: CodeGenerator, x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
 
 
-def _fuses(model: CodeGenerator, i: int) -> bool:
+def _fuses(model: CodeGenerator, i: int, quant: bool) -> bool:
     """Whether stage i takes the fused route: the stages the JAX package
     fuses (fused_mrf=True, ResBlock1, fewer than 128 channels) with weight
-    norm folded. The choice depends on the configuration only."""
+    norm folded, unless its MRF runs int8 (quant), which supersedes the
+    fused kernel as in the JAX package."""
     cfg = model.cfg
-    return (cfg.fused_mrf and cfg.resblock == "1"
+    return (not quant and cfg.fused_mrf and cfg.resblock == "1"
             and (cfg.upsample_initial_channel // 2 ** (i + 1)
                  < FUSED_BELOW_CHANNELS)
             and not hasattr(model.conv_pre, "weight_v"))
 
 
-def _mrf_stage_fused(model: CodeGenerator, i: int, x: torch.Tensor
-                     ) -> torch.Tensor | None:
+def _mrf_stage_fused(model: CodeGenerator, i: int, x: torch.Tensor,
+                     quant: bool) -> torch.Tensor | None:
     """Stage i's whole MRF in one kernel (`ops/fused_mrf.py`) on its packed
     weights; None (the caller runs the composition) where `_fuses` says
     no."""
-    if not _fuses(model, i):
+    if not _fuses(model, i, quant):
         return None
     if i not in model.mrf_plans:
         raise RuntimeError("fused_mrf=True: pack the fused stages with "

@@ -17,7 +17,7 @@ import torch
 from parrot_tts_tpu_torch.core.device import exact_numerics
 from parrot_tts_tpu_torch.ops import flash_attention as fa
 from parrot_tts_tpu_torch.ops import flash_dropout as fd
-from parrot_tts_tpu_torch.ops import fused_mrf, qconv
+from parrot_tts_tpu_torch.ops import fused_mrf, qconv, quant
 
 
 @pytest.fixture
@@ -192,6 +192,110 @@ def test_int8_conv_bit_identical_to_plain_on_card(cuda_device, b, t, ci, co,
     want = qconv.int8_conv_reference(xq, wq, scale, bvec, pads=pads,
                                      dilation=dil, leaky=leaky)
     assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,ci,co,k,dil,pads,leaky", [
+    (3, 1250, 256, 256, 11, 5, (25, 25), 0.1),     # a V1 stage-1 MRF conv
+    (2, 1250, 256, 512, 3, 1, (1, 1), None),       # stage-2 polyphase upsample
+    (2, 999, 16, 16, 7, 1, (3, 3), None),          # narrow, ragged T
+])
+def test_dynamic_int8_conv_on_card_equals_cpu(cuda_device, b, t, ci, co, k,
+                                              dil, pads, leaky):
+    """The dynamic int8 conv (per-row quantize, the kernel with the (B, Co)
+    scale s_x[b]*s_w[co]) on the card gives the bits of its CPU run, which
+    takes the plain version: the quantizer is exact IEEE arithmetic on
+    both devices."""
+    rng = np.random.default_rng(t)
+    x = torch.from_numpy((rng.standard_normal((b, t, ci))
+                          * rng.random((b, 1, 1)) * 3).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, ci, co)) * 0.05)
+                         .astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(co).astype(np.float32))
+    want = quant.int8_conv_nwc(x, w, bias, pads=pads, rhs_dilation=dil,
+                               leaky=leaky)
+    before = qconv.INT8_CONV.launches
+    got = quant.int8_conv_nwc(x.to(cuda_device), w.to(cuda_device),
+                              bias.to(cuda_device), pads=pads,
+                              rhs_dilation=dil, leaky=leaky)
+    torch.cuda.synchronize()
+    assert qconv.INT8_CONV.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_dynamic_int8_conv_batch_invariant_on_card(cuda_device):
+    """A quiet row gives the same bits alone and beside a loud row."""
+    rng = np.random.default_rng(3)
+    quiet = torch.from_numpy((rng.standard_normal((1, 640, 64)) * 0.01)
+                             .astype(np.float32)).to(cuda_device)
+    loud = torch.from_numpy((rng.standard_normal((1, 640, 64)) * 10.0)
+                            .astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.standard_normal((3, 64, 64)) * 0.2)
+                         .astype(np.float32)).to(cuda_device)
+    solo = quant.int8_conv_nwc(quiet, w, None, pads=(1, 1))
+    pair = quant.int8_conv_nwc(torch.cat([quiet, loud]), w, None, pads=(1, 1))
+    assert torch.equal(solo[0], pair[0])
+
+
+# ---- row 8: the GEMM (ops/qconv.py::matmul, csrc/int8_gemm.cu) --------------
+
+# bf16 and float32: the kernel and the plain float32 matmul sum the same
+# float32 products (bf16 products are exact in float32) in another order.
+# Two orders of K float32 sums of random terms differ by about
+# 2^-24 * sqrt(K) * max |sum| / 6 typically; MM_RTOL * sqrt(K) * max |plain|
+# leaves a margin of ~1000 and still catches a wrong tile, row or column,
+# which errs by the order of max |plain|.
+MM_RTOL = 1e-5
+
+
+def _mm_inputs(rng, m, k, n, dtype, device="cpu"):
+    if dtype == torch.int8:
+        a, b = (rng.integers(-127, 128, size=s).astype(np.int8)
+                for s in ((m, k), (k, n)))
+        return torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+    a, b = (rng.standard_normal(s).astype(np.float32) for s in ((m, k), (k, n)))
+    return (torch.from_numpy(a).to(device, dtype),
+            torch.from_numpy(b).to(device, dtype))
+
+
+def mm_close(got, want, k) -> None:
+    """The kernel's result against the plain one: int32 equal, float within
+    MM_RTOL * sqrt(K) of max |plain|."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.int32:
+        assert torch.equal(got, want)
+        return
+    err = float((got - want).abs().max())
+    assert err <= MM_RTOL * math.sqrt(k) * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (17, 33, 9), (128, 256, 128),
+                                   (1000, 1000, 1000), (300, 4096, 260)])
+def test_matmul_kernel_matches_plain_on_card(cuda_device, m, k, n, dtype):
+    rng = np.random.default_rng(m + k + n)
+    a, b = _mm_inputs(rng, m, k, n, dtype, cuda_device)
+    before = qconv.MATMUL.launches
+    got = qconv.matmul(a, b)
+    torch.cuda.synchronize()
+    assert qconv.MATMUL.launches == before + 1
+    mm_close(got, qconv.matmul_reference(a, b), k)
+
+
+@pytest.mark.cuda
+def test_matmul_kernel_takes_an_unaligned_row(cuda_device):
+    """A view whose rows start off a 16-byte boundary is read bytewise."""
+    rng = np.random.default_rng(5)
+    a, b = _mm_inputs(rng, 64, 128, 70, torch.int8, cuda_device)
+    buf = torch.empty(a.numel() + 1, dtype=torch.int8, device=cuda_device)
+    a_off = buf[1:].view(64, 128)
+    a_off.copy_(a)
+    assert a_off.is_contiguous() and a_off.data_ptr() % 16 != 0
+    got = qconv.matmul(a_off, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv.matmul_reference(a, b))
 
 
 # ---- row 6: the fused MRF stage (ops/fused_mrf.py, csrc/fused_mrf.cu) -------

@@ -84,6 +84,10 @@ def test_peak_normalize_matches_jax(rng, kind):
 
 
 def test_unported_generator_options_raise():
-    for kw in ({"f0": True}, {"quant": "int8"}, {"quant": "int8-tail"}):
-        with pytest.raises(NotImplementedError):
-            gen.CodeGenerator(VocoderModelConfig(**SMALL, **kw))
+    """f0 conditioning is not ported; every quant mode is."""
+    with pytest.raises(NotImplementedError):
+        gen.CodeGenerator(VocoderModelConfig(**SMALL, f0=True))
+    for mode in ("none", "int8", "int8-tail", "int8-static"):
+        gen.CodeGenerator(VocoderModelConfig(**SMALL, quant=mode))
+    with pytest.raises(ValueError):
+        gen.CodeGenerator(VocoderModelConfig(**SMALL, quant="int4"))
