@@ -53,13 +53,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. profile: one more float serve, int8-static serve and "int8" serve under
    torch.profiler (device time by kernel, the device's busy and idle share);
 10. flash attention with dropout against plain: the forward, dQ (with the
-   D = rowsum(dO . O) it writes) and dK/dV kernels (rows 2-4) at B=6, H=2, d_head 128 and every T the training
-   phase gives them (128, 256, 512, 1024, 2048, 3584), a ragged T and a
-   d_head 64 case, each with a row whose keys are all padded, at p = 0 and
-   0.1 on the same mask (max |diff| <= 2^-8 of max |plain|, rms <= 1e-4 of
-   rms); the keep-mask kernel (row 5) bit-identical to its plain Philox and
-   its keep rate within 5 sigma of 0.9; kernel, plain, bound and
-   scaled_dot_product_attention ms;
+   D = rowsum(dO . O) and the keep bits it writes) and dK/dV kernels (rows
+   2-4) at B=6, H=2, d_head 128 and every T the training phase gives them
+   (128, 256, 512, 1024, 2048, 3584), a ragged T and a d_head 64 case, each
+   with a row whose keys are all padded, at p = 0 and 0.1 on the same mask
+   (max |diff| <= 2^-8 of max |plain|, rms <= 1e-4 of rms); dQ's keep bits
+   equal to the plain mask's; a second dQ and dK/dV launch on the same
+   inputs gives the same bits (determinism); the keep-mask kernel (row 5)
+   bit-identical to its plain Philox and its keep rate within 5 sigma of
+   0.9; kernel, plain, bound and scaled_dot_product_attention ms, dQ and
+   dK/dV at p = 0 beside p = 0.1, the backward as training runs it (the
+   autograd function: bf16 casts, dQ, dK/dV) at both p, and the registers
+   and spills of every kernel of csrc/flash_dropout.cu from phase 2;
 11. training at full width: TTEModelConfig(n_speaker=4) and TTETrainConfig
    defaults (warmup 0, so the first update moves the weights) through
    pipeline/train_tte.run for 2 optimizer steps (8 micro-batches, bucket
@@ -92,6 +97,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -237,7 +243,8 @@ def phase_card() -> str:
     return smi
 
 
-def phase_build(kernels) -> None:
+def phase_build(kernels) -> dict:
+    """Build every source; print and return each one's ptxas report."""
     t0 = time.perf_counter()
     logs = kernels.build("flash_attn_fwd", "fused_mrf", "int8_conv",
                          "flash_dropout", "int8_gemm")
@@ -245,8 +252,28 @@ def phase_build(kernels) -> None:
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
-                                       "spill")):
+                                       "spill", "warning")):
                 print(f"  {name}: {line.strip()}")
+    return logs
+
+
+def ptxas_registers(log: str) -> dict:
+    """{kernel<D>: (registers, spill store bytes, spill load bytes)} of
+    each templated kernel in one source's ptxas report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "entry function" in line:
+            m = re.search(r"(fwd|dq|dkv)_kernelILi(\d+)E", line)
+            name = m and f"{m.group(1)}_kernel<{m.group(2)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = (out.get(name, (0,))[0], int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m[1]),) + out.get(name, (0, 0, 0))[1:]
+    return out
 
 
 def phase_kernel(fa, exact_numerics) -> dict:
@@ -851,12 +878,17 @@ def fd_bounds(b: int, h: int, t: int, d: int) -> dict:
             "keep_mask": bound(0.0, BF16_PEAK, 4.0 * b * h * t * t)}
 
 
-def phase_flash_dropout(fd) -> dict:
+def phase_flash_dropout(fd, registers: dict) -> dict:
     """Rows 2-5 against their plain versions at every FD_SHAPES shape, at
-    p = 0 and p = FD_P, on the same mask; then each one's time, its plain
-    version's, its bound and scaled_dot_product_attention's."""
+    p = 0 and p = FD_P, on the same mask, dQ's keep bits against the plain
+    mask's and two backward launches against each other; then each one's
+    time, its plain version's, its bound and scaled_dot_product_attention's,
+    and dQ and dK/dV at p = 0. `registers`: ptxas_registers of the source."""
     import torch.nn.functional as F
 
+    for name, (regs, st, ld) in sorted(registers.items()):
+        print(f"ptxas {name}: {regs} registers, spill stores {st} bytes, "
+              f"spill loads {ld} bytes")
     rng = np.random.default_rng(SEED + 3)
     dev = torch.device("cuda")
     rows = []
@@ -880,14 +912,27 @@ def phase_flash_dropout(fd) -> dict:
             want_o, want_lse = fd.flash_attention_dropout_reference(
                 q, k, v, bias, seed, p, scale)
             # both backward versions on the plain forward's O and lse, and
-            # both dK/dV on the plain D
+            # both dK/dV on the plain D; the kernel's dK/dV on dQ's bits,
+            # the plain one on the mask drawn from the seed
             qkv, rest = (q, k, v, bias, seed), (want_lse, do, p, scale)
-            dq, delta = fd.flash_dropout_dq(*qkv, want_o, *rest)
+            ops = fd.to_bf16(q, k, v, do)
+            dq, delta, bits = fd.flash_dropout_dq(*qkv, want_o, *rest,
+                                                  operands=ops)
             want_dq, want_delta = fd.flash_dropout_dq_reference(
                 *qkv, want_o, *rest)
-            dk, dv = fd.flash_dropout_dkv(*qkv, want_delta, *rest)
+            dk, dv = fd.flash_dropout_dkv(*qkv, want_delta, *rest, bits=bits,
+                                          operands=ops)
+            again = (*fd.flash_dropout_dq(*qkv, want_o, *rest, operands=ops),
+                     *fd.flash_dropout_dkv(*qkv, want_delta, *rest,
+                                           bits=bits, operands=ops))
             torch.cuda.synchronize()
             tag = f"B={b} T={t} d={d} p={p}"
+            if not all(x is y or torch.equal(x, y) for x, y in
+                       zip((dq, delta, bits, dk, dv), again)):
+                raise AssertionError(f"backward {tag}: two launches differ")
+            if p and not torch.equal(bits, fd.pack_keep_bits(
+                    fd.keep_mask_reference(b, h, t, seed, p, dev))):
+                raise AssertionError(f"dQ keep bits {tag}: not the mask's")
             torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
             want_dk, want_dv = fd.flash_dropout_dkv_reference(
                 *qkv, want_delta, *rest)
@@ -899,7 +944,7 @@ def phase_flash_dropout(fd) -> dict:
                     e, r = fd_compare(got, want, f"{what} {tag}")
                     err[name], rms[name] = max(err[name], e), max(rms[name], r)
             del (o, lse, want_o, want_lse, dq, delta, want_dq, want_delta, dk,
-                 dv, want_dk, want_dv)
+                 dv, want_dk, want_dv, bits, again, ops)
         seed = SEED + 7 * t + int(100 * FD_P)
         mask = fd.keep_mask(b, h, t, seed, FD_P, dev)
         torch.cuda.synchronize()
@@ -913,17 +958,36 @@ def phase_flash_dropout(fd) -> dict:
                                  f"{1 - FD_P}")
         del mask
 
-        # times at the training setting, p = FD_P
+        # times at the training setting, p = FD_P: dQ and dK/dV as the
+        # backward launches them, on operands cast to bf16 once; both at
+        # p = 0, without the mask; and the backward as training runs it
+        # (the autograd function's: the casts, dQ, dK/dV) at both p
         o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, FD_P, scale)
         qkv, rest = (q, k, v, bias, seed), (lse, do, FD_P, scale)
-        _, delta = fd.flash_dropout_dq(*qkv, o, *rest)
+        ops = fd.to_bf16(q, k, v, do)
+        _, delta, bits = fd.flash_dropout_dq(*qkv, o, *rest, operands=ops)
         reps = max(3, min(50, int(3e5 / t)))
         plain_reps = max(2, reps // 10)
+
+        def backward_ms(p):
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            out = fd.flash_attention_dropout(qg, kg, vg, bias, seed, p, scale)
+            return cuda_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True), reps)
+
         kern = {"fwd": lambda: fd.flash_dropout_fwd(q, k, v, bias, seed,
                                                     FD_P, scale),
-                "dq": lambda: fd.flash_dropout_dq(*qkv, o, *rest),
-                "dkv": lambda: fd.flash_dropout_dkv(*qkv, delta, *rest),
+                "dq": lambda: fd.flash_dropout_dq(*qkv, o, *rest,
+                                                  operands=ops),
+                "dkv": lambda: fd.flash_dropout_dkv(*qkv, delta, *rest,
+                                                    bits=bits, operands=ops),
                 "keep_mask": lambda: fd.keep_mask(b, h, t, seed, FD_P, dev)}
+        rest0 = (lse, do, 0.0, scale)
+        p0_ms = {"dq": cuda_ms(lambda: fd.flash_dropout_dq(
+                     *qkv, o, *rest0, operands=ops), reps),
+                 "dkv": cuda_ms(lambda: fd.flash_dropout_dkv(
+                     *qkv, delta, *rest0, bits=None, operands=ops), reps)}
+        autograd_ms = {FD_P: backward_ms(FD_P), 0.0: backward_ms(0.0)}
         plain = {"fwd": lambda: fd.flash_attention_dropout_reference(
                      q, k, v, bias, seed, FD_P, scale),
                  "dq": lambda: fd.flash_dropout_dq_reference(*qkv, o, *rest),
@@ -931,7 +995,8 @@ def phase_flash_dropout(fd) -> dict:
                      *qkv, delta, *rest),
                  "keep_mask": lambda: fd.keep_mask_reference(
                      b, h, t, seed, FD_P, dev)}
-        row = {"B": b, "H": h, "T": t, "d": d, "err": err}
+        row = {"B": b, "H": h, "T": t, "d": d, "err": err, "p0_ms": p0_ms,
+               "autograd_ms": autograd_ms}
         for name in kern:
             row[name] = {"ms": cuda_ms(kern[name], reps),
                          "plain_ms": cuda_ms(plain[name], plain_reps,
@@ -963,10 +1028,19 @@ def phase_flash_dropout(fd) -> dict:
             lib = ("" if r["library_ms"] is None else
                    f"  sdpa {'fwd' if name == 'fwd' else 'bwd'} "
                    f"{r['library_ms']:.4f} ms")
-            print(f"  {name:9s} kernel {r['ms']:.4f} ms  plain "
+            p0 = (f"  (p=0: {p0_ms[name]:.4f} ms, mask share "
+                  f"{1 - p0_ms[name] / r['ms']:.1%})" if name in p0_ms
+                  else "")
+            print(f"  {name:9s} kernel {r['ms']:.4f} ms{p0}  plain "
                   f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}){lib}")
-        del q, k, v, do, o, lse, delta, qb, kb, vb, qg, kg, vg, out, dob
+        print(f"  backward as training runs it (autograd: bf16 casts, dQ, "
+              f"dK/dV) {autograd_ms[FD_P]:.4f} ms (p=0: "
+              f"{autograd_ms[0.0]:.4f} ms); dQ + dK/dV alone "
+              f"{row['dq']['ms'] + row['dkv']['ms']:.4f} ms; sdpa bwd "
+              f"{bwd_ms:.4f} ms")
+        del (q, k, v, do, o, lse, delta, qb, kb, vb, qg, kg, vg, out, dob,
+             ops, bits)
     # per micro-step at the largest bucket pair: 4 encoder launches at
     # T=256 and 4 decoder launches at T=3584
     step = [r for r in rows if (r["T"], r["d"]) in ((256, 128), (3584, 128))]
@@ -978,10 +1052,16 @@ def phase_flash_dropout(fd) -> dict:
                                     "library_ms")}
         report[name]["bound_by"] = max(step, key=lambda r: r[name][
             "bound_ms"])[name]["bound_by"]
+        p0 = (f" (p=0: {4 * sum(r['p0_ms'][name] for r in step):.4f} ms)"
+              if name in step[0]["p0_ms"] else "")
         print(f"{name} per (256, 3584) micro-step (8 launches): kernel "
-              f"{report[name]['ms']:.4f} ms  plain "
+              f"{report[name]['ms']:.4f} ms{p0}  plain "
               f"{report[name]['plain_ms']:.4f} ms  bound "
               f"{report[name]['bound_ms']:.4f} ms")
+    print("backward as training runs it, per (256, 3584) micro-step: "
+          + ", ".join(f"p={p}: {4 * sum(r['autograd_ms'][p] for r in step):.4f}"
+                      " ms" for p in (FD_P, 0.0))
+          + f"; sdpa bwd {report['dq']['library_ms']:.4f} ms")
     print(f"keep-mask kernel: {fd.KEEP_MASK.launches} launches in this "
           "phase, its oracle role (training never launches it)")
     return {"report": report,
@@ -1187,15 +1267,19 @@ def phase_train(fd, fa, tcfg, train_cfg, pairs, checked: set,
             return float(total.detach()), torch.autograd.grad(total,
                                                               params)
 
+    def plain_dq(*args, operands):
+        return (*fd.flash_dropout_dq_reference(*args), None)
+
+    def plain_dkv(*args, bits, operands):
+        return fd.flash_dropout_dkv_reference(*args)
+
     before = fd.FWD.launches
     loss_k, grads_k = loss_and_grads()
     kernel_launches = fd.FWD.launches - before
     with mock.patch.object(fd, "flash_dropout_fwd",
                            fd.flash_attention_dropout_reference), \
-            mock.patch.object(fd, "flash_dropout_dq",
-                              fd.flash_dropout_dq_reference), \
-            mock.patch.object(fd, "flash_dropout_dkv",
-                              fd.flash_dropout_dkv_reference):
+            mock.patch.object(fd, "flash_dropout_dq", plain_dq), \
+            mock.patch.object(fd, "flash_dropout_dkv", plain_dkv):
         loss_p, grads_p = loss_and_grads()
     if device is None and kernel_launches != n_blocks:
         raise AssertionError(f"{kernel_launches} forward launches")
@@ -1333,7 +1417,7 @@ def main() -> int:
     from parrot_tts_tpu_torch.ops import quant
 
     phase_card()
-    phase_build(kernels)
+    build = phase_build(kernels)
     kern = phase_kernel(fa, exact_numerics)
     # full width: d_model 256, 4+4 FFT blocks of 2 heads, V1 vocoder
     tcfg, vcfg = TTEModelConfig(n_speaker=4), VocoderModelConfig()
@@ -1356,7 +1440,7 @@ def main() -> int:
     phase_profile(base["serve"], "float serve")
     phase_profile(int8["int8-static"]["serve"], "int8-static serve")
     phase_profile(int8["int8"]["serve"], "int8 serve")
-    fdk = phase_flash_dropout(fd)
+    fdk = phase_flash_dropout(fd, ptxas_registers(build["flash_dropout"]))
     # TTETrainConfig() defaults (batch 6, 4 micro-batches per step, the
     # reference's buckets) with an lr that is not 0 at the first update
     train_cfg = TTETrainConfig(warmup_steps=0, log_every=1, val_every=2,

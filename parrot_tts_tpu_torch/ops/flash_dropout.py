@@ -12,7 +12,10 @@ M the keep mask, p the dropout probability and c = 1/(1-p):
     dQ = scale dS K    dK = scale dS^T Q    dV = (M . P * c)^T dO
 
 The dQ step computes D along with dQ and returns it; the dK/dV step reads
-it, so D is reduced once per backward.
+it, so D is reduced once per backward. Under dropout the dQ kernel also
+returns the keep mask as bits (`pack_keep_bits` is their oracle), which the
+dK/dV kernel requires: on the card the mask is drawn once per backward and
+never silently redrawn. The plain versions draw it from the seed.
 
 Every operand of the five products is rounded to bf16 and each product is
 summed in float32, as the JAX package's `_dot` does. Products of bf16
@@ -26,6 +29,12 @@ reads word j mod 4 of Philox4x32-10 with key (seed lo, seed hi) at counter
 mask is a function of (seed, bh, i, j) alone: the forward, dQ and dK/dV
 kernels regenerate it under any tiling, and so does `keep_mask_reference`
 in torch integer ops on any device.
+
+The backward casts Q, K, V and dO to bf16 once (`to_bf16`, round to nearest
+even, as the kernels round) and hands both wrappers those operands, which
+the kernels require: they take them by TMA into shared memory and multiply
+with wgmma (csrc/flash_dropout.cu says how). The plain versions round their
+own.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches
 `csrc/flash_dropout.cu` (rows 2-5 of PERF.md's kernel table) or raises.
@@ -109,6 +118,20 @@ def keep_mask_reference(b: int, h: int, t: int, seed: int, dropout_p: float,
     keep = torch.stack(words, dim=-1) >= threshold(dropout_p)
     keep = keep.reshape(b * h, t, -1)[:, :, :t]
     return keep.to(torch.int32).reshape(b, h, t, t)
+
+
+def pack_keep_bits(keep: torch.Tensor) -> torch.Tensor:
+    """A (B, H, T, T) keep mask (nonzero = keep) as (B*H, T, ceil(T/32))
+    words: bit j % 32 of word j // 32 of row (bh, i) is element (bh, i, j),
+    bits past T are 0. The words are uint32 bit patterns held in int32 (the
+    dQ kernel's output, of which this is the oracle)."""
+    b, h, t, _ = keep.shape
+    w = -(-t // 32)
+    x = torch.zeros((b * h, t, 32 * w), dtype=torch.int64, device=keep.device)
+    x[..., :t] = keep.reshape(b * h, t, t).ne(0)
+    x = x.reshape(b * h, t, w, 32).bitwise_left_shift(
+        torch.arange(32, device=keep.device)).sum(dim=-1)
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -207,12 +230,13 @@ class _Kernel:
 # q, k, v, bias, o, lse; B, H, T, D; scale; seed args; stream
 FWD = _Kernel("flash_dropout_fwd", [_P] * 6 + [_I] * 4 + [_F] + _SEED_ARGS
               + [_P])
-# q, k, v, bias, do, o, lse, delta (out), dq; B, H, T, D; scale; seed args;
-# stream
-DQ = _Kernel("flash_dropout_dq", [_P] * 9 + [_I] * 4 + [_F] + _SEED_ARGS
+# bf16 q, k, v, do; bias, do, o, lse, delta (out), dq (out), bits (out);
+# B, H, T, D; scale; seed args; stream
+DQ = _Kernel("flash_dropout_dq", [_P] * 11 + [_I] * 4 + [_F] + _SEED_ARGS
              + [_P])
-# q, k, v, bias, do, lse, delta, dk, dv; B, H, T, D; scale; seed args; stream
-DKV = _Kernel("flash_dropout_dkv", [_P] * 9 + [_I] * 4 + [_F] + _SEED_ARGS
+# bf16 q, k, v, do; bias, lse, delta, bits, dk (out), dv (out); B, H, T, D;
+# scale; seed args; stream
+DKV = _Kernel("flash_dropout_dkv", [_P] * 10 + [_I] * 4 + [_F] + _SEED_ARGS
               + [_P])
 # out; BH, T; threshold; seed lo, hi; stream
 KEEP_MASK = _Kernel("flash_dropout_keep_mask", [_P, _I, _I, _U, _U, _U, _P])
@@ -297,41 +321,93 @@ def _check_bwd(q, k, v, bias, dropout_p, do, rows: dict, *more) -> None:
                              f"{q.device}")
 
 
+def to_bf16(*xs: torch.Tensor) -> tuple:
+    """The backward's product operands (q, k, v, do) rounded to bf16 (to
+    nearest even, as the kernels round): made once per backward and read by
+    both launches."""
+    return tuple(x.to(torch.bfloat16) for x in xs)
+
+
+def _check_bits(bits, q, dropout_p) -> None:
+    """The dK/dV kernel under dropout reads the dQ kernel's bits: present,
+    int32 (B*H, T, ceil(T/32)), contiguous, beside q."""
+    if not threshold(dropout_p):
+        return
+    if bits is None:
+        raise ValueError("flash_dropout_dkv: dropout_p > 0 needs the keep "
+                         "bits that flash_dropout_dq returned")
+    b, h, t, _ = q.shape
+    want = (b * h, t, -(-t // 32))
+    if (bits.dtype != torch.int32 or tuple(bits.shape) != want
+            or bits.device != q.device or not bits.is_contiguous()):
+        raise ValueError(f"flash_dropout_dkv: bits must be a contiguous int32 "
+                         f"{want} tensor on {q.device}, got {bits.dtype} "
+                         f"{tuple(bits.shape)} on {bits.device}")
+
+
+def _check_operands(ops, q) -> tuple:
+    """The kernels' bf16 operands (q, k, v, do), as `to_bf16` makes them:
+    present, each like q, contiguous, 16-byte aligned (TMA reads them)."""
+    if ops is None or len(ops) != 4:
+        raise ValueError("flash_dropout: the kernels want q, k, v, do as "
+                         "4 bf16 operands (to_bf16)")
+    for name, x in zip(("q", "k", "v", "do"), ops):
+        if (x.dtype != torch.bfloat16 or x.shape != q.shape
+                or x.device != q.device or not x.is_contiguous()
+                or x.data_ptr() % 16):
+            raise ValueError(f"flash_dropout: bf16 operand {name} must be a "
+                             f"contiguous 16-byte aligned bf16 "
+                             f"{tuple(q.shape)} tensor on {q.device}")
+    return tuple(ops)
+
+
 def flash_dropout_dq(q, k, v, bias, seed: int, o, lse, do,
-                     dropout_p: float, scale: float):
-    """(dQ, D = rowsum(dO . O) (B, H, T)): row 3 on CUDA tensors, which
-    computes D with dQ and writes it for `flash_dropout_dkv`; the plain
-    formulas on CPU ones."""
+                     dropout_p: float, scale: float, *, operands):
+    """(dQ, D = rowsum(dO . O) (B, H, T), keep bits or None). On CUDA
+    tensors row 3, which reads `operands` (q, k, v, do as `to_bf16` rounds
+    them; required) and computes D and, under dropout, the keep bits
+    (`pack_keep_bits`' layout) with dQ for `flash_dropout_dkv`. On CPU
+    tensors the plain formulas, with no bits: the plain dK/dV draws the
+    mask from the seed, and `operands` is not read."""
     if not _on_card("flash_dropout_dq", q):
-        return flash_dropout_dq_reference(q, k, v, bias, seed, o, lse, do,
-                                          dropout_p, scale)
+        return (*flash_dropout_dq_reference(q, k, v, bias, seed, o, lse, do,
+                                            dropout_p, scale), None)
     _check_bwd(q, k, v, bias, dropout_p, do, {"lse": lse}, ("o", o))
+    ops = _check_operands(operands, q)
     b, h, t, d = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
+    bits = (torch.empty((b * h, t, -(-t // 32)), dtype=torch.int32,
+                        device=q.device) if threshold(dropout_p) else None)
     if t and b * h:
         with torch.cuda.device(q.device):
-            DQ(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-               do.data_ptr(), o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-               dq.data_ptr(), b, h, t, d, scale,
+            DQ(*(x.data_ptr() for x in ops), bias.data_ptr(), do.data_ptr(),
+               o.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+               None if bits is None else bits.data_ptr(), b, h, t, d, scale,
                *_seed_args(seed, dropout_p), _stream(q))
-    return dq, delta
+    return dq, delta, bits
 
 
 def flash_dropout_dkv(q, k, v, bias, seed: int, delta, lse, do,
-                      dropout_p: float, scale: float):
-    """(dK, dV) from D = rowsum(dO . O) as `flash_dropout_dq` returns it:
-    row 4 on CUDA tensors, the plain formulas on CPU ones."""
+                      dropout_p: float, scale: float, *, bits, operands):
+    """(dK, dV) from D = rowsum(dO . O), the keep bits and the bf16
+    operands, each as `flash_dropout_dq` returns or reads them. On CUDA
+    tensors row 4; under dropout a missing bits tensor raises (the mask is
+    not drawn again). On CPU tensors the plain formulas, which draw the
+    mask from the seed and read neither `bits` nor `operands`."""
     if not _on_card("flash_dropout_dkv", q):
         return flash_dropout_dkv_reference(q, k, v, bias, seed, delta, lse,
                                            do, dropout_p, scale)
+    _check_bits(bits, q, dropout_p)
     _check_bwd(q, k, v, bias, dropout_p, do, {"lse": lse, "delta": delta})
+    ops = _check_operands(operands, q)
     b, h, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if t and b * h:
         with torch.cuda.device(q.device):
-            DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            DKV(*(x.data_ptr() for x in ops), bias.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(),
+                bits.data_ptr() if threshold(dropout_p) else None,
                 dk.data_ptr(), dv.data_ptr(), b, h, t, d, scale,
                 *_seed_args(seed, dropout_p), _stream(q))
     return dk, dv
@@ -372,10 +448,12 @@ class _FlashDropout(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
         do = do.contiguous()
+        ops = to_bf16(q, k, v, do)      # both kernels read this one copy
         common = (q, k, v, bias, ctx.seed)
         rest = (lse, do, ctx.dropout_p, ctx.scale)
-        dq, delta = flash_dropout_dq(*common, o, *rest)
-        dk, dv = flash_dropout_dkv(*common, delta, *rest)
+        dq, delta, bits = flash_dropout_dq(*common, o, *rest, operands=ops)
+        dk, dv = flash_dropout_dkv(*common, delta, *rest, bits=bits,
+                                   operands=ops)
         return dq, dk, dv, None, None, None, None
 
 

@@ -406,12 +406,15 @@ def test_flash_dropout_cpu_tensors_take_the_plain_versions(rng):
     want_o, want_lse = fd.flash_attention_dropout_reference(
         q, k, v, bias, 5, 0.1, 0.125)
     assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
-    dq, delta = fd.flash_dropout_dq(q, k, v, bias, 5, o, lse, do, 0.1, 0.125)
+    ops = fd.to_bf16(q, k, v, do)
+    dq, delta, bits = fd.flash_dropout_dq(q, k, v, bias, 5, o, lse, do, 0.1,
+                                          0.125, operands=ops)
     dk, dv = fd.flash_dropout_dkv(q, k, v, bias, 5, delta, lse, do, 0.1,
-                                  0.125)
+                                  0.125, bits=bits, operands=ops)
     assert all(torch.equal(a, b) for a, b in zip(
         (dq, delta), fd.flash_dropout_dq_reference(q, k, v, bias, 5, o, lse,
                                                    do, 0.1, 0.125)))
+    assert bits is None      # the plain dK/dV draws the mask from the seed
     assert all(torch.equal(a, b) for a, b in zip(
         (dk, dv), fd.flash_dropout_dkv_reference(q, k, v, bias, 5, delta,
                                                  lse, do, 0.1, 0.125)))
@@ -442,10 +445,14 @@ def _close(got, want, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,d,p", [(1, 128, 0.1), (100, 128, 0.1),
-                                   (256, 128, 0.0), (256, 128, 0.1),
-                                   (333, 64, 0.1), (1024, 128, 0.1)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("t,d", [(1, 128), (63, 128), (65, 128), (100, 128),
+                                 (129, 128), (256, 128), (777, 128),
+                                 (1024, 128), (2048, 128), (200, 64),
+                                 (333, 64), (777, 64)])
 def test_flash_dropout_kernels_match_plain_on_card(cuda_device, t, d, p):
+    """At T ragged against the backward's 64-row tiles and its two-stage
+    copy ring; dQ's keep bits are the plain mask's."""
     rng = np.random.default_rng(t)
     b, h, seed, scale = 3, 2, 12345 + t, 1.0 / math.sqrt(d)
     q, k, v, do, bias = _fd_inputs(rng, b, h, t, d, cuda_device,
@@ -460,20 +467,27 @@ def test_flash_dropout_kernels_match_plain_on_card(cuda_device, t, d, p):
     torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
     # the backward of both on the plain forward's O and lse, and dK/dV of
     # both on the plain D
-    dq, delta = fd.flash_dropout_dq(q, k, v, bias, seed, want_o, want_lse, do,
-                                    p, scale)
+    ops = fd.to_bf16(q, k, v, do)
+    dq, delta, bits = fd.flash_dropout_dq(q, k, v, bias, seed, want_o,
+                                          want_lse, do, p, scale, operands=ops)
     want_dq, want_delta = fd.flash_dropout_dq_reference(
         q, k, v, bias, seed, want_o, want_lse, do, p, scale)
     args = (q, k, v, bias, seed, want_delta, want_lse, do, p, scale)
-    dk, dv = fd.flash_dropout_dkv(*args)
+    dk, dv = fd.flash_dropout_dkv(*args, bits=bits, operands=ops)
     torch.cuda.synchronize()
     assert (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches) == tuple(
         n + 1 for n in before)
     _close(dq, want_dq, "dQ")
     _close(delta, want_delta, "D")
+    # the kernel's dK/dV reads dQ's bits, the plain one draws from the seed
     want_dk, want_dv = fd.flash_dropout_dkv_reference(*args)
     _close(dk, want_dk, "dK")
     _close(dv, want_dv, "dV")
+    if p:
+        assert torch.equal(bits, fd.pack_keep_bits(fd.keep_mask_reference(
+            b, h, t, seed, p, cuda_device))), "dQ kernel's keep bits"
+    else:
+        assert bits is None
 
 
 @pytest.mark.cuda
