@@ -8,13 +8,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch / CUDA versions, TF32 flags;
 2. build: the five kernel sources in csrc/ with nvcc (sm_90a), one nvcc
-   per source in parallel, with each one's ptxas register and spill report;
-3. flash attention against plain: the flash-attention forward against its
+   per source in parallel, with each one's ptxas register and spill report
+   (phases 3 and 10 repeat those of the two attention forwards);
+3. flash attention against plain: the flash-attention forward (row 1:
+   3xTF32 products on the TF32 tensor cores, mma.sync m16n8k8, cp.async
+   ring of 32-key tiles, IEEE float32 softmax) against its IEEE float32
    plain PyTorch version, H=2, d_head=128, at B=8 and T up to 3584 (with
    key padding, one all-masked row and a ragged T), at every (B, T) the
    serving phase gives it, and a d_head=64 case; max |diff| <= 1e-5 on rows
-   with a valid key, all-masked rows exactly 0; kernel, plain, bound and
-   scaled_dot_product_attention ms per shape;
+   with a valid key, all-masked rows exactly 0; kernel, plain, bound (the
+   3xTF32 tensor-core bound beside the float32 CUDA-core one) and
+   scaled_dot_product_attention ms (and its max |diff|) per shape;
 4. serving at full width: the default TTEModelConfig (d_model 256, 4+4 FFT
    blocks, 2 heads of 128) and V1 VocoderModelConfig with seeded weights,
    through ParrotTTS.tts twice (deterministic, lengths len(units)*320,
@@ -52,7 +56,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    bits;
 9. profile: one more float serve, int8-static serve and "int8" serve under
    torch.profiler (device time by kernel, the device's busy and idle share);
-10. flash attention with dropout against plain: the forward, dQ (with the
+10. flash attention with dropout against plain: the forward (wgmma and
+   TMA on bf16 operands cast once, two passes over K), dQ (with the
    D = rowsum(dO . O) and the keep bits it writes) and dK/dV kernels (rows
    2-4) at B=6, H=2, d_head 128 and every T the training phase gives them
    (128, 256, 512, 1024, 2048, 3584), a ragged T and a d_head 64 case, each
@@ -61,10 +66,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal to the plain mask's; a second dQ and dK/dV launch on the same
    inputs gives the same bits (determinism); the keep-mask kernel (row 5)
    bit-identical to its plain Philox and its keep rate within 5 sigma of
-   0.9; kernel, plain, bound and scaled_dot_product_attention ms, dQ and
-   dK/dV at p = 0 beside p = 0.1, the backward as training runs it (the
-   autograd function: bf16 casts, dQ, dK/dV) at both p, and the registers
-   and spills of every kernel of csrc/flash_dropout.cu from phase 2;
+   0.9; kernel, plain, bound and scaled_dot_product_attention ms, the
+   forward, dQ and dK/dV at p = 0 beside p = 0.1, the forward and the
+   backward as training runs them (the autograd function: the forward's
+   q, k, v casts and kernel; the backward's dO cast, dQ, dK/dV) at both p,
+   per launch and per (256, 3584) micro-step beside SDPA's, and the
+   registers and spills of every kernel of csrc/flash_dropout.cu from
+   phase 2;
 11. training at full width: TTEModelConfig(n_speaker=4) and TTETrainConfig
    defaults (warmup 0, so the first update moves the weights) through
    pipeline/train_tte.run for 2 optimizer steps (8 micro-batches, bucket
@@ -125,6 +133,7 @@ INT8_SITES = {"int8-static": 95, "int8": 95, "int8-tail": 56}
 MM_RTOL = 1e-5
 RATE_SHAPE = (8192, 4096, 4096)   # (M, K, N) of the int8 experiment
 BF16_PEAK = 989e12           # H100 SXM bf16 dense tensor-core FLOP/s (data sheet)
+TF32_PEAK = 494.7e12         # H100 SXM TF32 dense tensor-core FLOP/s (data sheet)
 # flash attention with dropout (rows 2-4) against plain on the same mask:
 # both round every product operand to bf16 at the same points and sum in
 # float32 in another order, so a few operands land on the other bf16
@@ -190,12 +199,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_bound_ms(b: int, h: int, t: int, d: int) -> tuple[float, str]:
+def attention_bound_ms(b: int, h: int, t: int, d: int) -> dict:
+    """Row 1's bounds: its 3xTF32 products (3 * 4*B*H*T^2*d on the TF32
+    tensor cores; the kernels line's bound) and the same work as float32
+    FMAs on the CUDA cores; Q, K, V read and O written once, mask bytes."""
     flops = 4.0 * b * h * t * t * d
-    nbytes = 4.0 * (4 * b * h * t * d) + b * t     # Q, K, V, O; mask bytes
-    ops_s, bytes_s = flops / FP32_PEAK, nbytes / HBM_RATE
-    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
-                                       else "bytes")
+    nbytes = 4.0 * (4 * b * h * t * d) + b * t
+    return {"3xtf32": bound(3 * flops, TF32_PEAK, nbytes),
+            "f32": bound(flops, FP32_PEAK, nbytes)}
 
 
 @contextlib.contextmanager
@@ -263,7 +274,7 @@ def ptxas_registers(log: str) -> dict:
     out, name = {}, None
     for line in log.splitlines():
         if "entry function" in line:
-            m = re.search(r"(fwd|dq|dkv)_kernelILi(\d+)E", line)
+            m = re.search(r"(flash_fwd|fwd|dq|dkv)_kernelILi(\d+)E", line)
             name = m and f"{m.group(1)}_kernel<{m.group(2)}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -276,7 +287,17 @@ def ptxas_registers(log: str) -> dict:
     return out
 
 
-def phase_kernel(fa, exact_numerics) -> dict:
+def print_registers(registers: dict) -> None:
+    for name, (regs, st, ld) in sorted(registers.items()):
+        print(f"ptxas {name}: {regs} registers, spill stores {st} bytes, "
+              f"spill loads {ld} bytes")
+
+
+def phase_kernel(fa, exact_numerics, registers: dict) -> dict:
+    """Row 1 against its plain version at every KERNEL_SHAPES shape, with
+    its times, bounds and SDPA's. `registers`: ptxas_registers of the
+    source."""
+    print_registers(registers)
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     rows = []
@@ -314,16 +335,23 @@ def phase_kernel(fa, exact_numerics) -> dict:
                 lambda: fa.flash_attention_reference(q, k, v, mask, scale),
                 max(3, reps // 4))
             attend = ~mask[:, None, None, :]
-            library_ms = cuda_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=attend, scale=scale), reps)
-        bound_ms, bound_by = attention_bound_ms(b, h, t, d)
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=attend, scale=scale)
+
+            library_ms = cuda_ms(sdpa, reps)
+            lib_err = float((sdpa()[keep] - want[keep]).abs().max())
+        bounds = attention_bound_ms(b, h, t, d)
+        (bound_ms, bound_by), (f32_ms, f32_by) = bounds["3xtf32"], bounds["f32"]
         rows.append({"B": b, "H": h, "T": t, "d": d, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms})
         print(f"kernel B={b} T={t:5d} d={d:3d}: max|diff| {err:.3e}  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-              f"({bound_by})  sdpa {library_ms:.4f} ms")
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound 3xTF32 "
+              f"{bound_ms:.4f} ms ({bound_by}), float32 {f32_ms:.4f} ms "
+              f"({f32_by})  sdpa {library_ms:.4f} ms (max|diff| "
+              f"{lib_err:.3e})")
         del q, k, v, got, want
     return {"rows": rows,
             "report": next(r for r in rows if (r["B"], r["T"], r["d"])
@@ -886,9 +914,7 @@ def phase_flash_dropout(fd, registers: dict) -> dict:
     and dQ and dK/dV at p = 0. `registers`: ptxas_registers of the source."""
     import torch.nn.functional as F
 
-    for name, (regs, st, ld) in sorted(registers.items()):
-        print(f"ptxas {name}: {regs} registers, spill stores {st} bytes, "
-              f"spill loads {ld} bytes")
+    print_registers(registers)
     rng = np.random.default_rng(SEED + 3)
     dev = torch.device("cuda")
     rows = []
@@ -908,14 +934,15 @@ def phase_flash_dropout(fd, registers: dict) -> dict:
         rms = dict(err)
         for p in (0.0, FD_P):
             seed = SEED + 7 * t + int(100 * p)
-            o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, p, scale)
+            ops = fd.to_bf16(q, k, v, do)
+            o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, p, scale,
+                                          operands=ops[:3])
             want_o, want_lse = fd.flash_attention_dropout_reference(
                 q, k, v, bias, seed, p, scale)
             # both backward versions on the plain forward's O and lse, and
             # both dK/dV on the plain D; the kernel's dK/dV on dQ's bits,
             # the plain one on the mask drawn from the seed
             qkv, rest = (q, k, v, bias, seed), (want_lse, do, p, scale)
-            ops = fd.to_bf16(q, k, v, do)
             dq, delta, bits = fd.flash_dropout_dq(*qkv, want_o, *rest,
                                                   operands=ops)
             want_dq, want_delta = fd.flash_dropout_dq_reference(
@@ -958,13 +985,15 @@ def phase_flash_dropout(fd, registers: dict) -> dict:
                                  f"{1 - FD_P}")
         del mask
 
-        # times at the training setting, p = FD_P: dQ and dK/dV as the
-        # backward launches them, on operands cast to bf16 once; both at
-        # p = 0, without the mask; and the backward as training runs it
-        # (the autograd function's: the casts, dQ, dK/dV) at both p
-        o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, FD_P, scale)
-        qkv, rest = (q, k, v, bias, seed), (lse, do, FD_P, scale)
+        # times at the training setting, p = FD_P: the three kernels as
+        # training launches them, on operands cast to bf16 once; each at
+        # p = 0, without the mask; and the forward and the backward as
+        # training runs them (the autograd function's: the casts and the
+        # kernels) at both p
         ops = fd.to_bf16(q, k, v, do)
+        o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, FD_P, scale,
+                                      operands=ops[:3])
+        qkv, rest = (q, k, v, bias, seed), (lse, do, FD_P, scale)
         _, delta, bits = fd.flash_dropout_dq(*qkv, o, *rest, operands=ops)
         reps = max(3, min(50, int(3e5 / t)))
         plain_reps = max(2, reps // 10)
@@ -975,19 +1004,29 @@ def phase_flash_dropout(fd, registers: dict) -> dict:
             return cuda_ms(lambda: torch.autograd.grad(
                 out, (qg, kg, vg), do, retain_graph=True), reps)
 
+        def forward_ms(p):
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            return cuda_ms(lambda: fd.flash_attention_dropout(
+                qg, kg, vg, bias, seed, p, scale), reps)
+
         kern = {"fwd": lambda: fd.flash_dropout_fwd(q, k, v, bias, seed,
-                                                    FD_P, scale),
+                                                    FD_P, scale,
+                                                    operands=ops[:3]),
                 "dq": lambda: fd.flash_dropout_dq(*qkv, o, *rest,
                                                   operands=ops),
                 "dkv": lambda: fd.flash_dropout_dkv(*qkv, delta, *rest,
                                                     bits=bits, operands=ops),
                 "keep_mask": lambda: fd.keep_mask(b, h, t, seed, FD_P, dev)}
         rest0 = (lse, do, 0.0, scale)
-        p0_ms = {"dq": cuda_ms(lambda: fd.flash_dropout_dq(
+        p0_ms = {"fwd": cuda_ms(lambda: fd.flash_dropout_fwd(
+                     q, k, v, bias, seed, 0.0, scale, operands=ops[:3]),
+                     reps),
+                 "dq": cuda_ms(lambda: fd.flash_dropout_dq(
                      *qkv, o, *rest0, operands=ops), reps),
                  "dkv": cuda_ms(lambda: fd.flash_dropout_dkv(
                      *qkv, delta, *rest0, bits=None, operands=ops), reps)}
         autograd_ms = {FD_P: backward_ms(FD_P), 0.0: backward_ms(0.0)}
+        autograd_fwd_ms = {FD_P: forward_ms(FD_P), 0.0: forward_ms(0.0)}
         plain = {"fwd": lambda: fd.flash_attention_dropout_reference(
                      q, k, v, bias, seed, FD_P, scale),
                  "dq": lambda: fd.flash_dropout_dq_reference(*qkv, o, *rest),
@@ -996,7 +1035,7 @@ def phase_flash_dropout(fd, registers: dict) -> dict:
                  "keep_mask": lambda: fd.keep_mask_reference(
                      b, h, t, seed, FD_P, dev)}
         row = {"B": b, "H": h, "T": t, "d": d, "err": err, "p0_ms": p0_ms,
-               "autograd_ms": autograd_ms}
+               "autograd_ms": autograd_ms, "autograd_fwd_ms": autograd_fwd_ms}
         for name in kern:
             row[name] = {"ms": cuda_ms(kern[name], reps),
                          "plain_ms": cuda_ms(plain[name], plain_reps,
@@ -1034,7 +1073,11 @@ def phase_flash_dropout(fd, registers: dict) -> dict:
             print(f"  {name:9s} kernel {r['ms']:.4f} ms{p0}  plain "
                   f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}){lib}")
-        print(f"  backward as training runs it (autograd: bf16 casts, dQ, "
+        print(f"  forward as training runs it (autograd: q, k, v casts, "
+              f"kernel) {autograd_fwd_ms[FD_P]:.4f} ms (p=0: "
+              f"{autograd_fwd_ms[0.0]:.4f} ms); sdpa fwd "
+              f"{row['fwd']['library_ms']:.4f} ms")
+        print(f"  backward as training runs it (autograd: dO cast, dQ, "
               f"dK/dV) {autograd_ms[FD_P]:.4f} ms (p=0: "
               f"{autograd_ms[0.0]:.4f} ms); dQ + dK/dV alone "
               f"{row['dq']['ms'] + row['dkv']['ms']:.4f} ms; sdpa bwd "
@@ -1054,10 +1097,18 @@ def phase_flash_dropout(fd, registers: dict) -> dict:
             "bound_ms"])[name]["bound_by"]
         p0 = (f" (p=0: {4 * sum(r['p0_ms'][name] for r in step):.4f} ms)"
               if name in step[0]["p0_ms"] else "")
+        lib = ("" if report[name]["library_ms"] is None else
+               f"  sdpa {'fwd' if name == 'fwd' else 'bwd'} "
+               f"{report[name]['library_ms']:.4f} ms")
         print(f"{name} per (256, 3584) micro-step (8 launches): kernel "
               f"{report[name]['ms']:.4f} ms{p0}  plain "
               f"{report[name]['plain_ms']:.4f} ms  bound "
-              f"{report[name]['bound_ms']:.4f} ms")
+              f"{report[name]['bound_ms']:.4f} ms{lib}")
+    print("forward as training runs it, per (256, 3584) micro-step: "
+          + ", ".join(f"p={p}: "
+                      f"{4 * sum(r['autograd_fwd_ms'][p] for r in step):.4f}"
+                      " ms" for p in (FD_P, 0.0))
+          + f"; sdpa fwd {report['fwd']['library_ms']:.4f} ms")
     print("backward as training runs it, per (256, 3584) micro-step: "
           + ", ".join(f"p={p}: {4 * sum(r['autograd_ms'][p] for r in step):.4f}"
                       " ms" for p in (FD_P, 0.0))
@@ -1267,6 +1318,9 @@ def phase_train(fd, fa, tcfg, train_cfg, pairs, checked: set,
             return float(total.detach()), torch.autograd.grad(total,
                                                               params)
 
+    def plain_fwd(*args, operands):
+        return fd.flash_attention_dropout_reference(*args)
+
     def plain_dq(*args, operands):
         return (*fd.flash_dropout_dq_reference(*args), None)
 
@@ -1276,8 +1330,7 @@ def phase_train(fd, fa, tcfg, train_cfg, pairs, checked: set,
     before = fd.FWD.launches
     loss_k, grads_k = loss_and_grads()
     kernel_launches = fd.FWD.launches - before
-    with mock.patch.object(fd, "flash_dropout_fwd",
-                           fd.flash_attention_dropout_reference), \
+    with mock.patch.object(fd, "flash_dropout_fwd", plain_fwd), \
             mock.patch.object(fd, "flash_dropout_dq", plain_dq), \
             mock.patch.object(fd, "flash_dropout_dkv", plain_dkv):
         loss_p, grads_p = loss_and_grads()
@@ -1418,7 +1471,8 @@ def main() -> int:
 
     phase_card()
     build = phase_build(kernels)
-    kern = phase_kernel(fa, exact_numerics)
+    kern = phase_kernel(fa, exact_numerics,
+                        ptxas_registers(build["flash_attn_fwd"]))
     # full width: d_model 256, 4+4 FFT blocks of 2 heads, V1 vocoder
     tcfg, vcfg = TTEModelConfig(n_speaker=4), VocoderModelConfig()
     base = phase_serving(fa, tcfg, vcfg)

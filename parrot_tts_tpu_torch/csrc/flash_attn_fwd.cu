@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), IEEE float32 on the CUDA cores.
+// Flash-attention forward for Hopper (sm_90a): float32 attention on the
+// TF32 tensor cores with a 3xTF32 split.
 //
 // Replaces: parrot_tts_tpu/ops/attention.py::_flash_attention
 // (attention.py:153-181), which calls JAX's stock Pallas TPU kernel
@@ -9,51 +10,143 @@
 // with no valid key writes 0 (the plain PyTorch version in
 // ops/flash_attention.py does the same; the XLA path would give NaN).
 //
-// Bound on this card: 4*B*H*T^2*D floating-point operations (QK^T and PV)
-// against 16*B*H*T*D bytes (Q, K, V read once, O written once). The
-// arithmetic intensity is T/4 operations per byte, and the H100's float32
-// ridge (67 TFLOP/s non-tensor over 3.35 TB/s) is 20, so at every serving
-// length (T >= 64) the kernel is bound by float32 FMAs on the CUDA cores.
-// Tensor cores would be faster but round operands to TF32, which flips the
-// decoder's argmax near-ties and durations; the unit-exact decode needs
-// IEEE float32, so every product here is a plain fmaf.
+// Numerics: every product of the two matrix products is 3xTF32. Each
+// float32 operand x is split exactly as x = hi + lo (Veltkamp: hi is x
+// rounded to 11 significant bits, a TF32 value), and a * b is taken as
+// lo_a hi_b + hi_a lo_b + hi_a hi_b (the small terms first) on the TF32
+// tensor cores. Their float32 accumulation does not round to nearest, so
+// a long sum there drifts: they sum only short partials from zero (4 k
+// steps, 32 of d, of S = Q K^T; one 32-key tile of P V), which IEEE float32
+// adds to the running sums. The dropped lo_a lo_b and the bits of lo that
+// TF32 drops leave each product within ~5 * 2^-22 of its float32 value,
+// so the result stays close to the IEEE float32 plain version: phase 3 of
+// chip_smoke.py holds it to 1e-5 absolute, and phase 4 to the unit-exact
+// decode. Plain TF32 (one product of hi parts, ~2^-11 relative) would flip
+// the decoder's argmax near-ties and durations. The softmax (scale, mask, max, exp, sums, the division) is
+// IEEE float32 on the CUDA cores.
 //
-// What the design does about it: the (T, T) scores never reach device
-// memory. One block of 256 threads owns 64 queries of one (b, h) and walks
-// over 64-key tiles of K and V staged in shared memory (K transposed so the
-// score loop reads conflict-free float4s). Each thread computes a 4x4
-// register micro-tile of scores (16 FMAs per two shared-memory loads), keeps
-// its 4 rows' running max and denominator in registers (reduced over the 16
-// threads that share those rows with warp shuffles), and accumulates a 4 x
-// (D/16) slice of the output. The ragged last tile of any T is masked in the
-// kernel, so every length takes this path.
+// Bound on this card: 4*B*H*T^2*D floating-point operations (QK^T and PV)
+// against 16*B*H*T*D bytes (Q, K, V read once, O written once); T/4
+// operations per byte. Against the float32 rate of the CUDA cores (67
+// TFLOP/s, ridge 20) every serving length is bound by operations; so are
+// the 3xTF32 products (3 * 4*B*H*T^2*D at 494.7 TFLOP/s dense TF32, ridge
+// 148) above T ~ 200, with the split's conversions on the CUDA cores
+// beside them.
+//
+// The design: the (T, T) scores never reach device memory. One block of
+// 128 threads (4 warps, 16 queries each) owns 64 queries of one (b, h),
+// whose Q tile it copies to shared memory once (each warp splits its
+// fragments per tile: Q in registers would take 64 of them), and walks
+// 32-key tiles of K and V, copied by cp.async into a two-stage
+// shared-memory ring (tile n+1 lands while tile n is multiplied; one
+// barrier per tile; rows past T zero-filled). Products are mma.sync
+// m16n8k8 TF32 with float32 accumulators: S = Q K^T reads K as the
+// column-major B, O += P V takes P from the score accumulators in
+// registers and V as B. Inside every 8-wide k step the contraction index
+// is permuted (logical k t <-> element 2t, t+4 <-> 2t+1), which makes the
+// A fragment of P exactly the accumulator fragment of S (no shuffles) and
+// turns the Q and K fragments into float2 loads; Q's and K's rows are
+// padded to D+8 floats and V's to D+4, so the fragment loads hit 32
+// banks. Each row's running max and sum stay in registers (online
+// softmax; the sum is reduced across the quad once, at the end). Any T: the key bias is 0 or
+// -inf per key, -inf past T, so the ragged last tile takes the same path.
+// (wgmma would give the TF32 rate's other half, but its TF32 form wants
+// both operands K-major: P V would need a transposed copy of V, which TMA
+// cannot make for 4-byte elements.)
 //
 // Interface (route (b): plain C, loaded with ctypes):
 //   int flash_attn_fwd_f32(q, k, v, key_padding_mask or NULL, o,
 //                          B, H, T, D, scale, stream)
-// q, k, v, o: contiguous (B, H, T, D) float32; key_padding_mask: contiguous
-// (B, T) bytes (torch.bool), nonzero = ignore that key. Returns the CUDA
-// error code of the launch (0 on success). D must be 64 or 128.
+// q, k, v, o: contiguous (B, H, T, D) float32, 16-byte aligned;
+// key_padding_mask: contiguous (B, T) bytes (torch.bool), nonzero = ignore
+// that key. Returns the CUDA error code of the launch (0 on success). D
+// must be 64 or 128.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;        // queries per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 row groups x 16 column groups
+constexpr int BQ = 64;        // queries per block, 16 per warp
+constexpr int BK = 32;        // keys per tile
+constexpr int THREADS = 128;  // 4 warps
+constexpr int STAGES = 2;     // copy ring
 
 template <int D>
 struct Layout {
-  static constexpr int kQt = D * BQ;    // Q tile transposed, [d][q]
-  static constexpr int kKt = D * BK;    // K tile transposed, [d][k]
-  static constexpr int kV = BK * D;     // V tile, [k][d]
-  static constexpr int kP = BQ * BK;    // probabilities, [q][k]
-  static constexpr int kBias = BK;      // 0 or -inf per key of the tile
-  static constexpr size_t bytes =
-      sizeof(float) * (kQt + kKt + kV + kP + kBias);
+  static constexpr int kLdK = D + 8;   // Q and K row stride (floats)
+  static constexpr int kLdV = D + 4;   // V row stride (floats)
+  static constexpr int kQ = BQ * kLdK, kK = BK * kLdK, kV = BK * kLdV;
+  static constexpr int kStage = kK + kV + BK;   // K, V, the key bias
+  static constexpr size_t bytes = sizeof(float) * (kQ + STAGES * kStage);
 };
+
+// x = hi + lo exactly (Veltkamp's split, 4 float32 operations; __*_rn
+// so the compiler neither contracts nor reassociates them): hi is x rounded
+// to the nearest value of 11 significant bits, a TF32 value; lo keeps the
+// other 13, of which the tensor cores read the top 11
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float c = __fmul_rn(x, 8193.0f);   // 2^13 + 1
+  const float h = __fsub_rn(c, __fsub_rn(c, x));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
+}
+
+
+// c += a * b: m16n8k8 TF32, a row-major 16x8, b "col" (stored n-major)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// an A fragment split once for the products it takes part in
+struct SplitA {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ SplitA split_a(float a0, float a1, float a2,
+                                          float a3) {
+  SplitA r;
+  split(a0, r.hi[0], r.lo[0]);
+  split(a1, r.hi[1], r.lo[1]);
+  split(a2, r.hi[2], r.lo[2]);
+  split(a3, r.hi[3], r.lo[3]);
+  return r;
+}
+
+// c += a b in 3xTF32, the small terms first: a split, b the two float32
+// values of a B fragment
+__device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a,
+                                     float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(c, a.lo, bh0, bh1);
+  mma(c, a.hi, bl0, bl1);
+  mma(c, a.hi, bh0, bh1);
+}
+
+// c += d, d a partial product summed on the tensor cores from 0: c sums
+// in IEEE float32 (round to nearest), the tensor cores' float32 sums are
+// not rounded to nearest, so each partial stays short
+__device__ __forceinline__ void add(float (&c)[4], float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    c[e] += d[e];
+    d[e] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -62,169 +155,157 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const unsigned char* __restrict__ kpm,
                  float* __restrict__ o, int H, int T, float scale) {
   static_assert(D % 64 == 0, "D must be a multiple of 64");
-  constexpr int D4 = D / 4;      // float4s per row
-  constexpr int NV = D / 64;     // float4 output chunks per thread per row
+  using L = Layout<D>;
+  constexpr int KC = D / 8;      // k steps of Q K^T; n-tiles of P V
+  constexpr int NT = BK / 8;     // n-tiles of Q K^T; k steps of P V
 
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;
-  float* Kt = Qt + Layout<D>::kQt;
-  float* Vs = Kt + Layout<D>::kKt;
-  float* Ps = Vs + Layout<D>::kV;
-  float* kbias = Ps + Layout<D>::kP;
-
-  const int tid = threadIdx.x;
-  const int rg = tid / 16;       // rows rg*4 .. rg*4+3 of the query tile
-  const int cg = tid % 16;       // keys cg*4.. of a tile; d cols n*64+cg*4..
-  const int bh = blockIdx.y;
-  const int b = bh / H;
+  float* Qs = smem;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H;
   const int q0 = blockIdx.x * BQ;
   const size_t base = static_cast<size_t>(bh) * T * D;
-  const float* qg = q + base;
   const float* kg = k + base;
   const float* vg = v + base;
+  const int n_tiles = (T + BK - 1) / BK;
+  constexpr int C = D / 4;       // 16-byte chunks per row
 
-  // Q tile, transposed; rows past T are zero and never stored
-  for (int idx = tid; idx < BQ * D4; idx += THREADS) {
-    const int r = idx % BQ, d4 = idx / BQ;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < T)
-      x = *reinterpret_cast<const float4*>(qg + static_cast<size_t>(q0 + r) * D + d4 * 4);
-    Qt[(d4 * 4 + 0) * BQ + r] = x.x;
-    Qt[(d4 * 4 + 1) * BQ + r] = x.y;
-    Qt[(d4 * 4 + 2) * BQ + r] = x.z;
-    Qt[(d4 * 4 + 3) * BQ + r] = x.w;
+  // the block's Q (rows past T zero), with the first tile
+  for (int idx = threadIdx.x; idx < BQ * C; idx += THREADS) {
+    const int r = idx / C, c = (idx % C) * 4;
+    const bool ok = q0 + r < T;
+    cp_async16(Qs + r * L::kLdK + c,
+               q + base + (ok ? static_cast<size_t>(q0 + r) * D + c : 0), ok);
   }
-
-  float m[4], l[4], acc[4][NV * 4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NV * 4; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    __syncthreads();   // Q staged (first tile); last tile's K/V/P reads done
-
-    for (int idx = tid; idx < BK * D4; idx += THREADS) {
-      const int c = idx % BK, d4 = idx / BK;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + c < T)
-        x = *reinterpret_cast<const float4*>(kg + static_cast<size_t>(k0 + c) * D + d4 * 4);
-      Kt[(d4 * 4 + 0) * BK + c] = x.x;
-      Kt[(d4 * 4 + 1) * BK + c] = x.y;
-      Kt[(d4 * 4 + 2) * BK + c] = x.z;
-      Kt[(d4 * 4 + 3) * BK + c] = x.w;
+  // tile n of K, V (rows past T zero) and its key bias into stage st
+  auto load = [&](int st, int n) {
+    float* Ks = smem + L::kQ + st * L::kStage;
+    float* Vs = Ks + L::kK;
+    const int k0 = n * BK;
+    for (int idx = threadIdx.x; idx < BK * C; idx += THREADS) {
+      const int r = idx / C, c = (idx % C) * 4;
+      const bool ok = k0 + r < T;
+      const size_t off = ok ? static_cast<size_t>(k0 + r) * D + c : 0;
+      cp_async16(Ks + r * L::kLdK + c, kg + off, ok);
+      cp_async16(Vs + r * L::kLdV + c, vg + off, ok);
     }
-    for (int idx = tid; idx < BK * D4; idx += THREADS) {
-      const int c = idx / D4, d4 = idx % D4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + c < T)
-        x = *reinterpret_cast<const float4*>(vg + static_cast<size_t>(k0 + c) * D + d4 * 4);
-      *reinterpret_cast<float4*>(Vs + c * D + d4 * 4) = x;
-    }
-    if (tid < BK) {
-      const int j = k0 + tid;
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (threadIdx.x < BK) {
+      const int j = k0 + threadIdx.x;
       const bool valid =
           j < T && (kpm == nullptr || kpm[static_cast<size_t>(b) * T + j] == 0);
-      kbias[tid] = valid ? 0.f : -INFINITY;
+      Vs[L::kV + threadIdx.x] = valid ? 0.f : -INFINITY;
     }
-    __syncthreads();
+  };
+  load(0, 0);
+  // this warp's Q rows g and g+8: A fragment k step kc is elements
+  // (2t, 2t+1) of each (the permuted k order)
+  const float* q_g = Qs + (warp * 16 + g) * L::kLdK + 2 * t;
 
-    // scores: 4x4 micro-tile, rows rg*4+i, keys cg*4+j
-    float s[4][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[KC][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int nt = 0; nt < KC; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = n & (STAGES - 1);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();   // tile n is in; every warp is done with tile n-1
+    if (n + 1 < n_tiles) load(st ^ 1, n + 1);
+    const float* Ks = smem + L::kQ + st * L::kStage;
+    const float* Vs = Ks + L::kK;
+    const float* kbias = Vs + L::kV;
+
+    // S = Q K^T: accumulator (nt, e) is row g + 8*(e/2), key 8nt + 2t + e%2;
+    // partial sums over 4 k steps (32 of d) on the tensor cores, added in
+    // float32
+    float s[NT][4], d[NT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(Qt + d * BQ + rg * 4);
-      const float4 kb = *reinterpret_cast<const float4*>(Kt + d * BK + cg * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {kb.x, kb.y, kb.z, kb.w};
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int e = 0; e < 4; ++e) s[nt][e] = d[nt][e] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    for (int kc = 0; kc < KC; ++kc) {
+      const float2 x0 = *reinterpret_cast<const float2*>(q_g + kc * 8);
+      const float2 x1 = *reinterpret_cast<const float2*>(q_g + 8 * L::kLdK + kc * 8);
+      const SplitA a = split_a(x0.x, x1.x, x0.y, x1.y);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 kb = *reinterpret_cast<const float2*>(
+            Ks + (nt * 8 + g) * L::kLdK + kc * 8 + 2 * t);
+        mma3(d[nt], a, kb.x, kb.y);
+        if (kc % 4 == 3) add(s[nt], d[nt]);
+      }
     }
 
-    // online softmax over this tile; the 16 threads of a half-warp share rows
-    float alpha[4];
+    // online softmax over this tile, rows g (h2 = 0) and g+8 (h2 = 1)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int h2 = 0; h2 < 2; ++h2) {
       float mt = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = s[i][j] * scale + kbias[cg * 4 + j];
-        mt = fmaxf(mt, s[i][j]);
-      }
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;  // all masked so far
-      alpha[i] = expf(m[i] - m_use);
+        for (int e = 2 * h2; e < 2 * h2 + 2; ++e) {
+          s[nt][e] = s[nt][e] * scale + kbias[nt * 8 + 2 * t + (e & 1)];
+          mt = fmaxf(mt, s[nt][e]);
+        }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m[h2], mt);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // all masked so far
+      const float alpha = expf(m[h2] - m_use);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_use);
-        rs += s[i][j];
-      }
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha[i] + rs;
-      m[i] = m_new;
-      *reinterpret_cast<float4*>(Ps + (rg * 4 + i) * BK + cg * 4) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-#pragma unroll
-      for (int c = 0; c < NV * 4; ++c) acc[i][c] *= alpha[i];
-    }
-    __syncthreads();
-
-    // acc += P V over the tile's keys
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(Ps + (rg * 4 + i) * BK + c);
-        p[i][0] = x.x; p[i][1] = x.y; p[i][2] = x.z; p[i][3] = x.w;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = Vs + (c + cc) * D;
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          const float4 x = *reinterpret_cast<const float4*>(vrow + n * 64 + cg * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][n * 4 + 0] = fmaf(p[i][cc], x.x, acc[i][n * 4 + 0]);
-            acc[i][n * 4 + 1] = fmaf(p[i][cc], x.y, acc[i][n * 4 + 1]);
-            acc[i][n * 4 + 2] = fmaf(p[i][cc], x.z, acc[i][n * 4 + 2]);
-            acc[i][n * 4 + 3] = fmaf(p[i][cc], x.w, acc[i][n * 4 + 3]);
-          }
+        for (int e = 2 * h2; e < 2 * h2 + 2; ++e) {
+          s[nt][e] = expf(s[nt][e] - m_use);
+          rs += s[nt][e];
         }
+      l[h2] = l[h2] * alpha + rs;   // this lane's keys; the quad's at the end
+      m[h2] = m_new;
+#pragma unroll
+      for (int dt = 0; dt < KC; ++dt) {
+        acc[dt][2 * h2] *= alpha;
+        acc[dt][2 * h2 + 1] *= alpha;
       }
+    }
+
+    // O += P V: k step kc is keys 8kc.., whose permuted A fragment is the
+    // accumulator fragment s[kc]; B element (k t, n g) is V[8kc + 2t][n],
+    // (k t+4, n g) is V[8kc + 2t + 1][n]. The tile's partial sums on the
+    // tensor cores, added in float32.
+    SplitA pa[NT];
+#pragma unroll
+    for (int kc = 0; kc < NT; ++kc)
+      pa[kc] = split_a(s[kc][0], s[kc][2], s[kc][1], s[kc][3]);
+    const float* v0 = Vs + 2 * t * L::kLdV + g;
+#pragma unroll
+    for (int dt = 0; dt < KC; ++dt) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kc = 0; kc < NT; ++kc)
+        mma3(part, pa[kc], v0[kc * 8 * L::kLdV + dt * 8],
+             v0[(kc * 8 + 1) * L::kLdV + dt * 8]);
+      add(acc[dt], part);
     }
   }
 
   float* og = o + base;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
+  for (int h2 = 0; h2 < 2; ++h2) {
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 1);
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 2);
+    const int row = q0 + warp * 16 + g + 8 * h2;
     if (row >= T) continue;
-    const bool any = l[i] > 0.f;   // false only when every key is masked
+    const bool any = l[h2] > 0.f;   // false only when every key is masked
 #pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      float4 x;
-      x.x = any ? acc[i][n * 4 + 0] / l[i] : 0.f;
-      x.y = any ? acc[i][n * 4 + 1] / l[i] : 0.f;
-      x.z = any ? acc[i][n * 4 + 2] / l[i] : 0.f;
-      x.w = any ? acc[i][n * 4 + 3] / l[i] : 0.f;
-      *reinterpret_cast<float4*>(og + static_cast<size_t>(row) * D + n * 64 + cg * 4) = x;
+    for (int dt = 0; dt < KC; ++dt) {
+      const float2 x = make_float2(any ? acc[dt][2 * h2] / l[h2] : 0.f,
+                                   any ? acc[dt][2 * h2 + 1] / l[h2] : 0.f);
+      *reinterpret_cast<float2*>(og + static_cast<size_t>(row) * D + dt * 8 + 2 * t) = x;
     }
   }
 }

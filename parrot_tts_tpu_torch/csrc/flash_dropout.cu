@@ -28,75 +28,85 @@
 // j/32 of query row i, (BH, T, ceil(T/32)) uint32, ops/flash_dropout.py::
 // pack_keep_bits); the dK/dV kernel reads them and runs no Philox.
 //
-// Forward (mma.sync m16n8k16, 128-thread blocks): bound on this card by
-// the tensor cores above T ~ 1200 (4 * B*H*T^2*d operations against
-// 16 * B*H*T*d bytes), by bytes below. The (T, T) scores and the mask
-// never reach device memory; a block keeps its 64 queries as bf16 in
-// shared memory (rows padded by 8 against bank conflicts) and walks
-// 64-key tiles, staged from float32 between two barriers; P V takes V from
-// the row-major tile with ldmatrix.trans. Two passes over K (row max and
-// sum, then P V) make P's bf16 operand exp(S - final row max), the value
-// the plain version rounds, so the kernel differs from it only in the
-// order of float32 sums and phase 10 of chip_smoke.py holds O to an rms
-// difference of 1e-4 of rms(O). The price is one more Q K^T per tile.
-//
-// Backward (wgmma, TMA): dQ does 6 and dK/dV 8 * B*H*T^2*d operations
-// against 20 and 16 * B*H*T*d bytes (bf16 operands; float32 dO, O and
-// outputs), so above T ~ 1000 (dQ) and ~600 (dK/dV) both are bound by the
-// tensor cores, whose full bf16 rate only wgmma reaches; the dropout adds
-// Philox4x32-10 integer work (one call of 10 multiply-high rounds per 4
-// scores) that competes with the elementwise work for issue slots. The
-// design:
-//   - bf16 operands in device memory: the backward casts Q, K, V and dO to
-//     bf16 once (ops/flash_dropout.py::to_bf16, round to nearest even, as
-//     pack_bf16) and both kernels read that copy: half the bytes of
-//     float32, nothing converted. dQ also reads float32 dO and O for D.
-//   - one warpgroup (128 threads) per block owns 64 rows (dQ: queries,
-//     dK/dV: keys) and walks the other side in 64-row tiles. Every tile is
-//     in shared memory as 64 x 64 bf16 blocks in the 128-byte swizzle, which
-//     TMA writes and wgmma reads without bank conflicts.
+// Bounds on this card: the forward does 4, dQ 6 and dK/dV 8 * B*H*T^2*d
+// operations against 10 (forward: bf16 Q, K, V in, float32 O out), 20 and
+// 16 * B*H*T*d bytes (bf16 operands; float32 dO, O and outputs), so above
+// T ~ 750 (forward), ~1000 (dQ) and ~600 (dK/dV) all three are bound by
+// the tensor cores, whose full bf16 rate only wgmma reaches; the dropout
+// adds Philox4x32-10 integer work (one call of 10 multiply-high rounds per
+// 4 scores) that competes with the elementwise work for issue slots. The
+// design, shared by the three:
+//   - bf16 operands in device memory: the autograd function casts Q, K and
+//     V to bf16 once in the forward (ops/flash_dropout.py::to_bf16, round to
+//     nearest even, as pack_bf16) and saves that copy; the backward casts
+//     dO. Every kernel reads those copies: half the bytes of float32,
+//     nothing converted. dQ also reads float32 dO and O for D.
+//   - one warpgroup (128 threads) per block owns 64 rows (forward and dQ:
+//     queries, dK/dV: keys) and walks the other side in 64-row tiles. Every
+//     tile is in shared memory as 64 x 64 bf16 blocks in the 128-byte
+//     swizzle, which TMA writes and wgmma reads without bank conflicts.
 //   - asynchronous copies: thread 0 loads each tile by TMA
 //     (cp.async.bulk.tensor, 3-d map (D, T, BH), rows past T read as 0)
-//     into a ring of two stages with mbarrier completion; tile n+2 is in
-//     flight while tile n is multiplied. The tile's key bias (dQ) or lse
-//     and D (dK/dV), 64 floats each at any alignment, come by 4-byte
-//     cp.async, zero past T, waited one tile ahead of their use.
+//     into a ring with mbarrier completion: the backward's has two stages
+//     (tile n+2 is in flight while tile n is multiplied), the forward's
+//     four one-tile slots (pass 1: the next two K tiles in flight; pass 2:
+//     the next tile's K and V). The backward's key bias (dQ) or lse and D
+//     (dK/dV), 64 floats each at any alignment, come by 4-byte cp.async,
+//     zero past T, waited one tile ahead of their use; the forward reads
+//     each lane's 16 bias values of a tile into registers while the tile's
+//     products run.
+//   - overlap in the forward: pass 1 issues two tiles' scores at once and
+//     takes the first one's row max while the second's run; pass 2 issues
+//     S_j with P_{j-1} V_{j-1}, draws tile j's keep mask while both run
+//     and takes S_j's exponentials while P_{j-1} V_{j-1} runs.
 //   - products: S = Q K^T and dP = dO V^T (dK/dV: S^T = K Q^T, dP^T =
 //     V dO^T) are m64n64k16 wgmma with both operands in shared memory,
-//     K-major. dQ += dS K, dV += Pd^T dO and dK += dS^T Q take A from
-//     registers (the accumulator re-packed to bf16 pairs; a wgmma
+//     K-major. O += Pd V, dQ += dS K, dV += Pd^T dO and dK += dS^T Q take A
+//     from registers (the accumulator re-packed to bf16 pairs; a wgmma
 //     accumulator has the m16n8 layout per warp) and read the tile as an
 //     MN-major B (m64n{D}k16), so one copy of a tile serves both products.
-//   - one Philox pass: dQ draws the mask (as the forward does) and writes
-//     its bits; dK/dV reads 4 bytes per (query, 32 keys) instead, staged
-//     in shared memory by cp.async with the tile's lse and D. dQ draws a
-//     tile's mask into one register of 32 bits, and stores its bits, after
-//     issuing the tile's score products and before waiting for them, so
-//     the Philox work runs beside the tensor cores. (Reading dK/dV's bits
-//     the same way made dK/dV 8% slower, at p = 0 too; PERF.md has the
-//     measurement.)
-//   - no atomics: each block writes its own rows of dQ and D (dK and dV),
-//     so two runs give the same bits.
-// Two blocks (8 warps, ~97 KB of shared memory each at d = 128) share an
-// SM, so one block's elementwise work can overlap the other's products.
-// (Two warpgroups per block taking turns at the score products, as FA3
-// does, measured no faster on this card; PERF.md has the numbers.)
+//   - the forward's two passes: the first walks K alone and keeps each
+//     row's max of S; the second walks K and V, so P's bf16 operand is
+//     exp(S - final row max), the value the plain version rounds (to a few
+//     float32 ulp: __expf), and the row sum adds the same exponentials.
+//     The kernel then differs from the plain version only where a float32
+//     sum in another order or those ulps move a P to the other bf16
+//     neighbour (phase 10 of chip_smoke.py holds O to an rms difference of
+//     1e-4 of rms(O)); a single pass against the running max would round
+//     every P at other points. The price is one more Q K^T per tile (6
+//     instead of 4 * B*H*T^2*d).
+//   - one Philox pass per step: the forward and dQ draw the mask; dQ also
+//     writes its bits and dK/dV reads 4 bytes per (query, 32 keys) instead,
+//     staged in shared memory by cp.async with the tile's lse and D. The
+//     forward and dQ draw a tile's mask into one register of 32 bits (dQ
+//     also stores its bits) after issuing the tile's score products and
+//     before waiting for them, so the Philox work runs beside the tensor
+//     cores. (Reading dK/dV's bits the same way made dK/dV 8% slower, at
+//     p = 0 too; PERF.md has the measurement.)
+//   - no atomics: each block writes its own rows of O and lse (dQ and D;
+//     dK and dV), so two runs give the same bits.
+// Two blocks (8 warps, ~81 KB of shared memory each for the forward, ~97
+// KB for the backward at d = 128) share an SM, so one block's elementwise
+// work can overlap the other's products. (Two warpgroups per block taking
+// turns at the score products, as FA3 does, measured no faster in the
+// backward on this card, PERF.md has the numbers; a forward block of two
+// warpgroups sharing each K and V tile was no faster either.)
 //
 // Any T (rows past T read as zero and are not stored; a score of a key or
 // query past T gets P = 0); d_head 64 or 128.
 //
 // Interface (plain C, loaded with ctypes; every function returns the CUDA
 // error of its launch, 0 on success; tensors contiguous):
-//   flash_dropout_fwd(q, k, v, bias, o, lse, B, H, T, D, scale,
-//                     threshold, keep_scale, seed_lo, seed_hi, stream)
-//       all float32: q, k, v, o (B, H, T, D); bias (B, T); lse (B, H, T)
+//   flash_dropout_fwd(q16, k16, v16, bias, o (out), lse (out), B, H, T, D,
+//                     scale, threshold, keep_scale, seed_lo, seed_hi, stream)
 //   flash_dropout_dq(q16, k16, v16, do16, bias, do, o, lse, delta (out),
 //                    dq (out), bits (out), B, H, T, D, ...)
 //   flash_dropout_dkv(q16, k16, v16, do16, bias, lse, delta, bits,
 //                     dk (out), dv (out), B, H, T, D, ...)
 //       q16, k16, v16, do16: bf16 (B, H, T, D), 16-byte aligned (TMA); do,
 //       o, dq, dk, dv float32 (B, H, T, D); bias (B, T), lse and delta =
-//       D = rowsum(dO.O) (B, H, T) float32 (dQ computes D for its rows);
+//       D = rowsum(dO.O) (B, H, T) float32 (the forward writes lse, dQ
+//       computes D for its rows);
 //       bits (B*H, T, ceil(T/32)) uint32, written by dQ and read by dK/dV
 //       when threshold != 0 (else unused, may be null).
 //   flash_dropout_keep_mask(out (BH, T, T) int32, BH, T, threshold,
@@ -112,9 +122,6 @@
 namespace {
 
 constexpr int THREADS = 128;  // 4 warps (one warpgroup), 16 rows each
-constexpr int BR = 64;        // forward: queries a block owns
-constexpr int BC = 64;        // forward: keys of a tile
-constexpr int PAD = 8;        // forward: bf16 of padding per shared row
 
 struct Seed {
   uint32_t threshold;
@@ -168,240 +175,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a * b: m16n8k16, a row-major 16x16 bf16, b "col" (stored n-major)
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment (16 x 16, k-chunk kc) of a row-major bf16 tile with row stride ld
-__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* s,
-                                       int ld, int row0, int kc, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* p = s + (row0 + g) * ld + kc * 16 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8) from an n-major bf16 tile: rows n0..n0+7, k-chunk kc
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const __nv_bfloat16* s, int ld, int n0,
-                                       int kc, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* p = s + (n0 + g) * ld + kc * 16 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// acc[N/8][4] += A(16 x K, from shared rows row0..) * Bt(N x K)^T
-template <int K, int N>
-__device__ __forceinline__ void gemm_ss(float (*acc)[4],
-                                        const __nv_bfloat16* a, int lda,
-                                        int row0, const __nv_bfloat16* bt,
-                                        int ldb, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < K / 16; ++kc) {
-    uint32_t af[4];
-    load_a(af, a, lda, row0, kc, lane);
-#pragma unroll
-    for (int nt = 0; nt < N / 8; ++nt) {
-      uint32_t b0, b1;
-      load_b(b0, b1, bt, ldb, nt * 8, kc, lane);
-      mma(acc[nt], af, b0, b1);
-    }
-  }
-}
-
-// B fragments (16 x 8) of n-tiles n0/8 and n0/8 + 1, k-chunk kc, from a
-// k-major bf16 tile [k][n] (row stride ld): ldmatrix.x4.trans hands lane
-// (g, t) the elements (k 2t, 2t+1; n g) of each 8x8 block. Lane i gives
-// the address of row i%8 of block i/8: blocks (k0, n0), (k0+8, n0),
-// (k0, n0+8), (k0+8, n0+8).
-__device__ __forceinline__ void load_b_trans(uint32_t b[4],
-                                             const __nv_bfloat16* s, int ld,
-                                             int n0, int kc, int lane) {
-  const int blk = lane >> 3, r = lane & 7;
-  const __nv_bfloat16* p =
-      s + (kc * 16 + (blk & 1) * 8 + r) * ld + n0 + (blk >> 1) * 8;
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-// acc[N/8][4] += P(16 x K, accumulator fragments p[K/8][4]) * B(K x N),
-// B a k-major shared tile [k][n]; P is rounded to bf16 here
-template <int K, int N>
-__device__ __forceinline__ void gemm_rs(float (*acc)[4], const float (*p)[4],
-                                        const __nv_bfloat16* b, int ldb,
-                                        int lane) {
-  static_assert(N % 16 == 0, "n-tiles go in pairs");
-#pragma unroll
-  for (int kc = 0; kc < K / 16; ++kc) {
-    const uint32_t af[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
-                            pack_bf16(p[2 * kc][2], p[2 * kc][3]),
-                            pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-                            pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
-#pragma unroll
-    for (int nt = 0; nt < N / 8; nt += 2) {
-      uint32_t bf[4];
-      load_b_trans(bf, b, ldb, nt * 8, kc, lane);
-      mma(acc[nt], af, bf[0], bf[1]);
-      mma(acc[nt + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// rows row0 .. row0+R-1 of a (T, D) float32 matrix -> bf16 shared tile
-// [R][D+PAD] (rows past T are zero)
-template <int R, int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* s, const float* g,
-                                           int row0, int T) {
-  constexpr int D4 = D / 4;
-  for (int idx = threadIdx.x; idx < R * D4; idx += THREADS) {
-    const int r = idx / D4, c = (idx % D4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T)
-      x = *reinterpret_cast<const float4*>(g + static_cast<size_t>(row0 + r) * D + c);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(s + r * (D + PAD) + c);
-    dst[0] = pack_bf16(x.x, x.y);
-    dst[1] = pack_bf16(x.z, x.w);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// forward: block = 64 queries of one (b, h); two passes over 64-key tiles
+// TMA tile copies, mbarriers, wgmma
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct FwdSmem {
-  static constexpr int kQ = BR * (D + PAD), kK = BC * (D + PAD);
-  static constexpr size_t bytes = 2 * (kQ + 2 * kK) + sizeof(float) * BC;
-};
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ bias,
-           float* __restrict__ o, float* __restrict__ lse, int H, int T,
-           float scale, Seed sd) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + FwdSmem<D>::kQ;
-  __nv_bfloat16* Vs = Ks + FwdSmem<D>::kK;
-  float* bs = reinterpret_cast<float*>(Vs + FwdSmem<D>::kK);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / H;
-  const int q0 = blockIdx.x * BR, wr = warp * 16;
-  const size_t base = static_cast<size_t>(bh) * T * D;
-  const float* bias_b = bias + static_cast<size_t>(b) * T;
-  const bool drop = sd.threshold != 0u;
-
-  stage_rows<BR, D>(Qs, q + base, q0, T);
-
-  auto load_k = [&](int k0, bool with_v) {
-    __syncthreads();   // the previous tile's reads are done
-    stage_rows<BC, D>(Ks, k + base, k0, T);
-    if (with_v) stage_rows<BC, D>(Vs, v + base, k0, T);
-    if (threadIdx.x < BC) {
-      const int j = k0 + threadIdx.x;
-      bs[threadIdx.x] = j < T ? bias_b[j] : -INFINITY;   // no such key
-    }
-    __syncthreads();
-  };
-  auto scores = [&](float (*s)[4]) {
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    gemm_ss<D, BC>(s, Qs, D + PAD, wr, Ks, D + PAD, lane);
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[nt][e] = s[nt][e] * scale + bs[nt * 8 + 2 * t + (e & 1)];
-  };
-
-  // pass 1: row max and row sum of exp
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < T; k0 += BC) {
-    load_k(k0, false);
-    float s[BC / 8][4];
-    scores(s);
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < BC / 8; ++nt)
-        mt = fmaxf(mt, fmaxf(s[nt][2 * h2], s[nt][2 * h2 + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m[h2], mt);   // finite: key 0 < T exists
-      float rs = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BC / 8; ++nt)
-        rs += expf(s[nt][2 * h2] - m_new) + expf(s[nt][2 * h2 + 1] - m_new);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[h2] = l[h2] * expf(m[h2] - m_new) + rs;
-      m[h2] = m_new;
-    }
-  }
-
-  // pass 2: O = (M . exp(S - m) . c) V, then / l
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  for (int k0 = 0; k0 < T; k0 += BC) {
-    load_k(k0, true);
-    float s[BC / 8][4];
-    scores(s);
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-      uint32_t keep[4];
-      if (drop) keep_rows_q(keep, sd, bh, q0 + wr, k0 + nt * 8, lane);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = expf(s[nt][e] - m[e >> 1]);
-        if (drop) p = keep[e] >= sd.threshold ? p * sd.keep_scale : 0.f;
-        s[nt][e] = p;
-      }
-    }
-    gemm_rs<BC, D>(acc, s, Vs, D + PAD, lane);
-  }
-
-  float* og = o + base;
-#pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int row = q0 + wr + g + 8 * h2;
-    if (row >= T) continue;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      float2 x = make_float2(acc[dt][2 * h2] / l[h2], acc[dt][2 * h2 + 1] / l[h2]);
-      *reinterpret_cast<float2*>(og + static_cast<size_t>(row) * D + dt * 8 + 2 * t) = x;
-    }
-    if (t == 0) lse[static_cast<size_t>(bh) * T + row] = m[h2] + logf(l[h2]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward on Hopper: TMA tile copies, mbarriers, wgmma
-// ---------------------------------------------------------------------------
-
-constexpr int TILE = 64;             // rows of every backward tile
+constexpr int TILE = 64;             // rows of every tile
 constexpr int STAGES = 2;            // copy ring of the walked side
 constexpr int BLK = TILE * 64 * 2;   // bytes of one 64 x 64 bf16 swizzle block
 constexpr int SIDE = TILE * 4;       // bytes of a tile's float32 row values
@@ -655,6 +433,273 @@ struct BwdSmem {
 
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// ---------------------------------------------------------------------------
+// forward: block = 64 queries of one (b, h); two passes over 64-key tiles
+// ---------------------------------------------------------------------------
+
+constexpr int SLOTS = 4;   // forward: tiles in its copy ring
+
+template <int D>
+struct FwdSmem {
+  // the block's Q, a ring of four 64-row tiles (pass 1: K tiles; pass 2:
+  // the K and V of each tile in consecutive slots), barriers
+  static constexpr int kTile = TILE * D * 2;
+  static constexpr int kQ = 0, kRing = kTile;
+  static constexpr int kBars = kRing + SLOTS * kTile;
+  static constexpr size_t bytes = kBars + (1 + SLOTS) * sizeof(uint64_t) + 1024;
+};
+
+// the keep mask of this lane's elements of a 64 x 64 score tile (queries
+// row0 + 0..15 of this warp, keys k0..): bit 4*nt + e is accumulator
+// element (nt, e)
+__device__ __forceinline__ uint32_t tile_keep(const Seed& sd, uint32_t bh,
+                                              int row0, int k0, int lane) {
+  uint32_t kmask = 0u;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    uint32_t keep[4];
+    keep_rows_q(keep, sd, bh, row0, k0 + nt * 8, lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      kmask |= static_cast<uint32_t>(keep[e] >= sd.threshold) << (4 * nt + e);
+  }
+  return kmask;
+}
+
+// wait until at most N committed wgmma groups are pending (they complete
+// in order)
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// The forward walks K twice, through one ring of SLOTS tile copies in the
+// order of a sequence of loads: load L < n_tiles is K tile L (pass 1),
+// then load n_tiles + 2j is K tile j and n_tiles + 2j + 1 is V tile j
+// (pass 2). Load L goes to slot L % SLOTS, whose barrier completes its
+// (L / SLOTS)-th phase, and load L + SLOTS is issued when every warp is
+// done with load L. The products overlap the elementwise work: pass 1
+// issues two tiles' scores and takes the first one's max while the second
+// runs; pass 2 issues S_j and P_{j-1} V_{j-1} together, draws tile j's
+// mask while both run and takes S_j's exponentials while P_{j-1} V_{j-1}
+// runs. Every wgmma is waited for in the iteration that issued it (FA3's
+// order), so no accumulator is in flight across the loop.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+fwd_kernel(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           const float* __restrict__ bias, float* __restrict__ o,
+           float* __restrict__ lse, int H, int T, float scale, Seed sd) {
+  using L = FwdSmem<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  unsigned char* Qs = sm + L::kQ;
+  unsigned char* ring = sm + L::kRing;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H;
+  const int q0 = blockIdx.x * TILE, wr = warp * 16;
+  const int n_tiles = (T + TILE - 1) / TILE;
+  const int n_loads = 3 * n_tiles;
+  const float* bias_b = bias + static_cast<size_t>(b) * T;
+  const bool drop = sd.threshold != 0u;
+
+  auto slot = [&](int l) { return ring + (l % SLOTS) * L::kTile; };
+  auto load = [&](int l) {   // thread 0
+    if (l >= n_loads) return;
+    const int i = l - n_tiles;
+    const CUtensorMap* map = l < n_tiles || (i & 1) == 0 ? &tk : &tv;
+    uint64_t* bar = &bars[1 + l % SLOTS];
+    mbar_expect(bar, L::kTile);
+    tma_rows<D>(slot(l), map, bar, (l < n_tiles ? l : i >> 1) * TILE, bh);
+  };
+  auto wait_load = [&](int l) {
+    mbar_wait(&bars[1 + l % SLOTS], (l / SLOTS) & 1);
+  };
+  // this lane's key bias of the tile at k0 (columns nt * 8 + 2t + e%2 of
+  // the accumulator; -inf past T, so those keys get P = 0), read while the
+  // tile's products run
+  auto load_bias = [&](float (&bv)[16], int k0) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int j = k0 + (i >> 1) * 8 + 2 * t + (i & 1);
+      bv[i] = j < T ? __ldg(bias_b + j) : -INFINITY;
+    }
+  };
+  // every warp is done with loads l0 and l1 (-1: none): thread 0 issues
+  // the loads that take their slots
+  auto release = [&](int l0, int l1) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (l0 >= 0) load(l0 + SLOTS);
+      if (l1 >= 0) load(l1 + SLOTS);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + SLOTS; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(&bars[0], L::kTile);
+    tma_rows<D>(Qs, &tq, &bars[0], q0, bh);
+    for (int l = 0; l < SLOTS; ++l) load(l);
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(&bars[0], 0);
+
+  // pass 1: the row max of S, two tiles at a time: the second tile's
+  // scores run while the first tile's max is taken
+  auto row_max = [&](const float (&sc)[32], const float (&bv)[16]) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 2 * h2; e < 2 * h2 + 2; ++e)
+          mt = fmaxf(mt, fmaf(sc[4 * nt + e], scale, bv[2 * nt + (e & 1)]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      m[h2] = fmaxf(m[h2], mt);   // finite: key 0 < T exists
+    }
+  };
+  // (the loops issue and wait for the same wgmma groups in every
+  // iteration, so the compiler can tell which accumulators are in flight;
+  // the uneven ends are peeled)
+  int n = 0;
+  for (; n + 1 < n_tiles; n += 2) {
+    float sa[32], sb[32], ba[16], bb[16];
+    wait_load(n);
+    wg_fence();
+    scores<D>(sa, Qs, slot(n));
+    wg_commit();
+    wait_load(n + 1);
+    wg_fence();
+    scores<D>(sb, Qs, slot(n + 1));
+    wg_commit();
+    load_bias(ba, n * TILE);
+    load_bias(bb, (n + 1) * TILE);
+    wg_wait<1>();
+    reg_fence(sa);
+    row_max(sa, ba);
+    wg_wait<0>();
+    reg_fence(sb);
+    row_max(sb, bb);
+    release(n, n + 1);
+  }
+  if (n < n_tiles) {
+    float sa[32], ba[16];
+    wait_load(n);
+    wg_fence();
+    scores<D>(sa, Qs, slot(n));
+    wg_commit();
+    load_bias(ba, n * TILE);
+    wg_wait<0>();
+    reg_fence(sa);
+    row_max(sa, ba);
+    release(n, -1);
+  }
+
+  // pass 2: O = (M . exp(S - m) . c) V and the row sum of exp(S - m).
+  // Tile j: issue S_j and then P_{j-1} V_{j-1}; draw tile j's mask while
+  // both run; wait for S_j and take its exponentials while P_{j-1} V_{j-1}
+  // runs; wait for it, free K_j's and V_{j-1}'s slots, and make P_j, the
+  // A operand of the next P V, from the exponentials.
+  uint32_t af[4][4];
+  auto exps = [&](float (&sc)[32], const float (&bv)[16], uint32_t kmask) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int e = i & 3;
+      // __expf (ex2.approx of x log2 e): a few ulp from expf, so a rare P
+      // rounds to the other bf16 neighbour, as float32 sums in another
+      // order make it do, for about half the instructions of expf
+      float p = __expf(fmaf(sc[i], scale, bv[2 * (i >> 2) + (e & 1)]) -
+                       m[e >> 1]);
+      l[e >> 1] += p;
+      if (drop) p = (kmask >> i) & 1u ? p * sd.keep_scale : 0.f;
+      sc[i] = p;
+    }
+  };
+  auto pack = [&](const float (&sc)[32]) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float x[4] = {sc[4 * nt], sc[4 * nt + 1], sc[4 * nt + 2],
+                          sc[4 * nt + 3]};
+      put_a(af, nt, x);
+    }
+  };
+  auto keep = [&](int j) {
+    uint32_t kmask = drop ? tile_keep(sd, bh, q0 + wr, j * TILE, lane) : 0u;
+    asm volatile("" : "+r"(kmask));   // drawn before the wait, not after
+    return kmask;
+  };
+  {
+    float sc[32], bv[16];
+    wait_load(n_tiles);
+    wg_fence();
+    scores<D>(sc, Qs, slot(n_tiles));
+    wg_commit();
+    load_bias(bv, 0);
+    const uint32_t kmask = keep(0);
+    wg_wait<0>();
+    reg_fence(sc);
+    exps(sc, bv, kmask);
+    release(n_tiles, -1);
+    pack(sc);
+  }
+  for (int j = 1; j < n_tiles; ++j) {
+    const int lk = n_tiles + 2 * j;   // loads of K_j and V_j: lk, lk + 1
+    float sc[32], bv[16];
+    wait_load(lk);
+    wg_fence();
+    scores<D>(sc, Qs, slot(lk));
+    wg_commit();
+    wait_load(lk - 1);
+    wg_fence();
+    accumulate<D>(acc, af, slot(lk - 1));
+    wg_commit();
+    load_bias(bv, j * TILE);
+    const uint32_t kmask = keep(j);
+    wg_wait<1>();
+    reg_fence(sc);
+    exps(sc, bv, kmask);
+    wg_wait<0>();
+    release(lk, lk - 1);
+    pack(sc);
+  }
+  wait_load(n_loads - 1);
+  wg_fence();
+  accumulate<D>(acc, af, slot(n_loads - 1));
+  wg_commit();
+  wg_wait<0>();
+  reg_fence(acc);
+
+  float* og = o + static_cast<size_t>(bh) * T * D;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 1);
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 2);
+    const int row = q0 + wr + g + 8 * h2;
+    if (row >= T) continue;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const float2 x = make_float2(acc[4 * dt + 2 * h2] / l[h2],
+                                   acc[4 * dt + 2 * h2 + 1] / l[h2]);
+      *reinterpret_cast<float2*>(og + static_cast<size_t>(row) * D + dt * 8 + 2 * t) = x;
+    }
+    if (t == 0) lse[static_cast<size_t>(bh) * T + row] = m[h2] + logf(l[h2]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1098,33 +1143,34 @@ struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
+// dout null: the forward, which reads no dO
 bool make_maps(Maps* m, const void* q, const void* k, const void* v,
                const void* dout, int BH, int T, int D) {
   return rows_map(&m->q, q, BH, T, D) && rows_map(&m->k, k, BH, T, D) &&
-         rows_map(&m->v, v, BH, T, D) && rows_map(&m->dout, dout, BH, T, D);
+         rows_map(&m->v, v, BH, T, D) &&
+         (dout == nullptr || rows_map(&m->dout, dout, BH, T, D));
 }
 
 }  // namespace
 
-extern "C" int flash_dropout_fwd(const float* q, const float* k,
-                                 const float* v, const float* bias, float* o,
-                                 float* lse, int B, int H, int T, int D,
-                                 float scale, unsigned threshold,
-                                 float keep_scale, unsigned seed_lo,
-                                 unsigned seed_hi, void* stream) {
+extern "C" int flash_dropout_fwd(const void* q, const void* k, const void* v,
+                                 const float* bias, float* o, float* lse,
+                                 int B, int H, int T, int D, float scale,
+                                 unsigned threshold, float keep_scale,
+                                 unsigned seed_lo, unsigned seed_hi,
+                                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Seed sd = make_seed(threshold, keep_scale, seed_lo, seed_hi);
-  const dim3 grid((T + BR - 1) / BR, B * H);
-  switch (D) {
-    case 64:
-      return launch(fwd_kernel<64>, FwdSmem<64>::bytes, grid, s, q, k, v,
-                        bias, o, lse, H, T, scale, sd);
-    case 128:
-      return launch(fwd_kernel<128>, FwdSmem<128>::bytes, grid, s, q, k,
-                         v, bias, o, lse, H, T, scale, sd);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  Maps m;
+  if ((D != 64 && D != 128) ||
+      !make_maps(&m, q, k, v, nullptr, B * H, T, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((T + TILE - 1) / TILE, B * H);
+  if (D == 64)
+    return launch(fwd_kernel<64>, FwdSmem<64>::bytes, grid, s, m.q, m.k,
+                  m.v, bias, o, lse, H, T, scale, sd);
+  return launch(fwd_kernel<128>, FwdSmem<128>::bytes, grid, s, m.q, m.k,
+                m.v, bias, o, lse, H, T, scale, sd);
 }
 
 extern "C" int flash_dropout_dq(const void* q, const void* k, const void* v,

@@ -3,7 +3,8 @@
 Port of `parrot_tts_tpu/infer/serving.py::ParrotTTS` on one CUDA device.
 Both stages use folded (inference) parameters. Unlike the JAX class, whose
 default decode is "selective-high", the port's default `exact=True` is
-IEEE float32 everywhere (no TF32); `exact=False` allows TF32.
+IEEE float32 (no TF32) but for attention's 3xTF32 kernel, which keeps
+float32 accuracy; `exact=False` allows TF32.
 """
 
 from __future__ import annotations

@@ -16,7 +16,9 @@ site alone (`dropout_seed`), so a step is reproducible from its inputs.
 Precision: `exact=True` (the default) runs every matmul and convolution in
 IEEE float32 — TF32 off for matmul and cuDNN alike — because a TF32 pass
 perturbs the logits enough to flip argmax near-ties and rounded durations.
-`exact=False` allows TF32. The JAX package's "selective", "selective-high"
+Attention on the card is the exception under either setting: its kernel
+multiplies in 3xTF32 (ops/flash_attention.py), within 1e-5 of IEEE
+float32. `exact=False` allows TF32. The JAX package's "selective", "selective-high"
 and "hybrid" modes mix precisions by section; they are not ported until
 they are gated unit-exact on the card, and raise NotImplementedError.
 """

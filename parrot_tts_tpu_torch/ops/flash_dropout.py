@@ -30,11 +30,14 @@ mask is a function of (seed, bh, i, j) alone: the forward, dQ and dK/dV
 kernels regenerate it under any tiling, and so does `keep_mask_reference`
 in torch integer ops on any device.
 
-The backward casts Q, K, V and dO to bf16 once (`to_bf16`, round to nearest
-even, as the kernels round) and hands both wrappers those operands, which
-the kernels require: they take them by TMA into shared memory and multiply
-with wgmma (csrc/flash_dropout.cu says how). The plain versions round their
-own.
+On the card the autograd function casts Q, K and V to bf16 once in the
+forward (`to_bf16`, round to nearest even, as the kernels round), hands
+them to the forward kernel and saves them in place of the float32 tensors;
+the backward casts dO alone and hands both backward wrappers the four
+operands. The kernels require them: they take them by TMA into shared
+memory and multiply with wgmma (csrc/flash_dropout.cu says how), and each
+wrapper checks only what its kernel reads. The plain versions round their
+own, and on the CPU the autograd function saves the float32 tensors.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches
 `csrc/flash_dropout.cu` (rows 2-5 of PERF.md's kernel table) or raises.
@@ -262,6 +265,10 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
 
 
 def _check(q, k, v, bias, dropout_p, *more) -> None:
+    """What every kernel reads: q, k and v of one type (float32, or the
+    bf16 operands of `to_bf16`) and each (name, tensor) of `more` float32,
+    all shaped like q, on its device and contiguous; the (B, T) float32
+    bias; d_head, B*H and p in range."""
     if q.dim() != 4:
         raise ValueError(f"flash_dropout: want (B, H, T, D), got "
                          f"{tuple(q.shape)}")
@@ -269,8 +276,9 @@ def _check(q, k, v, bias, dropout_p, *more) -> None:
         if x.device != q.device:
             raise ValueError(f"flash_dropout: {name} on {x.device}, q on "
                              f"{q.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"flash_dropout: {name} must be float32, got "
+        want = q.dtype if name in ("q", "k", "v") else torch.float32
+        if x.dtype != want or want not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"flash_dropout: {name} must be {want}, got "
                             f"{x.dtype}")
         if x.shape != q.shape:
             raise ValueError(f"flash_dropout: {name} shape {tuple(x.shape)} "
@@ -291,27 +299,34 @@ def _check(q, k, v, bias, dropout_p, *more) -> None:
 
 
 def flash_dropout_fwd(q, k, v, bias, seed: int, dropout_p: float,
-                      scale: float):
-    """(O, lse): row 2 on a CUDA tensor, the plain forward on a CPU one."""
+                      scale: float, *, operands=None):
+    """(O, lse), both float32. On CUDA tensors row 2, which reads
+    `operands` (q, k, v as `to_bf16` rounds them; required there) and
+    not the float32 q, k, v. On CPU tensors the plain forward, which does
+    not read `operands`."""
     if not _on_card("flash_dropout_fwd", q):
         return flash_attention_dropout_reference(q, k, v, bias, seed,
                                                  dropout_p, scale)
-    _check(q, k, v, bias, dropout_p)
+    ops = _check_operands(operands, q, ("q", "k", "v"))
+    _check(*ops, bias, dropout_p)
     b, h, t, d = q.shape
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b * h == 0:
         return o, lse
     with torch.cuda.device(q.device):
-        FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, h, t, d, scale,
-            *_seed_args(seed, dropout_p), _stream(q))
+        FWD(*(x.data_ptr() for x in ops), bias.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, h, t, d, scale, *_seed_args(seed, dropout_p),
+            _stream(q))
     return o, lse
 
 
-def _check_bwd(q, k, v, bias, dropout_p, do, rows: dict, *more) -> None:
-    """Checks the backward's operands; `rows` holds its (B, H, T) ones."""
-    _check(q, k, v, bias, dropout_p, ("do", do), *more)
+def _check_bwd(ops, bias, dropout_p, do, rows: dict, *more) -> None:
+    """Checks what a backward kernel reads: the bf16 operands (checked by
+    `_check_operands`), float32 dO and `more`, the bias and `rows`, its
+    (B, H, T) float32 tensors."""
+    q = ops[0]
+    _check(*ops[:3], bias, dropout_p, ("do", do), *more)
     b, h, t, _ = q.shape
     for name, x in rows.items():
         if (x.dtype != torch.float32 or x.shape != (b, h, t)
@@ -322,9 +337,9 @@ def _check_bwd(q, k, v, bias, dropout_p, do, rows: dict, *more) -> None:
 
 
 def to_bf16(*xs: torch.Tensor) -> tuple:
-    """The backward's product operands (q, k, v, do) rounded to bf16 (to
-    nearest even, as the kernels round): made once per backward and read by
-    both launches."""
+    """The kernels' product operands rounded to bf16 (to nearest even, as
+    the kernels round): q, k, v once per forward, which the backward
+    reuses, and do once per backward."""
     return tuple(x.to(torch.bfloat16) for x in xs)
 
 
@@ -345,13 +360,14 @@ def _check_bits(bits, q, dropout_p) -> None:
                          f"{tuple(bits.shape)} on {bits.device}")
 
 
-def _check_operands(ops, q) -> tuple:
-    """The kernels' bf16 operands (q, k, v, do), as `to_bf16` makes them:
-    present, each like q, contiguous, 16-byte aligned (TMA reads them)."""
-    if ops is None or len(ops) != 4:
-        raise ValueError("flash_dropout: the kernels want q, k, v, do as "
-                         "4 bf16 operands (to_bf16)")
-    for name, x in zip(("q", "k", "v", "do"), ops):
+def _check_operands(ops, q, names=("q", "k", "v", "do")) -> tuple:
+    """A kernel's bf16 operands (the backward's q, k, v, do; the
+    forward's q, k, v), as `to_bf16` makes them: present, each shaped like
+    q and on its device, contiguous, 16-byte aligned (TMA reads them)."""
+    if ops is None or len(ops) != len(names):
+        raise ValueError(f"flash_dropout: the kernel wants {', '.join(names)}"
+                         f" as {len(names)} bf16 operands (to_bf16)")
+    for name, x in zip(names, ops):
         if (x.dtype != torch.bfloat16 or x.shape != q.shape
                 or x.device != q.device or not x.is_contiguous()
                 or x.data_ptr() % 16):
@@ -365,17 +381,18 @@ def flash_dropout_dq(q, k, v, bias, seed: int, o, lse, do,
                      dropout_p: float, scale: float, *, operands):
     """(dQ, D = rowsum(dO . O) (B, H, T), keep bits or None). On CUDA
     tensors row 3, which reads `operands` (q, k, v, do as `to_bf16` rounds
-    them; required) and computes D and, under dropout, the keep bits
+    them; required) and not q, k, v themselves (which may be those bf16
+    copies), and computes D and, under dropout, the keep bits
     (`pack_keep_bits`' layout) with dQ for `flash_dropout_dkv`. On CPU
     tensors the plain formulas, with no bits: the plain dK/dV draws the
     mask from the seed, and `operands` is not read."""
     if not _on_card("flash_dropout_dq", q):
         return (*flash_dropout_dq_reference(q, k, v, bias, seed, o, lse, do,
                                             dropout_p, scale), None)
-    _check_bwd(q, k, v, bias, dropout_p, do, {"lse": lse}, ("o", o))
     ops = _check_operands(operands, q)
+    _check_bwd(ops, bias, dropout_p, do, {"lse": lse}, ("o", o))
     b, h, t, d = q.shape
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     bits = (torch.empty((b * h, t, -(-t // 32)), dtype=torch.int32,
                         device=q.device) if threshold(dropout_p) else None)
@@ -392,17 +409,19 @@ def flash_dropout_dkv(q, k, v, bias, seed: int, delta, lse, do,
                       dropout_p: float, scale: float, *, bits, operands):
     """(dK, dV) from D = rowsum(dO . O), the keep bits and the bf16
     operands, each as `flash_dropout_dq` returns or reads them. On CUDA
-    tensors row 4; under dropout a missing bits tensor raises (the mask is
-    not drawn again). On CPU tensors the plain formulas, which draw the
-    mask from the seed and read neither `bits` nor `operands`."""
+    tensors row 4, which reads no float32 q, k, v; under dropout a missing
+    bits tensor raises (the mask is not drawn again). On CPU tensors the
+    plain formulas, which draw the mask from the seed and read neither
+    `bits` nor `operands`."""
     if not _on_card("flash_dropout_dkv", q):
         return flash_dropout_dkv_reference(q, k, v, bias, seed, delta, lse,
                                            do, dropout_p, scale)
     _check_bits(bits, q, dropout_p)
-    _check_bwd(q, k, v, bias, dropout_p, do, {"lse": lse, "delta": delta})
     ops = _check_operands(operands, q)
+    _check_bwd(ops, bias, dropout_p, do, {"lse": lse, "delta": delta})
     b, h, t, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              for _ in range(2))
     if t and b * h:
         with torch.cuda.device(q.device):
             DKV(*(x.data_ptr() for x in ops), bias.data_ptr(),
@@ -435,12 +454,15 @@ def keep_mask(b: int, h: int, t: int, seed: int, dropout_p: float,
 
 class _FlashDropout(torch.autograd.Function):
     """JAX `custom_vjp` of `flash_attention_dropout` (`:330-359`): saves q,
-    k, v, bias, o and lse (and the seed); bias and seed get no gradient."""
+    k, v (on the card their bf16 copies, which every kernel reads), bias, o
+    and lse (and the seed); bias and seed get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, dropout_p, scale):
-        o, lse = flash_dropout_fwd(q, k, v, bias, seed, dropout_p, scale)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ops = to_bf16(q, k, v) if _on_card("flash_dropout", q) else None
+        o, lse = flash_dropout_fwd(q, k, v, bias, seed, dropout_p, scale,
+                                   operands=ops)
+        ctx.save_for_backward(*(ops or (q, k, v)), bias, o, lse)
         ctx.seed, ctx.dropout_p, ctx.scale = seed, dropout_p, scale
         return o
 
@@ -448,7 +470,9 @@ class _FlashDropout(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        ops = to_bf16(q, k, v, do)      # both kernels read this one copy
+        # on the card both kernels read the forward's copies and one of dO
+        ops = ((q, k, v, *to_bf16(do)) if _on_card("flash_dropout", q)
+               else None)
         common = (q, k, v, bias, ctx.seed)
         rest = (lse, do, ctx.dropout_p, ctx.scale)
         dq, delta, bits = flash_dropout_dq(*common, o, *rest, operands=ops)

@@ -1,0 +1,25 @@
+#!/usr/bin/env bash
+# Compare two trees on one card: run each one's chip_smoke.py from its own
+# root, alternately (parent, change, change, parent, parent, change), and
+# print the lines that carry the attention and training numbers. Full logs
+# go to chiprun_out/pairs/<n>_<P|C>.log.
+#
+#   bash parrot_tts_tpu_torch/scripts/smoke_pairs.sh PARENT_ROOT [ORDER]
+#
+# PARENT_ROOT: a checkout of the parent commit (for example `git archive`
+# unpacked into build/parent); the change is the current directory. ORDER
+# defaults to "P C C P P C".
+set -u
+parent=$1
+order=${2:-"P C C P P C"}
+mkdir -p chiprun_out/pairs
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+i=0
+for who in $order; do
+  i=$((i + 1))
+  if [ "$who" = P ]; then dir=$parent; else dir=.; fi
+  log=$PWD/chiprun_out/pairs/${i}_${who}.log
+  (cd "$dir" && python3 chip_smoke.py > "$log" 2>&1); rc=$?
+  echo "== run $i $who rc=$rc"
+  grep -E "^kernel B=5 T= 2048|^kernel B=6 T= 3584|^flash dropout B=6 T= 3584|^  fwd  |^fwd per|^forward as training runs it, per|^backward as training runs it, per|^serve [01]:|^profile: wall|^training reading" "$log" | cut -c1-240
+done

@@ -116,6 +116,47 @@ def test_bf16_operands_are_checked(bad):
     fd._check_operands(fd.to_bf16(q, k, v, do), q)
 
 
+@pytest.mark.parametrize("bad", ["missing", "float32", "count", "aligned"])
+def test_forward_operands_are_checked(bad):
+    """The forward kernel reads q, k, v as bf16 (to_bf16), no dO."""
+    q, k, v, do, _ = _inputs(6, 2, 2, 40, 64)
+    ops = list(fd.to_bf16(q, k, v))
+    fd._check_operands(ops, q, ("q", "k", "v"))
+    if bad == "missing":
+        ops = None
+    elif bad == "float32":
+        ops[0] = q
+    elif bad == "count":
+        ops = fd.to_bf16(q, k, v, do)
+    else:
+        buf = torch.empty(ops[2].numel() + 1, dtype=torch.bfloat16)
+        ops[2] = buf[1:].view(ops[2].shape)
+    with pytest.raises(ValueError):
+        fd._check_operands(ops, q, ("q", "k", "v"))
+
+
+def test_cpu_autograd_saves_float32_and_casts_nothing():
+    """On the CPU the autograd function takes the plain versions: it saves
+    the float32 q, k, v and makes no bf16 copy."""
+    q, k, v, do, bias = _inputs(8, 2, 2, 40, 64)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    casts = []
+    real = fd.to_bf16
+
+    def counting(*xs):
+        casts.append(len(xs))
+        return real(*xs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fd, "to_bf16", counting)
+        o = fd.flash_attention_dropout(q, k, v, bias, 9, P, 0.125)
+        saved = o.grad_fn.saved_tensors
+        o.backward(do)
+    assert casts == []
+    assert all(x.dtype == torch.float32 for x in saved)
+    assert all(torch.equal(a, b) for a, b in zip(saved[:3], (q, k, v)))
+
+
 def test_to_bf16_rounds_to_nearest_even():
     """The kernels' operands: ties go to the even bf16 neighbour, as the
     kernels' own rounding (pack_bf16) and the plain versions' do."""
@@ -134,8 +175,9 @@ def test_bwd_kernels_are_deterministic_on_card(cuda_device, t, d):
     """Two launches on the same inputs give the same bits: no atomics."""
     q, k, v, do, bias = _inputs(t + d, 3, 2, t, d, cuda_device)
     seed, scale = 555 + t, d ** -0.5
-    o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, P, scale)
     ops = fd.to_bf16(q, k, v, do)
+    o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, P, scale,
+                                  operands=ops[:3])
     runs = []
     for _ in range(2):
         dq, delta, bits = fd.flash_dropout_dq(q, k, v, bias, seed, o, lse,

@@ -44,7 +44,8 @@ def _inputs(rng, b, h, t, d, device="cpu", all_masked_row=None):
     return q, k, v, torch.from_numpy(mask).to(device)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "width", "shape", "mask", "layout"])
+@pytest.mark.parametrize("bad", ["dtype", "width", "shape", "mask", "layout",
+                                 "aligned"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(rng, bad):
     q, k, v, mask = _inputs(rng, 2, 2, 8, 128)
     if bad == "dtype":
@@ -55,6 +56,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng, bad):
         v = v[:, :, :4].contiguous()
     elif bad == "mask":
         mask = mask.to(torch.uint8)
+    elif bad == "aligned":       # cp.async copies 16 bytes at a time
+        buf = torch.empty(v.numel() + 1)
+        v = buf[1:].view(v.shape).copy_(v)
+        assert v.is_contiguous() and v.data_ptr() % 16
     else:
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
@@ -72,7 +77,11 @@ def test_cpu_tensors_take_the_plain_version(rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,d", [(1, 128), (64, 128), (500, 128),
-                                 (768, 128), (130, 64), (2048, 128)])
+                                 (768, 128), (130, 64), (2048, 128)]
+                         # ragged against the 64-query blocks and 32-key
+                         # tiles, at both head widths
+                         + [(t, d) for d in (64, 128)
+                            for t in (1, 63, 65, 127, 129, 777)])
 def test_kernel_matches_plain_on_card(cuda_device, t, d):
     rng = np.random.default_rng(t)
     q, k, v, mask = _inputs(rng, 4, 2, t, d, cuda_device,
@@ -85,7 +94,7 @@ def test_kernel_matches_plain_on_card(cuda_device, t, d):
     with exact_numerics(True):
         want = fa.flash_attention_reference(q, k, v, mask, scale)
     assert torch.equal(got[2], torch.zeros_like(got[2]))
-    # IEEE float32 both; only the order of the sums differs
+    # 3xTF32 products and IEEE float32 softmax against IEEE float32
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
@@ -458,7 +467,9 @@ def test_flash_dropout_kernels_match_plain_on_card(cuda_device, t, d, p):
     q, k, v, do, bias = _fd_inputs(rng, b, h, t, d, cuda_device,
                                    all_padded_row=1 if t > 1 else None)
     before = (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches)
-    o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, p, scale)
+    ops = fd.to_bf16(q, k, v, do)
+    o, lse = fd.flash_dropout_fwd(q, k, v, bias, seed, p, scale,
+                                  operands=ops[:3])
     torch.cuda.synchronize()
     want_o, want_lse = fd.flash_attention_dropout_reference(
         q, k, v, bias, seed, p, scale)
@@ -467,7 +478,6 @@ def test_flash_dropout_kernels_match_plain_on_card(cuda_device, t, d, p):
     torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
     # the backward of both on the plain forward's O and lse, and dK/dV of
     # both on the plain D
-    ops = fd.to_bf16(q, k, v, do)
     dq, delta, bits = fd.flash_dropout_dq(q, k, v, bias, seed, want_o,
                                           want_lse, do, p, scale, operands=ops)
     want_dq, want_delta = fd.flash_dropout_dq_reference(
@@ -503,22 +513,41 @@ def test_keep_mask_kernel_bit_identical_on_card(cuda_device, b, h, t, p):
 
 
 @pytest.mark.cuda
-def test_flash_dropout_autograd_runs_the_kernels_on_card(cuda_device):
-    rng = np.random.default_rng(7)
-    q, k, v, do, bias = _fd_inputs(rng, 2, 2, 200, 128, cuda_device)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_flash_dropout_autograd_runs_the_kernels_on_card(cuda_device, p):
+    """One launch of each kernel; the forward casts q, k, v once and saves
+    those copies, the backward casts dO alone and both backward kernels
+    read the saved copies; O and the gradients against plain."""
+    rng = np.random.default_rng(8)
+    q, k, v, do, bias = _fd_inputs(rng, 2, 2, 333, 128, cuda_device,
+                                   all_padded_row=1)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
+    casts = []
+    real = fd.to_bf16
+
+    def counting(*xs):
+        casts.append(len(xs))
+        return real(*xs)
+
     before = (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches)
-    o = fd.flash_attention_dropout(q, k, v, bias, 3, 0.1, 0.1)
-    o.backward(do)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fd, "to_bf16", counting)
+        o = fd.flash_attention_dropout(q, k, v, bias, 11, p, 0.1)
+        saved = o.grad_fn.saved_tensors
+        o.backward(do)
     torch.cuda.synchronize()
+    assert casts == [3, 1]
     assert (fd.FWD.launches, fd.DQ.launches, fd.DKV.launches) == tuple(
         n + 1 for n in before)
-    qkv = (q.detach(), k.detach(), v.detach(), bias, 3)
-    lse = fd.flash_attention_dropout_reference(*qkv, 0.1, 0.1)[1]
-    want_dq, delta = fd.flash_dropout_dq_reference(*qkv, o.detach(), lse, do,
-                                                   0.1, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(
+        saved[:3], real(q.detach(), k.detach(), v.detach())))
+    qkv = (q.detach(), k.detach(), v.detach(), bias, 11)
+    want_o, lse = fd.flash_attention_dropout_reference(*qkv, p, 0.1)
+    _close(o.detach(), want_o, "O")
+    want_dq, delta = fd.flash_dropout_dq_reference(*qkv, o.detach(), lse,
+                                                   do, p, 0.1)
     want_dk, want_dv = fd.flash_dropout_dkv_reference(*qkv, delta, lse, do,
-                                                      0.1, 0.1)
+                                                      p, 0.1)
     _close(q.grad, want_dq, "dQ")
     # dK/dV read the kernel's D, written by the dQ launch before them
     _close(k.grad, want_dk, "dK")
