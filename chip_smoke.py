@@ -37,7 +37,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    serve passes: the int8-static serve's per-channel scale broadcast over
    the batch, the dynamic serves' per-row (B, Co) scales ("int8-tail"'s
    sites are a subset of "int8"'s), bit-identical; kernel, plain and bound
-   ms;
+   ms (the kernel's device time per launch of launches queued ahead of
+   the device, and the launch-to-launch time, both from CUDA events), the
+   kernel's share of its bound and the plan's branch ("tma", or
+   "padded" where an operand goes through a workspace), tile and ring per
+   site; per serve of each mode the kernel's total beside the mma.sync
+   kernel's it replaced (INT8_SERVE_MS_BEFORE);
 7. fused serve: ParrotTTS with VocoderModelConfig(fused_mrf=True) on the
    same requests and weights: waveforms within 1e-5 of phase 4's, 3 fused
    launches per vocoder batch, each at a shape phase 5 checked;
@@ -55,7 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch-invariant: a quiet row alone and beside a loud row gives the same
    bits;
 9. profile: one more float serve, int8-static serve and "int8" serve under
-   torch.profiler (device time by kernel, the device's busy and idle share);
+   torch.profiler (device time by kernel, the device's busy and idle share,
+   the row-7 kernels' device time per serve);
 10. flash attention with dropout against plain: the forward (wgmma and
    TMA on bf16 operands cast once, two passes over K), dQ (with the
    D = rowsum(dO . O) and the keep bits it writes) and dK/dV kernels (rows
@@ -89,9 +95,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. GEMM against plain: the row-8 kernel at the int8 experiment's (8192,
    4096, 4096) in int8 and bf16, at a ragged (1000, 1000, 1000) and a
    small (17, 33, 9) in int8, bf16 and float32: int8 equal, bf16 and
-   float32 within MM_RTOL * sqrt(K) of max |plain|; kernel, plain, bound
-   and torch._int_mm / torch.matmul ms at the rate shape; then the ported
-   int8 experiment (`python -m parrot_tts_tpu_torch.scripts.exp_int8_rate`)
+   float32 within MM_RTOL * sqrt(K) of max |plain|, each with the plan's
+   route and branch (the ragged shapes take the padded branch); kernel
+   (its rate and share of the bound), plain, bound and torch._int_mm /
+   torch.matmul ms at the rate shape, and the int8 B^T pass alone; then
+   the ported int8 experiment (`python -m parrot_tts_tpu_torch.scripts.exp_int8_rate`)
    parts 1 and 2 with few repetitions, its GEMM launches counted.
 
 The second-to-last stdout line is a JSON object describing each kernel;
@@ -128,6 +136,12 @@ SNR_MIN_DB = 15.0            # int8-static serve against the float serve: the
 # conv_post; "int8-tail" only the 64-, 32- and 16-channel stages' MRF convs
 # (3 x 18) and the two upsamples after the first of them
 INT8_SITES = {"int8-static": 95, "int8": 95, "int8-tail": 56}
+# row 7's ms per serve of each mode with the mma.sync kernel it replaced
+# (PERF.md section 6, the same phase on the same card)
+INT8_SERVE_MS_BEFORE = {"int8-static": 29.7722, "int8": 29.9788,
+                        "int8-tail": 16.1821}
+INT8_CONV_KERNEL = "::conv_kernel<"   # csrc/int8_conv.cu's kernels, by name
+INT8_WARMUP, INT8_TIMED = 2, 10       # phase 6's launches per site
 # the GEMM's bf16 and float32 results against plain: the same float32
 # products summed in another order (tests/test_torch_kernels.py states why)
 MM_RTOL = 1e-5
@@ -197,6 +211,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of reps back-to-back launches of fn (CUDA events),
+    with the host's enqueue cost hidden: a spin kernel holds the device
+    while the launches are queued behind it. If the device reached the
+    first event before the host had queued them all, the spin is made
+    longer and the measurement taken again."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 4_000_000
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("the launches could not be queued ahead of the "
+                         "device")
 
 
 def attention_bound_ms(b: int, h: int, t: int, d: int) -> dict:
@@ -633,7 +674,10 @@ def phase_int8_kernel(qc, vcfg, batches) -> dict:
     """The int8 conv kernel against its plain version, bit for bit, at
     every distinct site shape of every int8-static and "int8" vocoder
     batch, with the scale each serve passes ("int8-tail"'s sites are a
-    subset of "int8"'s)."""
+    subset of "int8"'s). A site's "ms" is the device time per launch of
+    launches queued ahead of the device (queued_ms): back to back, the
+    launches of the small sites are paced by the host, whose
+    launch-to-launch time (cuda_ms) is printed beside it."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
     def ints(*shape):
@@ -671,25 +715,33 @@ def phase_int8_kernel(qc, vcfg, batches) -> dict:
                 f"int8 conv B={n} T={t} Ci={ci} Co={co} K={k} d={d}: not "
                 f"bit-identical (max |diff| {float((got - want).abs().max())})")
         err = float((got - want).abs().max())
-        ms = cuda_ms(kern, 10)
+        ms = queued_ms(kern, INT8_TIMED, warmup=INT8_WARMUP)
+        launch_ms = cuda_ms(kern, INT8_TIMED, warmup=0)
         plain_ms = cuda_ms(plain, 3, warmup=1)
         t_out = got.shape[1]
         bound_ms, bound_by = bound(
             2.0 * n * t_out * k * ci * co, INT8_PEAK,
             n * t * ci + k * ci * co + 4.0 * (co + co + n * t_out * co))
         rows.append({"key": key, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
+                     "launch_ms": launch_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        plan = qc.conv_plan(n, t, ci, k, co, pads, d)
         print(f"int8 conv B={n} T={t:7d} Ci={ci:3d} Co={co:4d} K={k:2d} "
               f"d={d} leaky={int(leaky is not None)} per_row={int(per_row)}"
-              f": bit-identical  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-              f"  bound {bound_ms:.4f} ms ({bound_by})")
+              f": bit-identical  kernel {ms:.4f} ms device (launch to launch"
+              f" {launch_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% of "
+              f"it)  branch {plan['branch']} (tile {plan['bm']} x "
+              f"{plan['bn']}, {'resident' if plan['resident'] else 'streamed'}"
+              f" weights, {plan['stages']} stages)")
         del xq, wt, got, want
     by_key = {r["key"]: r for r in rows}
 
     def report(site_counts: dict) -> dict:
-        return total([{**by_key[key], "count": count}
-                      for key, count in site_counts.items()])
+        rows_ = [{**by_key[key], "count": count}
+                 for key, count in site_counts.items()]
+        return {**total(rows_), "launch_ms": sum(
+            r["launch_ms"] * r["count"] for r in rows_)}
 
     for mode in INT8_SITES:
         for n, t_codes in batches:
@@ -701,8 +753,10 @@ def phase_int8_kernel(qc, vcfg, batches) -> dict:
         r = report(serves[mode])
         print(f"int8 conv per {mode} serve ({len(serves[mode])} distinct "
               f"shapes, {INT8_SITES[mode] * len(batches)} launches): kernel "
-              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-              f"{r['bound_ms']:.4f} ms")
+              f"{r['ms']:.4f} ms device ({100 * r['bound_ms'] / r['ms']:.1f}% "
+              f"of the bound; launch to launch {r['launch_ms']:.4f} ms; the "
+              f"mma.sync kernel before it: {INT8_SERVE_MS_BEFORE[mode]} ms)  "
+              f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms")
     # the three serves together, whose launches the kernels line counts
     all_serves: dict = {}
     for site_counts in serves.values():
@@ -873,6 +927,11 @@ def phase_profile(serve, label: str) -> None:
           f"{sum(ms for ms, _ in by_name.values()):.3f} ms summed")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+    row7 = [v for name, v in by_name.items() if INT8_CONV_KERNEL in name]
+    if row7:
+        print(f"profile: row 7 (csrc/int8_conv.cu) "
+              f"{sum(ms for ms, _ in row7):.3f} ms device time over "
+              f"{sum(n for _, n in row7)} launches")
 
 
 def fd_compare(got, want, what: str) -> tuple[float, float]:
@@ -1380,8 +1439,8 @@ def phase_train_profile(state, model_cfg, train_cfg, batch, out_len) -> None:
 def phase_gemm(qc) -> dict:
     """The row-8 GEMM against its plain version (int8 equal, bf16 and
     float32 within MM_RTOL * sqrt(K) of max |plain|) at the rate shape, a
-    ragged and a small shape; kernel, plain, bound and library ms at the
-    rate shape."""
+    ragged and a small shape, each with the plan's branch; kernel, plain,
+    bound and library ms at the rate shape, and the int8 B^T pass alone."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     cases = [(RATE_SHAPE, (torch.int8, torch.bfloat16))] + [
         (shape, (torch.int8, torch.bfloat16, torch.float32))
@@ -1410,8 +1469,10 @@ def phase_gemm(qc) -> dict:
                     raise AssertionError(f"GEMM {dtype} {(m, k, n)}: max "
                                          f"|diff| {err} > {lim}")
             err_max = max(err_max, err)
+            plan = qc.gemm_plan(m, k, n, dtype)
             line = (f"GEMM (M, K, N) = {(m, k, n)} {str(dtype)[6:]}: "
-                    f"max|diff| {err:.3e} (limit {lim:.3e})")
+                    f"max|diff| {err:.3e} (limit {lim:.3e})  {plan['route']}"
+                    f", branch {plan['branch']}")
             if (m, k, n) == RATE_SHAPE:
                 ops = 2.0 * m * k * n
                 esize = a.element_size()
@@ -1427,12 +1488,21 @@ def phase_gemm(qc) -> dict:
                            else (lambda: torch.matmul(a, b)), 20)}
                 report[dtype] = row
                 unit = "TOP/s" if dtype == torch.int8 else "TFLOP/s"
+                peak = (INT8_PEAK if dtype == torch.int8 else BF16_PEAK) / 1e12
                 line += (f"  kernel {row['ms']:.4f} ms "
-                         f"({ops / row['ms'] / 1e9:.1f} {unit})  plain "
-                         f"{row['plain_ms']:.4f} ms  bound {bound_ms:.4f} ms "
-                         f"({bound_by})  "
+                         f"({ops / row['ms'] / 1e9:.1f} {unit} of {peak:.0f}, "
+                         f"{100 * bound_ms / row['ms']:.1f}% of the bound)  "
+                         f"plain {row['plain_ms']:.4f} ms  bound "
+                         f"{bound_ms:.4f} ms ({bound_by})  "
                          f"{'torch._int_mm' if dtype == torch.int8 else 'torch.matmul'}"
                          f" {row['library_ms']:.4f} ms")
+                if dtype == torch.int8:
+                    bt_ms = cuda_ms(lambda: qc.transpose_int8_b(
+                        b, plan["ldb"]), 20)
+                    line += (f"\nGEMM int8 B^T pass alone (part of the kernel"
+                             f" time above): {bt_ms:.4f} ms, {2 * k * n} bytes"
+                             f" ({2 * k * n / bt_ms / 1e6:.1f} GB/s; the bytes"
+                             f" bound {2e3 * k * n / HBM_RATE:.4f} ms)")
             print(line)
             del a, b, got, want
     return {"report": report[torch.int8], "max_abs_err": err_max}

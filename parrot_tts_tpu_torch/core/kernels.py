@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library under `build/kernels/` at the root of the checkout (git ignores
-it), named by a hash of the source so an edited kernel is rebuilt. Nothing
-is built when a module is imported: a wrapper calls `load(name)` at its
+it), named by a hash of the source and of every header it includes from
+`csrc/` (`#include "name.cuh"`, followed through the headers' own
+includes), so an edited kernel or header is rebuilt. Nothing is built
+when a module is imported: a wrapper calls `load(name)` at its
 first launch, and `build(*names)` compiles several sources in parallel.
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -33,9 +36,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """csrc/<name>.cu and every csrc header it includes, directly or
+    through another header, each once, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode() for inc in
+                 _INCLUDE.findall(path.read_bytes())
+                 if (path.parent / inc.decode()).exists()]
+    return found
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> dict[str, str]:

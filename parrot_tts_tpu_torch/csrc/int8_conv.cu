@@ -1,5 +1,6 @@
 // int8 stride-1 dilated NWC convolution for Hopper (sm_90a), int32 accumulation
-// on the int8 tensor cores, with a fused dequantize / bias / leaky epilogue.
+// on the int8 tensor cores (wgmma), with a fused dequantize / bias / leaky
+// epilogue.
 //
 // Replaces: parrot_tts_tpu/ops/pallas_qconv.py::_conv_kernel (driven by
 // int8_conv_nwc_pallas, pallas_qconv.py:42-154). It computes, for xq (B, T, Ci)
@@ -16,156 +17,270 @@
 //
 // Bound on this card: 2*B*T_out*K*Ci*Co int8 operations against the bytes of
 // xq, the weights, scale, bias and the float32 output. At the vocoder's
-// widths (Ci 16-512, K 3-11) the operations over 1,979 TOP/s and the bytes
-// over 3.35 TB/s are of the same order; the float32 output (4 bytes per
-// element against 1 byte in) dominates the bytes at the narrow stages.
+// narrow stages (Ci = Co = 16-64, up to 327,680 rows a batch row) the bytes
+// bound it, four bytes of output for every input byte; at the wide ones
+// (Ci, Co 128-1280) the operations, which only wgmma runs at the full rate.
 //
-// What the design does about it: an implicit GEMM with M = output time rows,
-// N = Co and the reduction taps x Ci, on mma.sync m16n8k32 s8 tiles (exact:
-// every product and sum is an integer below 2^31). A block of 4 warps owns a
-// 64-row x 64-channel output tile. For each chunk of 32 input channels it
-// stages one slab of 64 + (K-1)*dil input rows (every tap reads a shifted
-// window of the same slab, so dilation costs no extra loads) and the chunk's
-// weights for all taps, each row padded to 48 bytes so the fragment reads
-// are free of bank conflicts. Ci that is not a multiple of 32 is zero-padded
-// in shared memory; n8 tiles past Co are skipped. Any T, ragged edges masked.
-// wgmma and TMA are later work.
+// What the design does about it: an implicit GEMM, M = output time rows of
+// one batch row, N = Co, the reduction taps x Ci, on s8 wgmma.
+//   - blocks: one persistent block of three warpgroups per SM walks tiles
+//     of (batch row, 128*MB output rows, BN channels), channels fastest
+//     (ops/qconv.py::conv_tile is the same walk in Python). BN and MB are
+//     chosen per launch (ops/qconv.py::conv_plan): BN the smallest of 16,
+//     32, 64, 128, 256 that covers Co when the weights stay resident, else
+//     64 (channels past Co read zero weights and are not stored); MB 4 m64
+//     blocks per consumer at BN <= 32, 2 at 64, 1 above, so the narrow
+//     stages take 512-row tiles and the per-tile costs are spread over
+//     more output; a streamed launch with fewer tiles than SMs takes MB 1.
+//   - activations: one slab per tile and 32-byte chunk of Ci. Its 128*MB +
+//     (K-1)*dil rows start at t0 - pad_left; a producer thread loads it by
+//     TMA from a 3-d map (Ci, T, B) as two 16-byte-wide boxes, the rows
+//     before 0 and past T (and channels past Ci) zero-filled by TMA, so the
+//     pads cost no code. The slab is stored without swizzle: 16-byte rows,
+//     so every 8 rows are one 128-byte core matrix of the wgmma operand and
+//     the A operand of tap `tap` is the same slab read from row tap*dil on
+//     (the descriptor's start moves by 16 bytes a row). Every input row is
+//     read from L2 once per tile and chunk, not once per tap, and no tap
+//     costs a copy. (A box per (tap, chunk) at row t0 + tap*dil - pad_left
+//     would re-read the rows K times through TMA; a swizzled slab cannot
+//     be read from an arbitrary row.)
+//   - weights (wt as (K, Co, Ci): K-major per tap, as s8 wgmma needs): where
+//     the tile covers all of Co and the weights fit (<= 96 KB: every
+//     16-, 32- and 64-channel stage, and 128 channels at K = 3), the block
+//     loads them once by TMA and keeps them for all its tiles; otherwise the
+//     chunk's taps ride the ring with the activations, 64 channels a tile
+//     (wider streamed tiles measured slower on this card).
+//   - ring: warpgroup 0's thread keeps 3 stages in flight with resident
+//     weights, 4 with streamed ones (full / empty mbarriers; deeper rings
+//     measured slower); warpgroups 1 and 2 each own 64*MB rows of the tile
+//     and issue K*MB wgmma m64nBNk32 per chunk, one group in flight while
+//     the next chunk is waited for. Ci = 16 is zero-padded to the 32-byte
+//     k-step by TMA's fill; those stages are bytes-bound, so the extra
+//     products cost nothing.
+//   - epilogue: the same two roundings in the same order; each consumer
+//     writes 64 x min(BN, 32) chunks into two buffers in the 128-byte (64-byte
+//     at BN = 16) swizzle and one thread stores each by TMA into a 3-d map
+//     (Co, T_out, B), which clips rows past T_out and channels past Co; the
+//     stores overlap the next tile's products.
+//   - shapes off the 16-byte rule of TMA (Ci or Co not a multiple of 16 / 4,
+//     or an unaligned base): the wrapper (ops/qconv.py::conv_plan) copies the
+//     operand into a zeroed workspace, or lets the kernel write a padded
+//     output that it then slices; the same kernel runs either way.
 //
 // Interface (plain C, loaded with ctypes):
 //   int int8_conv_s8(xq, wt, scale, scale_bstride, bias or NULL, out, B, T,
-//                    Ci, K, Co, T_out, pad_left, dil, leaky, slope, stream)
-// xq: contiguous (B, T, Ci) int8; wt: contiguous (K, Co, Ci) int8; scale:
-// (B, Co) float32, element [b, co] at b * scale_bstride + co (0 broadcasts
-// one (Co,) vector over the batch); bias: (Co,) float32 or NULL; out:
-// contiguous (B, T_out, Co) float32. Returns the CUDA error code of the
-// launch.
+//                    Ci, K, Co, ldo, T_out, pad_left, dil, leaky, slope,
+//                    bn, mb, stages, resident, grid, stream)
+// xq: (B, T, Ci) int8, wt: (K, Co, Ci) int8, out: (B, T_out, ldo) float32
+// (channels [Co, ldo) not written), all contiguous with 16-byte aligned
+// bases, Ci a multiple of 16 and ldo of 4;
+// scale: (B, Co) float32, element [b, co] at b * scale_bstride + co (0
+// broadcasts one (Co,) vector over the batch); bias: (Co,) float32 or NULL;
+// bn, mb, stages, resident, grid: the plan of ops/qconv.py::conv_plan (mb:
+// m64 blocks of rows per consumer warpgroup). Returns the
+// CUDA error code of the launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64;          // output rows per block
-constexpr int BN = 64;          // output channels per block
-constexpr int BK = 32;          // input channels per chunk (one mma depth)
-constexpr int THREADS = 128;    // 4 warps, 2 x 2 over the 64 x 64 tile
-constexpr int ROW_BYTES = 48;   // 32 data bytes + 16 pad: conflict-free reads
+using namespace sm90;
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
-                                       const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int THREADS = 384;
+constexpr int REGS = 168;           // 65536 / 384, rounded down to 8
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_MAX = 232448;
 
-// 4 consecutive int8 of a row (elements i0..i0+3, zero past n) as one word
-__device__ __forceinline__ uint32_t load4(const int8_t* row, int i0, int n) {
-  if ((n & 3) == 0 && i0 + 4 <= n)
-    return *reinterpret_cast<const uint32_t*>(row + i0);
-  uint32_t v = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (i0 + j < n) v |= static_cast<uint32_t>(static_cast<uint8_t>(row[i0 + j])) << (8 * j);
-  return v;
-}
+__host__ __device__ constexpr int round1024(int x) { return (x + 1023) & ~1023; }
 
-__global__ void __launch_bounds__(THREADS)
-int8_conv_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wt,
-                 const float* __restrict__ scale, int scale_bstride,
-                 const float* __restrict__ bias, float* __restrict__ out,
-                 int T, int Ci, int K, int Co, int T_out, int pad_left,
-                 int dil, int leaky, float slope) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int slab_rows = BM + (K - 1) * dil;
-  unsigned char* xs = smem;                           // [slab_rows][ROW_BYTES]
-  unsigned char* ws = smem + slab_rows * ROW_BYTES;   // [K][BN][ROW_BYTES]
+struct Plan {
+  int B, K, BN, slab, box_rows, n_rbox, n_chunks, stages, resident;
+  int tiles_m, tiles_n;
+  // shared memory: [epilogue buffers | resident weights | ring | barriers]
+  __host__ __device__ int epi() const { return 64 * (BN < 32 ? BN : 32) * 4; }
+  __host__ __device__ int wbox() const { return K * BN * 16; }
+  __host__ __device__ int a_bytes() const { return 2 * slab * 16; }
+  __host__ __device__ int stage() const {
+    return round1024(a_bytes() + (resident ? 0 : 2 * wbox()));
+  }
+  __host__ __device__ int off_w() const { return 4 * epi(); }
+  __host__ __device__ int off_ring() const {
+    return off_w() + (resident ? round1024(n_chunks * 2 * wbox()) : 0);
+  }
+  __host__ __device__ int off_bars() const { return off_ring() + stages * stage(); }
+  __host__ __device__ int smem() const {
+    return off_bars() + (2 * stages + 1) * 8 + 1024;
+  }
+};
 
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32;     // warp's rows within the tile
-  const int wn = (warp & 1) * 32;      // warp's channels within the tile
-  const int g = lane >> 2, tg = lane & 3;
+struct Epi {
+  const float* scale;
+  int sbstride;
+  const float* bias;
+  int leaky;
+  float slope;
+  int Co, T_out, pad_left, dil;
+};
 
-  // n8 tiles of this warp that hold a channel < Co (warp-uniform)
-  int n_tiles = (Co - (n0 + wn) + 7) / 8;
-  n_tiles = n_tiles < 0 ? 0 : (n_tiles > 4 ? 4 : n_tiles);
+// BN channels and 2 x MB m64 blocks of rows per tile
+template <int BN, int MB>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_kernel(const __grid_constant__ CUtensorMap tx,
+            const __grid_constant__ CUtensorMap tw,
+            const __grid_constant__ CUtensorMap to, const Plan p,
+            const Epi e) {
+  constexpr int ROWS = 64 * MB;              // output rows per consumer
+  constexpr int BM = 2 * ROWS;
+  constexpr int EC = BN < 32 ? BN : 32;      // columns per store box
+  constexpr int PITCH = EC * 4;              // its row: 64 or 128 bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  unsigned char* wres = sm + p.off_w();
+  unsigned char* ring = sm + p.off_ring();
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + p.off_bars());
+  uint64_t* empty = full + p.stages;
+  uint64_t* wbar = empty + p.stages;
+  const int wbox = p.wbox(), stage = p.stage();
+  const int tiles = p.B * p.tiles_m * p.tiles_n;
+  const int wg = threadIdx.x >> 7;
 
-  int acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  const int8_t* xb = xq + static_cast<size_t>(b) * T * Ci;
-  for (int c0 = 0; c0 < Ci; c0 += BK) {
-    __syncthreads();   // the previous chunk's fragment reads are done
-    for (int idx = tid; idx < slab_rows * 8; idx += THREADS) {
-      const int r = idx >> 3, w4 = idx & 7;
-      const int t = m0 - pad_left + r;
-      uint32_t v = 0;
-      if (t >= 0 && t < T) v = load4(xb + static_cast<size_t>(t) * Ci + c0, w4 * 4, Ci - c0);
-      *reinterpret_cast<uint32_t*>(xs + r * ROW_BYTES + w4 * 4) = v;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
     }
-    for (int idx = tid; idx < K * BN * 8; idx += THREADS) {
-      const int w4 = idx & 7, n = (idx >> 3) % BN, tap = (idx >> 3) / BN;
-      const int co = n0 + n;
-      uint32_t v = 0;
-      if (co < Co)
-        v = load4(wt + (static_cast<size_t>(tap) * Co + co) * Ci + c0, w4 * 4, Ci - c0);
-      *reinterpret_cast<uint32_t*>(ws + (tap * BN + n) * ROW_BYTES + w4 * 4) = v;
-    }
-    __syncthreads();
+    mbar_init(wbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    for (int tap = 0; tap < K; ++tap) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const unsigned char* p0 = xs + (tap * dil + wm + mi * 16 + g) * ROW_BYTES + tg * 4;
-        const unsigned char* p1 = p0 + 8 * ROW_BYTES;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(p0);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(p1);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
+  if (wg == 0) {   // producer
+    reg_dealloc<40>();
+    if (threadIdx.x != 0) return;
+    if (p.resident) {
+      mbar_expect(wbar, p.n_chunks * 2 * wbox);
+      for (int j = 0; j < 2 * p.n_chunks; ++j)
+        tma_load_3d(wres + j * wbox, &tw, wbar, 16 * j, 0, 0);
+    }
+    const uint32_t bytes = p.a_bytes() + (p.resident ? 0 : 2 * wbox);
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int nt = tile % p.tiles_n, r = tile / p.tiles_n;
+      const int mt = r % p.tiles_m, b = r / p.tiles_m;
+      const int row0 = mt * BM - e.pad_left;
+      for (int c = 0; c < p.n_chunks; ++c, ++it) {
+        const int s = it % p.stages;
+        mbar_wait(&empty[s], ((it / p.stages) & 1) ^ 1);
+        unsigned char* a = ring + s * stage;
+        mbar_expect(&full[s], bytes);
+        for (int j = 0; j < 2; ++j)
+          for (int q = 0; q < p.n_rbox; ++q)
+            tma_load_3d(a + (j * p.slab + q * p.box_rows) * 16, &tx, &full[s],
+                        16 * (2 * c + j), row0 + q * p.box_rows, b);
+        if (!p.resident)
+          for (int j = 0; j < 2; ++j)
+            tma_load_3d(a + p.a_bytes() + j * wbox, &tw, &full[s],
+                        16 * (2 * c + j), nt * BN, 0);
       }
+    }
+    return;
+  }
+
+  // consumers: warpgroup 1 rows 0 .. ROWS-1 of the tile, warpgroup 2 the rest
+  reg_alloc<232>();
+  const int cw = wg - 1, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  unsigned char* ebuf = sm + cw * 2 * p.epi();
+  if (p.resident) mbar_wait(wbar, 0);
+  int acc[MB][BN / 2];
+  int it = 0, chunk = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int nt = tile % p.tiles_n, r = tile / p.tiles_n;
+    const int mt = r % p.tiles_m, b = r / p.tiles_m;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        if (ni >= n_tiles) break;
-        const unsigned char* q = ws + (tap * BN + wn + ni * 8 + g) * ROW_BYTES + tg * 4;
-        uint32_t bf[2];
-        bf[0] = *reinterpret_cast<const uint32_t*>(q);
-        bf[1] = *reinterpret_cast<const uint32_t*>(q + 16);
-        mma_s8(acc[0][ni], a[0], bf);
-        mma_s8(acc[1][ni], a[1], bf);
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mb][i] = 0;
+    for (int c = 0; c < p.n_chunks; ++c, ++it) {
+      const int s = it % p.stages;
+      mbar_wait(&full[s], (it / p.stages) & 1);
+      const unsigned char* a = ring + s * stage + cw * ROWS * 16;
+      const unsigned char* w =
+          p.resident ? wres + c * 2 * wbox : ring + s * stage + p.a_bytes();
+      wg_fence();
+      for (int tap = 0; tap < p.K; ++tap) {
+        const uint64_t db = sdesc(w + tap * BN * 16, wbox, 128, kNoSwizzle);
+        const unsigned char* at = a + tap * e.dil * 16;
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+          wgmma_s8<BN>(acc[mb], sdesc(at + mb * 64 * 16, p.slab * 16, 128,
+                                      kNoSwizzle), db);
+      }
+      wg_commit();
+      wg_wait<1>();   // the previous chunk's products are done
+      if (c > 0 && tid == 0) mbar_arrive(&empty[(it - 1) % p.stages]);
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) reg_fence(acc[mb]);
+    if (tid == 0) mbar_arrive(&empty[(it - 1) % p.stages]);
+
+    // epilogue: 64 x EC chunks through two swizzled buffers
+    const int n0 = nt * BN;
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      const int r0 = mt * BM + cw * ROWS + mb * 64;
+#pragma unroll
+      for (int ch = 0; ch < BN / EC; ++ch, ++chunk) {
+        unsigned char* buf = ebuf + (chunk & 1) * p.epi();
+        if (tid == 0) bulk_wait_read<1>();   // the store that read buf is done
+        named_bar(1 + cw, 128);
+#pragma unroll
+        for (int jj = 0; jj < EC / 8; ++jj) {
+          const int j = ch * (EC / 8) + jj;
+          float sc[2], bi[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int co = n0 + j * 8 + 2 * t + q;
+            const bool in = co < e.Co;
+            sc[q] = in ? __ldg(e.scale + static_cast<size_t>(b) * e.sbstride + co) : 0.f;
+            bi[q] = in && e.bias != nullptr ? __ldg(e.bias + co) : 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float y[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              float v = __fmul_rn(__int2float_rn(acc[mb][4 * j + 2 * h + q]), sc[q]);
+              if (e.bias != nullptr) v = __fadd_rn(v, bi[q]);
+              if (e.leaky) v = fmaxf(v, __fmul_rn(e.slope, v));
+              y[q] = v;
+            }
+            const int row = warp * 16 + g + 8 * h;
+            const uint32_t off = swizzled(row * PITCH + (jj * 8 + 2 * t) * 4, PITCH);
+            *reinterpret_cast<float2*>(buf + off) = make_float2(y[0], y[1]);
+          }
+        }
+        fence_proxy_async();
+        named_bar(1 + cw, 128);
+        if (tid == 0) {
+          if (n0 + ch * EC < e.Co && r0 < e.T_out)
+            tma_store_3d(&to, buf, n0 + ch * EC, r0, b);
+          bulk_commit();   // a group even when empty, so the waits above count
+        }
       }
     }
   }
+  if (tid == 0) bulk_wait_all();   // shared memory outlives its stores
+}
 
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm + mi * 16 + g + half * 8;
-        if (row >= T_out) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int co = n0 + wn + ni * 8 + tg * 2 + e;
-          if (co >= Co) continue;
-          float y = __fmul_rn(__int2float_rn(acc[mi][ni][half * 2 + e]),
-                              scale[static_cast<size_t>(b) * scale_bstride + co]);
-          if (bias != nullptr) y = __fadd_rn(y, bias[co]);
-          if (leaky) y = fmaxf(y, __fmul_rn(slope, y));
-          out[(static_cast<size_t>(b) * T_out + row) * Co + co] = y;
-        }
-      }
+template <int BN, int MB>
+int launch(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& to,
+           const Plan& p, const Epi& e, int grid, cudaStream_t s) {
+  const cudaError_t err = prepare_once<conv_kernel<BN, MB>>(REGS, SMEM_MAX);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_kernel<BN, MB><<<grid, THREADS, p.smem(), s>>>(tx, tw, to, p, e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -173,20 +288,73 @@ int8_conv_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wt,
 extern "C" int int8_conv_s8(const int8_t* xq, const int8_t* wt,
                             const float* scale, int scale_bstride,
                             const float* bias, float* out,
-                            int B, int T, int Ci, int K, int Co, int T_out,
+                            int B, int T, int Ci, int K, int Co, int ldo,
+                            int T_out,
                             int pad_left, int dil, int leaky, float slope,
-                            void* stream) {
-  const size_t bytes =
-      static_cast<size_t>(BM + (K - 1) * dil) * ROW_BYTES +
-      static_cast<size_t>(K) * BN * ROW_BYTES;
-  if (bytes > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T_out + BM - 1) / BM, (Co + BN - 1) / BN, B);
-  int8_conv_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      xq, wt, scale, scale_bstride, bias, out, T, Ci, K, Co, T_out, pad_left,
-      dil, leaky, slope);
-  return static_cast<int>(cudaGetLastError());
+                            int bn, int mb, int stages, int resident,
+                            int grid, void* stream) {
+  Plan p;
+  p.B = B;
+  p.K = K;
+  p.BN = bn;
+  const int bm = 128 * mb;
+  const int need = bm + (K - 1) * dil;
+  p.n_rbox = (need + 255) / 256;
+  p.box_rows = ((need + p.n_rbox - 1) / p.n_rbox + 7) & ~7;
+  p.slab = p.n_rbox * p.box_rows;
+  p.n_chunks = (Ci + 31) / 32;
+  p.stages = stages;
+  p.resident = resident;
+  p.tiles_m = (T_out + bm - 1) / bm;
+  p.tiles_n = (Co + bn - 1) / bn;
+  if (Ci % 16 != 0 || ldo % 4 != 0 || ldo < Co || stages < 2 || stages > MAX_STAGES ||
+      (resident && p.tiles_n != 1) || p.smem() > SMEM_MAX || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Epi e{scale, scale_bstride, bias, leaky, slope, Co, T_out, pad_left, dil};
+
+  CUtensorMap tx, tw, to;
+  const cuuint64_t x_dims[3] = {static_cast<cuuint64_t>(Ci),
+                                static_cast<cuuint64_t>(T),
+                                static_cast<cuuint64_t>(B)};
+  const cuuint64_t x_strides[2] = {static_cast<cuuint64_t>(Ci),
+                                   static_cast<cuuint64_t>(T) * Ci};
+  const cuuint32_t x_box[3] = {16, static_cast<cuuint32_t>(p.box_rows), 1};
+  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(Ci),
+                                static_cast<cuuint64_t>(Co),
+                                static_cast<cuuint64_t>(K)};
+  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(Ci),
+                                   static_cast<cuuint64_t>(Co) * Ci};
+  const cuuint32_t w_box[3] = {16, static_cast<cuuint32_t>(bn),
+                               static_cast<cuuint32_t>(K)};
+  const int ec = bn < 32 ? bn : 32;
+  const cuuint64_t o_dims[3] = {static_cast<cuuint64_t>(Co),
+                                static_cast<cuuint64_t>(T_out),
+                                static_cast<cuuint64_t>(B)};
+  const cuuint64_t o_strides[2] = {static_cast<cuuint64_t>(ldo) * 4,
+                                   static_cast<cuuint64_t>(T_out) * ldo * 4};
+  const cuuint32_t o_box[3] = {static_cast<cuuint32_t>(ec), 64, 1};
+  if (!encode_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, xq, x_dims, x_strides,
+                  x_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, wt, w_dims, w_strides,
+                  w_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_map(&to, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, out, o_dims,
+                  o_strides, o_box,
+                  ec == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn * 8 + mb) {
+    case 16 * 8 + 4: return launch<16, 4>(tx, tw, to, p, e, grid, s);
+    case 16 * 8 + 2: return launch<16, 2>(tx, tw, to, p, e, grid, s);
+    case 16 * 8 + 1: return launch<16, 1>(tx, tw, to, p, e, grid, s);
+    case 32 * 8 + 4: return launch<32, 4>(tx, tw, to, p, e, grid, s);
+    case 32 * 8 + 2: return launch<32, 2>(tx, tw, to, p, e, grid, s);
+    case 32 * 8 + 1: return launch<32, 1>(tx, tw, to, p, e, grid, s);
+    case 64 * 8 + 2: return launch<64, 2>(tx, tw, to, p, e, grid, s);
+    case 64 * 8 + 1: return launch<64, 1>(tx, tw, to, p, e, grid, s);
+    case 128 * 8 + 1: return launch<128, 1>(tx, tw, to, p, e, grid, s);
+    case 256 * 8 + 1: return launch<256, 1>(tx, tw, to, p, e, grid, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -29,11 +29,21 @@ picks its own tiles and takes any M, N, K >= 1. A CPU tensor goes to
 `MATMUL.launches` counts its launches. Other dtypes, mixed dtypes and an
 int8 K above 133,144 (where 127^2 * K overflows int32) raise on either
 device.
+
+Both tensor-core kernels read their operands by TMA, which wants 16-byte
+row strides and bases. `conv_plan` and `gemm_plan` compute, from the
+shapes and the alignment of the operands alone, which operand goes through
+a zero-padded workspace (the "padded" branch; the same kernel runs on it),
+the tile width, the ring depth and the number of persistent blocks;
+`conv_tile` and `gemm_tile` give the order in which the kernels walk their
+tiles. The tests check both on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import types
 
 import torch
 import torch.nn.functional as F
@@ -41,10 +51,16 @@ import torch.nn.functional as F
 from parrot_tts_tpu_torch.core import kernels
 from parrot_tts_tpu_torch.core.device import exact_numerics
 
-_MAX_GRID_YZ = 65535
-_TILE_N = 64               # output channels per block (csrc/int8_conv.cu BN)
-_GEMM_TILE = 128           # output rows and columns per block (int8_gemm.cu)
 INT8_MAX_K = 133_144       # the largest K with 127^2 * K < 2^31
+SMEM_MAX = 232_448         # dynamic shared memory a block may use (H100)
+H100_SMS = 132             # streaming multiprocessors of an H100 SXM
+# csrc/int8_conv.cu: tile widths, weights kept resident, ring depths (a
+# deeper ring measured slower on the card)
+CONV_TILE_N = (16, 32, 64, 128, 256)
+CONV_RESIDENT_MAX = 96 * 1024     # all weights of a launch kept in the block
+CONV_STAGES = {True: 3, False: 4}     # resident weights: 3; streamed: 4
+# csrc/int8_gemm.cu: output tile and grouped order
+GEMM_BM, GEMM_BN, GEMM_GROUP = 128, 256, 8
 _MM_CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
@@ -67,14 +83,126 @@ class _Kernel:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 INT8_CONV = _Kernel("int8_conv", "int8_conv_s8",
-                    [_P] * 3 + [_I] + [_P] * 2 + [_I] * 9 + [ctypes.c_float,
-                                                             _P])
+                    [_P] * 3 + [_I] + [_P] * 2 + [_I] * 10 + [ctypes.c_float]
+                    + [_I] * 5 + [_P])
 MATMUL = _Kernel("int8_gemm", "int8_gemm",
-                 [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P])
+                 [_I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P])
+# the int8 GEMM's B^T pass (part of every int8 `matmul`, whose launch
+# MATMUL counts)
+TRANSPOSE = _Kernel("int8_gemm", "int8_gemm_transpose",
+                    [_P, _P, _I, _I, _I, _P])
 
 
 def out_len(t: int, k: int, pads: tuple[int, int], dilation: int) -> int:
     return t + pads[0] + pads[1] - dilation * (k - 1)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _ceil(a, b) * b
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device) -> int:
+    return _sms_of(device.index if device.index is not None
+                   else torch.cuda.current_device())
+
+
+def _padded(x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """x copied into the leading corner of a zeroed workspace of `shape`."""
+    ws = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    ws[tuple(slice(0, n) for n in x.shape)] = x
+    return ws
+
+
+def _conv_smem(plan: dict, stages: int) -> int:
+    """Shared memory of csrc/int8_conv.cu's Plan::smem() at `stages`."""
+    epi = 64 * min(plan["bn"], 32) * 4
+    wbox = plan["k"] * plan["bn"] * 16
+    a_bytes = 2 * plan["slab"] * 16
+    stage = _round_up(a_bytes + (0 if plan["resident"] else 2 * wbox), 1024)
+    resident = (_round_up(plan["n_chunks"] * 2 * wbox, 1024)
+                if plan["resident"] else 0)
+    return 4 * epi + resident + stages * stage + (2 * stages + 1) * 8 + 1024
+
+
+@functools.lru_cache(maxsize=4096)
+def conv_plan(b: int, t: int, ci: int, k: int, co: int,
+              pads: tuple[int, int], dilation: int, *, x_aligned: bool = True,
+              w_aligned: bool = True, sms: int = H100_SMS) -> dict:
+    """The launch of csrc/int8_conv.cu for xq (b, t, ci), wt (k, co, ci):
+    - branch: xq / wt go through a workspace (b, t_x, ci_p) / (k, co, ci_p),
+      zero past ci, when ci is not a multiple of 16 or the base is not
+      16-byte aligned (TMA's rule; t_x = max(t, 1), since a map has no empty
+      dimension); the output through (b, t_out, co_p) when co is not a
+      multiple of 4; "tma" when nothing is padded;
+    - resident: the tile covers co (bn the smallest of CONV_TILE_N that
+      does) and all weights fit CONV_RESIDENT_MAX, so the block loads them
+      once; else they stream with the activations, in tiles of bn = 64
+      channels (at most), which keeps a stage small;
+    - mb: m64 blocks per consumer warpgroup (4 at bn <= 32, 2 at 64, else
+      1), bm = 128 * mb the tile's rows; a streamed launch with fewer
+      tiles than SMs takes mb = 1 (those launches are bound by latency);
+    - slab: activation rows per chunk (bm + (k-1)*dilation, in n_rbox TMA
+      boxes of box_rows <= 256 rows, each a multiple of 8);
+    - stages: the ring's depth, CONV_STAGES[resident] or as many as fit;
+    - tiles (b * tiles_m * tiles_n) and grid = min(tiles, sms).
+    Raises ValueError when the slab leaves no room for two stages. The
+    plan is cached per argument list (the wrapper computes it at every
+    launch), so it is read-only."""
+    t_out = out_len(t, k, pads, dilation)
+    ci_p, co_p, t_x = _round_up(ci, 16), _round_up(co, 4), max(t, 1)
+    plan = {"t_out": t_out, "ci_p": ci_p, "co_p": co_p, "t_x": t_x, "k": k,
+            "pad_x": ci_p != ci or t_x != t or not x_aligned,
+            "pad_w": ci_p != ci or not w_aligned, "pad_out": co_p != co,
+            "n_chunks": _ceil(ci_p, 32)}
+    plan["branch"] = ("padded" if plan["pad_x"] or plan["pad_w"]
+                      or plan["pad_out"] else "tma")
+    bn = next(n for n in CONV_TILE_N if n >= min(co, CONV_TILE_N[-1]))
+    resident = (_ceil(co, bn) == 1
+                and plan["n_chunks"] * 32 * k * bn <= CONV_RESIDENT_MAX)
+    if not resident:
+        bn = min(bn, 64)
+    mb = 4 if bn <= 32 else (2 if bn == 64 else 1)
+    if not resident and b * _ceil(t_out, 128 * mb) * _ceil(co, bn) < sms:
+        mb = 1
+    bm = 128 * mb
+    need = bm + (k - 1) * dilation
+    n_rbox = _ceil(need, 256)
+    box_rows = _round_up(_ceil(need, n_rbox), 8)
+    plan.update(bn=bn, mb=mb, bm=bm, resident=resident, n_rbox=n_rbox,
+                box_rows=box_rows, slab=n_rbox * box_rows,
+                tiles_m=_ceil(t_out, bm), tiles_n=_ceil(co, bn))
+    stages = CONV_STAGES[resident]
+    while stages >= 2 and _conv_smem(plan, stages) > SMEM_MAX:
+        stages -= 1
+    if stages < 2:
+        raise ValueError(f"int8_conv: K = {k}, dilation = {dilation}: the "
+                         "input slab leaves no room for two ring stages")
+    plan.update(stages=stages, smem=_conv_smem(plan, stages),
+                tiles=b * plan["tiles_m"] * plan["tiles_n"])
+    plan["grid"] = min(plan["tiles"], sms)
+    plan["workspace_bytes"] = (
+        (b * t_x * ci_p if plan["pad_x"] else 0)
+        + (k * co * ci_p if plan["pad_w"] else 0)
+        + (4 * b * t_out * co_p if plan["pad_out"] else 0))
+    return types.MappingProxyType(plan)
+
+
+def conv_tile(plan: dict, tile: int) -> tuple[int, int, int]:
+    """(batch row, first output row, first channel) of tile `tile`: the
+    kernel's walk, channels fastest, then time tiles, then batch rows.
+    Block i of the plan's grid takes tiles i, i + grid, i + 2*grid, ..."""
+    nt, r = tile % plan["tiles_n"], tile // plan["tiles_n"]
+    mt, b = r % plan["tiles_m"], r // plan["tiles_m"]
+    return b, mt * plan["bm"], nt * plan["bn"]
 
 
 def int8_conv_reference(xq: torch.Tensor, wt: torch.Tensor,
@@ -114,16 +242,31 @@ def int8_conv(xq: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((b, t_out, co), dtype=torch.float32, device=xq.device)
     if b == 0 or co == 0:
         return out
+    plan = conv_plan(b, t, ci, k, co, tuple(pads), dilation,
+                     x_aligned=xq.data_ptr() % 16 == 0,
+                     w_aligned=wt.data_ptr() % 16 == 0,
+                     sms=_sms(xq.device))
+    if plan["pad_x"]:
+        xq = _padded(xq, (b, plan["t_x"], plan["ci_p"]))
+    if plan["pad_w"]:
+        wt = _padded(wt, (k, co, plan["ci_p"]))
+    y = (torch.empty((b, t_out, plan["co_p"]), dtype=torch.float32,
+                     device=xq.device) if plan["pad_out"] else out)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
         err = INT8_CONV.fn()(
             xq.data_ptr(), wt.data_ptr(), scale.data_ptr(), scale.stride(0),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            b, t, ci, k, co, t_out, pads[0], dilation,
-            int(leaky is not None), float(leaky or 0.0), stream)
+            bias.data_ptr() if bias is not None else None, y.data_ptr(),
+            b, plan["t_x"], plan["ci_p"], k, co, plan["co_p"], t_out, pads[0],
+            dilation, int(leaky is not None), float(leaky or 0.0),
+            plan["bn"], plan["mb"], plan["stages"], int(plan["resident"]),
+            plan["grid"],
+            stream)
     if err != 0:
         raise RuntimeError(f"int8_conv launch failed: CUDA error {err}")
     INT8_CONV.launches += 1
+    if plan["pad_out"]:
+        out.copy_(y[..., :co])
     return out
 
 
@@ -161,8 +304,9 @@ def _check(xq, wt, scale, bias, pads, dilation) -> None:
         raise ValueError(f"int8_conv: pads {pads} and dilation {dilation}")
     if out_len(t, k, pads, dilation) < 1:
         raise ValueError("int8_conv: the output would be empty")
-    if b > _MAX_GRID_YZ or -(-co // _TILE_N) > _MAX_GRID_YZ:
-        raise ValueError(f"int8_conv: B = {b} or Co = {co} exceeds the grid")
+    if b * t * ci >= 2**31 or b * out_len(t, k, pads, dilation) * co >= 2**31:
+        raise ValueError(f"int8_conv: B = {b}, T = {t}, Ci = {ci}, Co = {co} "
+                         "exceeds the kernel's 32-bit indices")
 
 
 def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -172,6 +316,82 @@ def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return (a.double() @ b.double()).to(torch.int32)
     with exact_numerics(True):
         return a.float() @ b.float()
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(m: int, k: int, n: int, dtype: torch.dtype, *,
+              a_aligned: bool = True, b_aligned: bool = True,
+              sms: int = H100_SMS) -> dict:
+    """The launch of csrc/int8_gemm.cu for (m, k) @ (k, n) in `dtype`.
+    float32 takes the CUDA-core kernel (route "sgemm"), which reads the
+    operands as they are. int8 and bf16 (route "wgmma"):
+    - lda, ldb, ldc: the row strides, in elements, of the buffers the kernel
+      reads and writes: A as it is, or a zero-padded workspace (m, lda) when
+      its rows or base are off 16 bytes (pad_a); int8 reads B^T from the
+      transpose pass's workspace (n, ldb), rows padded to 16 bytes; bf16
+      reads B as it is or from a workspace (k, ldb) (pad_b); C goes through
+      a workspace (m, ldc) when n is not a multiple of 4 (pad_c);
+    - workspaces: name -> shape of every buffer the wrapper allocates;
+    - tiles_m x tiles_n tiles of GEMM_BM x GEMM_BN, walked in groups of
+      GEMM_GROUP tile rows (gemm_tile), by grid = min(tiles, sms) blocks.
+    Cached per argument list and read-only, like conv_plan."""
+    if dtype == torch.float32:
+        return types.MappingProxyType({"route": "sgemm", "branch": "plain",
+                                       "workspaces": {}})
+    esize = 1 if dtype == torch.int8 else 2
+    per16 = 16 // esize                    # elements in 16 bytes
+    lda = _round_up(k, per16)
+    plan = {"route": "wgmma", "pad_a": lda != k or not a_aligned,
+            "ldc": _round_up(n, 4)}
+    plan["pad_c"] = plan["ldc"] != n
+    workspaces = {}
+    if plan["pad_a"]:
+        workspaces["a"] = (m, lda)
+    else:
+        lda = k
+    if dtype == torch.int8:
+        plan["ldb"], plan["pad_b"] = _round_up(k, 16), False
+        workspaces["bt"] = (n, plan["ldb"])
+    else:
+        ldb = _round_up(n, per16)
+        plan["pad_b"] = ldb != n or not b_aligned
+        plan["ldb"] = ldb if plan["pad_b"] else n
+        if plan["pad_b"]:
+            workspaces["b"] = (k, ldb)
+    if plan["pad_c"]:
+        workspaces["c"] = (m, plan["ldc"])
+    plan.update(lda=lda, workspaces=workspaces,
+                branch="padded" if plan["pad_a"] or plan["pad_b"]
+                or plan["pad_c"] else "tma",
+                tiles_m=_ceil(m, GEMM_BM), tiles_n=_ceil(n, GEMM_BN),
+                group=GEMM_GROUP)
+    plan["tiles"] = plan["tiles_m"] * plan["tiles_n"]
+    plan["grid"] = min(plan["tiles"], sms)
+    return types.MappingProxyType(plan)
+
+
+def gemm_tile(plan: dict, tile: int) -> tuple[int, int]:
+    """(tile row, tile column) of tile `tile` in the kernel's grouped order:
+    `group` tile rows at a time, down each column of the group before the
+    next. Block i of the plan's grid takes tiles i, i + grid, ..."""
+    per_group = plan["group"] * plan["tiles_n"]
+    first = tile // per_group * plan["group"]
+    rows = min(plan["group"], plan["tiles_m"] - first)
+    r = tile % per_group
+    return first + r % rows, r // rows
+
+
+def transpose_int8_b(b: torch.Tensor, ldb: int) -> torch.Tensor:
+    """The int8 GEMM's B^T pass on the card: b (K, N) contiguous int8 ->
+    (N, ldb), zero in columns [K, ldb)."""
+    k, n = b.shape
+    bt = torch.empty((n, ldb), dtype=torch.int8, device=b.device)
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        err = TRANSPOSE.fn()(b.data_ptr(), bt.data_ptr(), k, n, ldb, stream)
+    if err != 0:
+        raise RuntimeError(f"int8 B^T pass failed: CUDA error {err}")
+    return bt
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -185,21 +405,33 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul: a and b must be contiguous")
     (m, k), n = a.shape, b.shape[1]
-    code, esize = _MM_CODES[a.dtype], a.element_size()
+    code = _MM_CODES[a.dtype]
     out = torch.empty((m, n), dtype=torch.int32 if code == 0 else
                       torch.float32, device=a.device)
-    # the tensor-core kernels read B^T, rows padded to 16 bytes
-    ldb = -(-k * esize // 16) * 16 // esize if code < 2 else 0
-    bt = torch.empty((n, ldb), dtype=a.dtype, device=a.device) if ldb else None
-    vec_a = (k * esize) % 16 == 0 and a.data_ptr() % 16 == 0
+    plan = gemm_plan(m, k, n, a.dtype, a_aligned=a.data_ptr() % 16 == 0,
+                     b_aligned=b.data_ptr() % 16 == 0, sms=_sms(a.device))
+    c = out
+    if plan["route"] == "wgmma":
+        ws = plan["workspaces"]
+        if plan["pad_a"]:
+            a = _padded(a, ws["a"])
+        if code == 0:
+            b = transpose_int8_b(b, plan["ldb"])
+        elif plan["pad_b"]:
+            b = _padded(b, ws["b"])
+        if plan["pad_c"]:
+            c = torch.empty(ws["c"], dtype=out.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = MATMUL.fn()(code, a.data_ptr(), b.data_ptr(),
-                          bt.data_ptr() if bt is not None else None, ldb,
-                          out.data_ptr(), m, n, k, int(vec_a), stream)
+        err = MATMUL.fn()(code, a.data_ptr(), plan.get("lda", k),
+                          b.data_ptr(), plan.get("ldb", n), c.data_ptr(),
+                          plan.get("ldc", n), m, n, k, plan.get("group", 1),
+                          plan.get("grid", 1), stream)
     if err != 0:
         raise RuntimeError(f"matmul launch failed: CUDA error {err}")
     MATMUL.launches += 1
+    if c is not out:
+        out.copy_(c[:, :n])
     return out
 
 
@@ -220,6 +452,7 @@ def _check_mm(a, b) -> None:
     if a.dtype == torch.int8 and k > INT8_MAX_K:
         raise ValueError(f"matmul: int8 K = {k} > {INT8_MAX_K} would overflow "
                          "the int32 sums")
-    if (-(-n // _GEMM_TILE) > _MAX_GRID_YZ or -(-k // 32) > _MAX_GRID_YZ
-            or max(m, n, 2 * k) >= 2**31):
+    # the float32 kernel's grid is (ceil(M/128), ceil(N/128)); every kernel
+    # indexes with 32-bit integers
+    if -(-n // 128) > 65535 or max(m, n, 2 * k) >= 2**31:
         raise ValueError(f"matmul: ({m}, {k}) @ ({k}, {n}) exceeds the grid")

@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # Compare two trees on one card: run each one's chip_smoke.py from its own
 # root, alternately (parent, change, change, parent, parent, change), and
-# print the lines that carry the attention and training numbers. Full logs
+# print the lines that carry the attention, training, int8 conv and GEMM
+# numbers. Full logs
 # go to chiprun_out/pairs/<n>_<P|C>.log.
 #
 #   bash parrot_tts_tpu_torch/scripts/smoke_pairs.sh PARENT_ROOT [ORDER]
@@ -21,5 +22,5 @@ for who in $order; do
   log=$PWD/chiprun_out/pairs/${i}_${who}.log
   (cd "$dir" && python3 chip_smoke.py > "$log" 2>&1); rc=$?
   echo "== run $i $who rc=$rc"
-  grep -E "^kernel B=5 T= 2048|^kernel B=6 T= 3584|^flash dropout B=6 T= 3584|^  fwd  |^fwd per|^forward as training runs it, per|^backward as training runs it, per|^serve [01]:|^profile: wall|^training reading" "$log" | cut -c1-240
+  grep -E "^kernel B=5 T= 2048|^kernel B=6 T= 3584|^flash dropout B=6 T= 3584|^  fwd  |^fwd per|^forward as training runs it, per|^backward as training runs it, per|^serve [01]:|^int8(-static|-tail)? serve [01]:|^profile: wall|^training reading|^int8 conv per .* serve|^GEMM \(M, K, N\) = \(8192|^GEMM int8 B\^T|^  part 1" "$log" | cut -c1-300
 done
