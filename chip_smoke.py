@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: name and power limit (nvidia-smi), torch / CUDA versions, TF32 flags;
 2. build: the five kernel sources in csrc/ with nvcc (sm_90a), one nvcc
    per source in parallel, with each one's ptxas register and spill report
-   (phases 3 and 10 repeat those of the two attention forwards);
+   (phases 3, 5 and 10 repeat those of the two attention forwards and of
+   every fused-MRF instantiation; phase 5 fails on a fused-MRF spill);
 3. flash attention against plain: the flash-attention forward (row 1:
    3xTF32 products on the TF32 tensor cores, mma.sync m16n8k8, cp.async
    ring of 32-key tiles, IEEE float32 softmax) against its IEEE float32
@@ -26,10 +27,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same decode batches once more with plain attention on the card:
    durations and totals equal, max |dlogit| <= 1e-4, codes equal wherever
    the top-2 logit margin exceeds 1e-3;
-5. fused MRF against plain: the fused-MRF kernel at every (B, T, C) the
+5. fused MRF against plain: the fused-MRF kernel (row 6: 3xTF32 products
+   on the TF32 tensor cores, wgmma m64nNk8 with A from registers, TF32
+   hi / lo weight slabs through a cp.async ring) at every (B, T, C) the
    fused serve gives it (the 64-, 32- and 16-channel stages of each vocoder
-   batch), a ragged T and a batch whose rows end at different lengths;
-   max |diff| <= 1e-5 * max |plain|; kernel, plain and bound ms;
+   batch), a ragged T and a batch whose rows end at different lengths; max
+   |diff| <= 1e-5 * max |plain|; each stage's tile (rows, wgmma n, blocks
+   per SM, recompute factor); kernel, plain (cuDNN IEEE float32) and both
+   bounds (3xTF32 tensor cores, the kernels line's; float32 CUDA cores) ms
+   per launch, summed per stage C and per serve;
 6. int8 conv against plain: the int8 conv kernel at every distinct site
    shape of every int8-static and "int8" vocoder batch, with that batch's
    rows (5 polyphase upsamples, the MRF convs at k 3/7/11 and dilation
@@ -59,9 +65,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    requests and for each one; then the dynamic int8 conv on the card is
    batch-invariant: a quiet row alone and beside a loud row gives the same
    bits;
-9. profile: one more float serve, int8-static serve and "int8" serve under
-   torch.profiler (device time by kernel, the device's busy and idle share,
-   the row-7 kernels' device time per serve);
+9. profile: one more float serve, fused serve, int8-static serve and
+   "int8" serve under torch.profiler (device time by kernel, the device's
+   busy and idle share, the row-6 and row-7 kernels' device time per
+   serve);
 10. flash attention with dropout against plain: the forward (wgmma and
    TMA on bf16 operands cast once, two passes over K), dQ (with the
    D = rowsum(dO . O) and the keep bits it writes) and dK/dV kernels (rows
@@ -88,8 +95,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention (row 1) at shapes phase 3 checked, the checkpoint equal to the
    live state bit for bit and a resumed run carrying on from micro-step 8;
    then one (256, 3584) micro-batch at dropout 0 with the kernels against
-   plain attention (loss within 1e-5, |dg|/|g| <= 1e-3, each tensor's
-   max |dg| <= 1e-2 of its max |g|);
+   plain attention at the seeded initial weights that training starts from
+   (a state that is the same in every run; deterministic algorithms; the
+   kernel pass taken twice must give the same bits): loss within 1e-5,
+   |dg|/|g| <= 1e-3, each tensor's max |dg| <= 1e-2 of its max |g|;
 12. profile: one training micro-step at (256, 3584) under torch.profiler,
    and micro-steps per second over one optimizer step (a reading);
 13. GEMM against plain: the row-8 kernel at the int8 experiment's (8192,
@@ -141,6 +150,7 @@ INT8_SITES = {"int8-static": 95, "int8": 95, "int8-tail": 56}
 INT8_SERVE_MS_BEFORE = {"int8-static": 29.7722, "int8": 29.9788,
                         "int8-tail": 16.1821}
 INT8_CONV_KERNEL = "::conv_kernel<"   # csrc/int8_conv.cu's kernels, by name
+MRF_KERNEL = "::mrf_kernel<"          # csrc/fused_mrf.cu's kernels, by name
 INT8_WARMUP, INT8_TIMED = 2, 10       # phase 6's launches per site
 # the GEMM's bf16 and float32 results against plain: the same float32
 # products summed in another order (tests/test_torch_kernels.py states why)
@@ -265,7 +275,7 @@ def recording(module, name: str, key):
         yield seen
 
 
-def mrf_key(x, w, b, plan) -> tuple:
+def mrf_key(x, w, b, plan, wk=None) -> tuple:
     return tuple(x.shape)
 
 
@@ -311,12 +321,16 @@ def phase_build(kernels) -> dict:
 
 def ptxas_registers(log: str) -> dict:
     """{kernel<D>: (registers, spill store bytes, spill load bytes)} of
-    each templated kernel in one source's ptxas report."""
+    each templated kernel in one source's ptxas report (the fused MRF's as
+    mrf_kernel<C, wgmma n>)."""
     out, name = {}, None
     for line in log.splitlines():
         if "entry function" in line:
             m = re.search(r"(flash_fwd|fwd|dq|dkv)_kernelILi(\d+)E", line)
             name = m and f"{m.group(1)}_kernel<{m.group(2)}>"
+            m = re.search(r"mrf_kernelILi(\d+)ELi(\d+)E", line)
+            if m:       # <C, wgmma n>; C = 0: a runtime-C instantiation
+                name = f"mrf_kernel<{m.group(1)}, {m.group(2)}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -560,11 +574,31 @@ def total(rows: list[dict]) -> dict:
     return out
 
 
-def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches) -> dict:
+def mrf_bounds(b: int, t: int, c: int, w, bias, plan) -> dict:
+    """Row 6's bounds at one launch: its 3xTF32 products (3 * 2 * B*T *
+    sum over convs of K * C^2 on the TF32 tensor cores; the kernels line's
+    bound) and the same work as float32 FMAs on the CUDA cores; x read and
+    out written once, the weights and biases read once."""
+    flops = 2.0 * b * t * c * c * sum(
+        2 * k * len(d) for k, d in zip(plan.kernel_sizes, plan.dilations))
+    nbytes = 8.0 * b * t * c + 4.0 * (w.numel() + bias.numel())
+    return {"3xtf32": bound(3 * flops, TF32_PEAK, nbytes),
+            "f32": bound(flops, FP32_PEAK, nbytes)}
+
+
+def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches,
+                     registers: dict) -> dict:
     """The fused-MRF kernel against its plain version at every (B, T, C)
-    the fused serve gives it, a ragged T, and rows of different lengths."""
+    the fused serve gives it, a ragged T, and rows of different lengths,
+    with its times and both bounds. `registers`: ptxas_registers of the
+    source (empty when it was built before this run)."""
     from parrot_tts_tpu_torch.models.vocoder.generator import pack_stage
 
+    mrf_regs = {k: v for k, v in registers.items() if k.startswith("mrf")}
+    print_registers(mrf_regs)
+    spilled = {k: v for k, v in mrf_regs.items() if v[1] or v[2]}
+    if spilled:
+        raise AssertionError(f"fused MRF kernels spill: {spilled}")
     rng = np.random.default_rng(SEED + 1)
     stages = mrf_stages(vcfg)
     shapes = [(*shape, i, "serve") for shape, i in mrf_serve_shapes(vcfg,
@@ -575,16 +609,25 @@ def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches) -> dict:
     with torch.no_grad(), exact_numerics(True):
         for b, t, c, i, kind in shapes:
             w, bias, plan = pack_stage(model, i)
+            wk = fm.kernel_weights(w, plan)
             if all(r["C"] != c for r in rows):
-                tb = fm.FUSED_MRF.lib().fused_mrf_tile(plan.halo, c)
-                print(f"fused MRF C={c}: tile {tb} rows, halo {plan.halo} "
-                      f"per side, tile/halo {tb / plan.halo:.2f}")
+                tile = fm.tile_plan(plan)
+                print(f"fused MRF C={c}: tile {tile.tb} rows (least work "
+                      f"per row), halo "
+                      f"{plan.halo} per side, {tile.warpgroups} warpgroups, "
+                      f"1 block per SM, units of "
+                      f"{fm.UNIT_ROWS} rows x {c} channels (up to "
+                      f"{tile.rounds} per warpgroup), wgmma n "
+                      f"{tile.wgmma_n}, slabs of {tile.k_chunk} input "
+                      f"channels, recompute {tile.recompute:.3f}, shared "
+                      f"memory {tile.smem_bytes} bytes")
+            tb = fm.tile_plan(plan, (b, t)).tb
             x = torch.from_numpy(rng.standard_normal((b, t, c))
                                  .astype(np.float32)).cuda()
             if kind == "lengths":
                 for r, n in enumerate((t, 2 * t // 3, t // 3)):
                     x[r, n:] = 0.0
-            got = fm.mrf_fused(x, w, bias, plan)
+            got = fm.mrf_fused(x, w, bias, plan, wk=wk)
             want = fm.mrf_fused_reference(x, w, bias, plan)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -593,27 +636,33 @@ def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches) -> dict:
                 raise AssertionError(f"fused MRF B={b} T={t} C={c}: max "
                                      f"|diff| {err} > {lim}")
             reps = max(3, min(30, int(3e6 / (b * t))))
-            ms = cuda_ms(lambda: fm.mrf_fused(x, w, bias, plan), reps)
+            ms = cuda_ms(lambda: fm.mrf_fused(x, w, bias, plan, wk=wk), reps)
             plain_ms = cuda_ms(
                 lambda: fm.mrf_fused_reference(x, w, bias, plan), reps)
-            flops = 2.0 * b * t * c * c * sum(
-                2 * k * len(d) for k, d in zip(plan.kernel_sizes,
-                                               plan.dilations))
-            bound_ms, bound_by = bound(flops, FP32_PEAK,
-                                       8.0 * b * t * c + 4.0 * (w.numel()
-                                                                + bias.numel()))
+            bounds = mrf_bounds(b, t, c, w, bias, plan)
+            (bound_ms, bound_by), (f32_ms, _) = bounds["3xtf32"], bounds["f32"]
             rows.append({"B": b, "T": t, "C": c, "kind": kind, "count": 1,
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by})
-            print(f"fused MRF B={b} T={t:7d} C={c:2d} ({kind}): max|diff| "
-                  f"{err:.3e} (limit {lim:.3e})  kernel {ms:.4f} ms  plain "
-                  f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "f32_bound_ms": f32_ms})
+            print(f"fused MRF B={b} T={t:7d} C={c:2d} ({kind}, tile {tb}): "
+                  f"max|diff| {err:.3e} (limit {lim:.3e})  kernel {ms:.4f} ms"
+                  f"  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                  f"3xTF32 ({bound_by}), {f32_ms:.4f} ms float32")
             del x, got, want
     serve = [r for r in rows if r["kind"] == "serve"]
+    for c in sorted({r["C"] for r in serve}, reverse=True):
+        st = [r for r in serve if r["C"] == c]
+        print(f"fused MRF per serve C={c} ({len(st)} launches): kernel "
+              f"{sum(r['ms'] for r in st):.4f} ms  plain "
+              f"{sum(r['plain_ms'] for r in st):.4f} ms  bound "
+              f"{sum(r['bound_ms'] for r in st):.4f} ms 3xTF32, "
+              f"{sum(r['f32_bound_ms'] for r in st):.4f} ms float32")
     rep = total(serve)
     print(f"fused MRF per serve ({len(serve)} launches): kernel "
           f"{rep['ms']:.4f} ms  plain {rep['plain_ms']:.4f} ms  bound "
-          f"{rep['bound_ms']:.4f} ms")
+          f"{rep['bound_ms']:.4f} ms 3xTF32, "
+          f"{sum(r['f32_bound_ms'] for r in serve):.4f} ms float32")
     return {"report": rep, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "checked": {(r["B"], r["T"], r["C"]) for r in serve}}
 
@@ -775,7 +824,7 @@ def serve_line(label: str, st: dict, launches: int) -> None:
 
 
 def phase_fused_serve(fm, tcfg, vcfg, base: dict, checked: set,
-                      device=None) -> int:
+                      device=None) -> dict:
     """The same requests through ParrotTTS with fused_mrf=True."""
     tts = make_tts(tcfg, vcfg, device)
     want = len(mrf_stages(vcfg)) * len(vocoder_batches(base["units"]))
@@ -804,7 +853,8 @@ def phase_fused_serve(fm, tcfg, vcfg, base: dict, checked: set,
     print(f"fused serve against the float serve: max |diff| {dev:.3e}")
     if not dev <= FUSED_SERVE_ATOL:
         raise AssertionError(f"fused serve deviates by {dev}")
-    return runs[0][1]
+    return {"launches": runs[0][1],
+            "serve": lambda: tts.tts(TEXTS, speakers=base["speakers"])}
 
 
 def phase_int8_serve(qc, tcfg, vcfg, base: dict, checked: set,
@@ -927,11 +977,13 @@ def phase_profile(serve, label: str) -> None:
           f"{sum(ms for ms, _ in by_name.values()):.3f} ms summed")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
-    row7 = [v for name, v in by_name.items() if INT8_CONV_KERNEL in name]
-    if row7:
-        print(f"profile: row 7 (csrc/int8_conv.cu) "
-              f"{sum(ms for ms, _ in row7):.3f} ms device time over "
-              f"{sum(n for _, n in row7)} launches")
+    for row, source, key in ((6, "fused_mrf", MRF_KERNEL),
+                             (7, "int8_conv", INT8_CONV_KERNEL)):
+        runs = [v for name, v in by_name.items() if key in name]
+        if runs:
+            print(f"profile: row {row} (csrc/{source}.cu) "
+                  f"{sum(ms for ms, _ in runs):.3f} ms device time over "
+                  f"{sum(n for _, n in runs)} launches")
 
 
 def fd_compare(got, want, what: str) -> tuple[float, float]:
@@ -1229,12 +1281,32 @@ def bucket_ranges(pairs, train_cfg, max_len: int) -> dict:
             for s, t in pairs}
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic implementations (the length regulator's gather
+    backward, a scatter-add, has atomics otherwise), without filling new
+    tensors with NaN; the previous settings restored on exit."""
+    import torch.utils.deterministic as det
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        det.fill_uninitialized_memory = prev[2]
+
+
 def phase_train(fd, fa, tcfg, train_cfg, pairs, checked: set,
                 checked_eval: set, device=None) -> dict:
     """TTE training through pipeline/train_tte.run: 2 optimizer steps (8
     micro-batches, 4 per bucket pair) from a seeded corpus, then the
     checks; a resumed run; and the kernels' loss and gradients against
-    plain attention at one (256, 3584) micro-batch at dropout 0."""
+    plain attention at one (256, 3584) micro-batch at dropout 0, on the
+    seeded initial weights the training starts from."""
     import tempfile
 
     from parrot_tts_tpu_torch.core.checkpoint import CheckpointManager
@@ -1360,18 +1432,24 @@ def phase_train(fd, fa, tcfg, train_cfg, pairs, checked: set,
                                 seed=train_cfg.seed)
         batch_np = next(b for b in loader.batches(0)
                         if b["codes"].shape[1] == pairs[-1][1])
+    # compared on a state that is the same in every run: the seeded
+    # initial weights (`train/tte.py::init_state`), not the trained state,
+    # which TF32 training and cuDNN's algorithm choice make differ from run
+    # to run
     cfg0 = dataclasses.replace(
         state.model.cfg, dur_dropout_p=0.0,
         encoder=dataclasses.replace(tcfg.encoder, dropout_p=0.0),
         decoder=dataclasses.replace(tcfg.decoder, dropout_p=0.0))
-    model0 = parrot.Parrot(cfg0).to(state.model.pe.device)
-    model0.load_state_dict(state.model.state_dict())
+    model0 = parrot.Parrot(cfg0)
+    model0.load_state_dict(parrot.init_parrot(
+        cfg0, torch.Generator().manual_seed(train_cfg.seed)), strict=True)
+    model0 = model0.to(state.model.pe.device)
     batch = tte_train.to_batch(batch_np, model0.pe.device)
     out_len = batch_np["codes"].shape[1]
     params = list(model0.parameters())
 
     def loss_and_grads():
-        with exact_numerics(True):
+        with exact_numerics(True), deterministic_algorithms():
             total, _ = tte_train.loss_fn(model0, batch, cfg0, out_len,
                                          (SEED, 0))
             return float(total.detach()), torch.autograd.grad(total,
@@ -1389,6 +1467,13 @@ def phase_train(fd, fa, tcfg, train_cfg, pairs, checked: set,
     before = fd.FWD.launches
     loss_k, grads_k = loss_and_grads()
     kernel_launches = fd.FWD.launches - before
+    loss_r, grads_r = loss_and_grads()
+    repeat = loss_r == loss_k and all(torch.equal(a, b) for a, b in
+                                      zip(grads_k, grads_r))
+    print(f"kernel loss and gradients taken twice: bit-equal {repeat}")
+    if not repeat:
+        raise AssertionError("the parity comparison is not reproducible")
+    del grads_r
     with mock.patch.object(fd, "flash_dropout_fwd", plain_fwd), \
             mock.patch.object(fd, "flash_dropout_dq", plain_dq), \
             mock.patch.object(fd, "flash_dropout_dkv", plain_dkv):
@@ -1402,8 +1487,9 @@ def phase_train(fd, fa, tcfg, train_cfg, pairs, checked: set,
     worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                 for a, b in zip(grads_k, grads_p))
     print(f"kernels against plain attention at codes {tuple(batch_np['codes'].shape)},"
-          f" dropout 0: loss {loss_k:.6f} vs {loss_p:.6f} (rel {dl:.2e}), "
-          f"|dg|/|g| {rel:.2e}, worst tensor max|dg|/max|g| {worst:.2e}")
+          f" dropout 0, initial weights: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {dl:.2e}), |dg|/|g| {rel:.2e}, worst tensor max|dg|/max|g| "
+          f"{worst:.2e}")
     if not (dl <= TRAIN_LOSS_RTOL and rel <= TRAIN_GRAD_RTOL
             and worst <= TRAIN_GRAD_MAX):
         raise AssertionError("training with the kernels departs from plain "
@@ -1549,9 +1635,9 @@ def main() -> int:
     batches = vocoder_batches(base["units"])
     print("vocoder batches (rows, codes):", batches)
     mrf = phase_mrf_kernel(fm, exact_numerics, base["tts"].vocoder.model,
-                           vcfg, batches)
+                           vcfg, batches, ptxas_registers(build["fused_mrf"]))
     q8 = phase_int8_kernel(qc, vcfg, batches)
-    fused_launches = phase_fused_serve(
+    fused = phase_fused_serve(
         fm, tcfg, dataclasses.replace(vcfg, fused_mrf=True), base,
         mrf["checked"])
     int8 = {mode: phase_int8_serve(
@@ -1562,6 +1648,7 @@ def main() -> int:
         + f" (total {sum(r['launches'] for r in int8.values())})")
     phase_batch_invariance(quant)
     phase_profile(base["serve"], "float serve")
+    phase_profile(fused["serve"], "fused serve")
     phase_profile(int8["int8-static"]["serve"], "int8-static serve")
     phase_profile(int8["int8"]["serve"], "int8 serve")
     fdk = phase_flash_dropout(fd, ptxas_registers(build["flash_dropout"]))
@@ -1593,7 +1680,7 @@ def main() -> int:
         "route": "cuda",
         "source": "parrot_tts_tpu_torch/csrc/fused_mrf.cu",
         "replaces": "parrot_tts_tpu/ops/fused_mrf.py:115",
-        "launches": fused_launches,
+        "launches": fused["launches"],
         "max_abs_err": mrf["max_abs_err"],
         **{k: mrf["report"][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by")},

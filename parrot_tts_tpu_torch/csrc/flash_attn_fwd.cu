@@ -66,7 +66,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using namespace tf32x3;   // split_a, mma3, add, cp_async16
 
 constexpr int BQ = 64;        // queries per block, 16 per warp
 constexpr int BK = 32;        // keys per tile
@@ -81,72 +85,6 @@ struct Layout {
   static constexpr int kStage = kK + kV + BK;   // K, V, the key bias
   static constexpr size_t bytes = sizeof(float) * (kQ + STAGES * kStage);
 };
-
-// x = hi + lo exactly (Veltkamp's split, 4 float32 operations; __*_rn
-// so the compiler neither contracts nor reassociates them): hi is x rounded
-// to the nearest value of 11 significant bits, a TF32 value; lo keeps the
-// other 13, of which the tensor cores read the top 11
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  const float c = __fmul_rn(x, 8193.0f);   // 2^13 + 1
-  const float h = __fsub_rn(c, __fsub_rn(c, x));
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(__fsub_rn(x, h));
-}
-
-
-// c += a * b: m16n8k8 TF32, a row-major 16x8, b "col" (stored n-major)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// an A fragment split once for the products it takes part in
-struct SplitA {
-  uint32_t hi[4], lo[4];
-};
-
-__device__ __forceinline__ SplitA split_a(float a0, float a1, float a2,
-                                          float a3) {
-  SplitA r;
-  split(a0, r.hi[0], r.lo[0]);
-  split(a1, r.hi[1], r.lo[1]);
-  split(a2, r.hi[2], r.lo[2]);
-  split(a3, r.hi[3], r.lo[3]);
-  return r;
-}
-
-// c += a b in 3xTF32, the small terms first: a split, b the two float32
-// values of a B fragment
-__device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a,
-                                     float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma(c, a.lo, bh0, bh1);
-  mma(c, a.hi, bl0, bl1);
-  mma(c, a.hi, bh0, bh1);
-}
-
-// c += d, d a partial product summed on the tensor cores from 0: c sums
-// in IEEE float32 (round to nearest), the tensor cores' float32 sums are
-// not rounded to nearest, so each partial stays short
-__device__ __forceinline__ void add(float (&c)[4], float (&d)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    c[e] += d[e];
-    d[e] = 0.f;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 2)

@@ -1,5 +1,6 @@
 // One whole MRF stage of the HiFi-GAN vocoder in one kernel, for Hopper
-// (sm_90a), IEEE float32 on the CUDA cores.
+// (sm_90a): float32 convolutions on the TF32 tensor cores with a 3xTF32
+// split (wgmma m64nNk8, A from registers; csrc/tf32x3.cuh).
 //
 // Replaces: parrot_tts_tpu/ops/fused_mrf.py::_mrf_kernel (driven by
 // mrf_fused, fused_mrf.py:115-193). For x (B, T, C) float32 it computes
@@ -14,43 +15,95 @@
 // stage is 3 branches (k = 3, 7, 11) x 3 pairs (d = 1, 3, 5): 18 convs.
 //
 // Bound on this card: 2 * sum(K) * C^2 = 252 C^2 operations per sample
-// (float32, 67 TFLOP/s without tensor cores) against the input and output
-// (8 C bytes per sample) and the stage's 126 C^2 weights: at C = 16-64 the
-// operations take 25-100x as long as the bytes, so FMAs bound the kernel.
+// against the input and output (8 C bytes per sample) and the stage's
+// 126 C^2 weights. Taken as 3xTF32 products on the tensor cores (3x the
+// operations at 494.7 TFLOP/s) or as float32 FMAs on the CUDA cores (67
+// TFLOP/s), the operations take 10-100x as long as the bytes at C = 16-64:
+// the products bound the kernel.
 //
-// What the design does about it: the 18 convs' intermediates never reach
-// device memory. A block owns tb output rows of one batch row and computes
-// the stage on a strip of tb + 2 * halo rows held in shared memory, where
-// halo (in samples) is the longest branch's one-sided receptive field: 60
-// at V1 (5 + 15 + 25 for the k = 11 dilated convs, 3 x 5 for the plain
+// Numerics: every product is 3xTF32 (tf32x3.cuh): within ~5 * 2^-22 of its
+// float32 value. The tensor cores sum one weight slab's products (one tap,
+// KC input channels: KC / 8 k-steps, 3 wgmma each) from zero; IEEE float32
+// adds each such partial to the running sum, which starts at the bias.
+// chip_smoke.py phase 5 holds the stage to 1e-5 of max |plain| against its
+// IEEE float32 plain version; plain TF32 (one product of hi parts, ~2^-11)
+// would not hold it.
+//
+// The design. A block (one per SM) owns tb output rows of one batch row and
+// computes the stage on a strip of L = tb + 2 * halo rows in shared memory,
+// where halo is the longest branch's one-sided receptive field in samples
+// (60 at V1: 5 + 15 + 25 for the k = 11 dilated convs, 3 x 5 for the plain
 // ones). Each conv is computed only on the rows that later convs still
 // need, so the recompute shrinks conv by conv to exactly tb rows at the
-// branch's end. Three strips: y (the branch state), leaky(y), and
-// leaky(t). Each thread computes a 4-row x 8-channel micro-tile: 4 shared
-// reads (broadcast, rows padded to C + 1 floats so they hit distinct banks)
-// and 2 float4 weight reads (L1/L2; a stage's weights are 2 MB at C = 64,
-// too large to stage) per 32 FMAs. The branch mean accumulates in the
-// output, which each thread owns for its rows. The ragged last tile is
-// masked; any T works. No TF32: every product is a plain fmaf.
+// branch's end. Two strips: Y (the branch state) and LT (leaky of the
+// dilated conv's output); leaky(Y) is taken as the A fragment is loaded.
+// Rows are padded to S = C + 8 (C + 16 when C is an odd multiple of 8)
+// floats, so the float2 A-fragment loads of a half warp hit 32 banks.
+//
+// Each conv is an implicit GEMM: strip rows x C outputs, reducing over taps
+// x C inputs. A dilated tap is a row shift of the same strip: each warp
+// loads its A fragment (16 rows x 8 inputs) at a row offset of tap * dil -
+// pad, splits it in registers (hi, lo) and hands it to wgmma, so any shift
+// works. The weights come pre-split on the host (ops/fused_mrf.py::
+// kernel_weights: TF32 hi and lo halves, each K-major [KC / 4][C][4], the
+// no-swizzle layout the B descriptor reads, inputs ordered as the A
+// fragment's k) and stream through a ring of NS = 2 shared-memory slots by
+// cp.async: one slab (one tap, KC = min(n, 32) inputs, both halves) lands
+// while the previous one multiplies; one barrier per slab; slabs run in the
+// stage's order across conv and branch boundaries. A warpgroup's unit is
+// 64 rows x C outputs (C / n wgmmas of m64nNk8 per k-step, n = 64 at C =
+// 64, else the widest of 32, 16, 8 dividing C), each product lo_a hi_b +
+// hi_a lo_b + hi_a hi_b; it holds up to R units' sums in registers through
+// a conv. A round (one unit per warpgroup) runs while its first unit has
+// rows, a test the whole block agrees on: ptxas serializes wgmmas on a
+// divergent path.
+//
+// Tiles (ops/fused_mrf.py::tile_plan chooses tb and passes it; the launch
+// checks it): 4 warpgroups x R = 5 units at C = 8 and 16, 3 x 4 at 32, 2 x 3
+// at 64, 2 x 2 at the runtime widths; the strips and ring fill the SM's
+// 227 KB. At V1 (halo 60) the largest tiles with the least work per row:
+// C = 64 tb 224 (rows computed, in whole rounds, over 18 tb: 1.40), C = 32
+// tb 496 (1.20), C = 16 tb 944 (1.11); a launch takes the tb with the
+// least waves x rows.
+//
+// The branch mean accumulates in the output, which each thread owns for its
+// rows, in branch order (no atomics: deterministic). The ragged last tile
+// is masked; any T works.
 //
 // Interface (plain C, loaded with ctypes):
-//   int fused_mrf_f32(x, w, bias, out, B, T, C, n_branch, kernel_sizes,
-//                     n_pairs, dilations, halo, stream)
-// x, out: contiguous (B, T, C) float32; w: the 2 * sum(n_pairs) conv
-// kernels, each (K, C, C) = [tap][ci][co], in order branch, pair, (dilated,
-// plain); bias: their (C,) biases in the same order. kernel_sizes, n_pairs:
-// n_branch ints on the host; dilations: n_branch x 4 ints on the host.
-// C must be a multiple of 8. Returns the CUDA error code of the launch.
+//   int fused_mrf_f32(x, wk, bias, out, B, T, C, n_branch, kernel_sizes,
+//                     n_pairs, dilations, halo, tb, stream)
+// x, out: contiguous (B, T, C) float32, 16-byte aligned; wk: the weight
+// stream of kernel_weights (2 * sum over convs of K * C * C floats),
+// 16-byte aligned; bias: the convs' (C,) biases in pack_mrf's order
+// (branch, pair, dilated then plain). kernel_sizes, n_pairs: n_branch ints
+// on the host; dilations: n_branch x 4 ints on the host. C must be a
+// multiple of 8 up to 120. Returns the CUDA error code of the launch
+// (cudaErrorInvalidValue for a plan the kernel does not take).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int MAXB = 4;        // branches
-constexpr int MAXP = 4;        // pairs per branch
-constexpr int THREADS = 256;
-constexpr int RM = 4;          // rows per thread
-constexpr int CN = 8;          // channels per thread
+using namespace tf32x3;
+using sm90::fence_proxy_async;
+using sm90::kNoSwizzle;
+using sm90::reg_fence;
+using sm90::sdesc;
+using sm90::wg_commit;
+using sm90::wg_fence;
+using sm90::wg_wait;
+
+constexpr int MAXB = 4;         // branches
+constexpr int MAXP = 4;         // pairs per branch
+constexpr int NS = 2;           // weight ring slots
+constexpr int UNIT_ROWS = 64;   // rows of a warpgroup's unit (the wgmma m)
+constexpr int MAX_C = 120;      // the runtime-C instantiations' widest
+constexpr int SMEM_MAX = 232448;
 constexpr float SLOPE = 0.1f;
 
 struct Plan {
@@ -59,191 +112,313 @@ struct Plan {
   int np[MAXB];
   int d[MAXB][MAXP];
   int halo;
+  int tb;
 };
+
+// the wgmma n of a width: 64 at C = 64, else the widest of 32, 16, 8 that
+// divides C; the slab's input channels, KC = min(n, 32)
+__host__ __device__ constexpr int wg_n(int c) {
+  return c == 64 ? 64 : c % 32 == 0 ? 32 : c % 16 == 0 ? 16 : 8;
+}
+
+__host__ __device__ constexpr int k_chunk(int n) { return n < 32 ? n : 32; }
+
+// warpgroups per block: one warpgroup's wait for its products leaves the
+// tensor cores idle unless others interleave, so as many as the registers
+// allow: four at C = 8 and 16, three at C = 32, two at C = 64 and the
+// runtime widths (their accumulators need the registers)
+__host__ __device__ constexpr int warpgroups(int ct) {
+  return ct == 8 || ct == 16 ? 4 : ct == 32 ? 3 : 2;
+}
+
+// 64 x C units a warpgroup holds through a conv (enough for the longest
+// strip that fits): 5 at C = 8 and 16, 4 at C = 32, 3 at C = 64 (96
+// accumulator registers), 2 at the runtime widths (up to 120 channels)
+__host__ __device__ constexpr int rounds(int ct) {
+  return ct == 8 || ct == 16 ? 5 : ct == 32 ? 4 : ct == 64 ? 3 : 2;
+}
+
+__host__ __device__ __forceinline__ int strip_stride(int c) {
+  return c % 16 == 0 ? c + 8 : c + 16;
+}
 
 __device__ __forceinline__ float leaky(float v) { return fmaxf(v, SLOPE * v); }
 
-// One 'same' conv over strip rows [lo, hi): reads src rows lo - pad ..
-// hi - 1 + pad (all inside the strip). mode 1 stores leaky(valid * y) in
-// dst; mode 2 adds valid * y to dst (the residual y) in place and stores
-// leaky of the sum in dst_leaky, and, on the branch's last pair, folds the
-// sum into the output.
-__device__ void conv_rows(const float* __restrict__ src, float* dst,
-                          float* dst_leaky, const float* __restrict__ w,
-                          const float* __restrict__ bias, int K, int dil,
-                          int pad, int lo, int hi, int S, int C, int g0,
-                          int T, int mode, bool last, int br, int nb,
-                          float* ob, int H, int tid) {
-  const int CG = C / CN;
-  const int RG = THREADS / CG;
-  const int cg = tid % CG, rg = tid / CG;
-  if (rg >= RG) return;
-  const int co = cg * CN;
-  float bv[CN];
-#pragma unroll
-  for (int j = 0; j < CN; ++j) bv[j] = __ldg(bias + co + j);
-
-  for (int r0 = lo + rg * RM; r0 < hi; r0 += RG * RM) {
-    float acc[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = bv[j];
-    int rr[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) rr[i] = min(r0 + i, hi - 1);   // ragged pass
-
-    for (int tap = 0; tap < K; ++tap) {
-      const int off = tap * dil - pad;
-      const float* s[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) s[i] = src + (rr[i] + off) * S;
-      const float* wt = w + static_cast<size_t>(tap) * C * C + co;
-#pragma unroll 4
-      for (int ci = 0; ci < C; ++ci) {
-        const float4 w0 = __ldg(reinterpret_cast<const float4*>(wt + ci * C));
-        const float4 w1 = __ldg(reinterpret_cast<const float4*>(wt + ci * C + 4));
-        const float wv[CN] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const float a = s[i][ci];
-#pragma unroll
-          for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a, wv[j], acc[i][j]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = r0 + i;
-      if (r >= hi) break;
-      const int t = g0 + r;
-      const bool valid = t >= 0 && t < T;
-      float* drow = dst + r * S + co;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float v = valid ? acc[i][j] : 0.f;
-        if (mode == 1) {
-          drow[j] = leaky(v);
-        } else {
-          const float y = drow[j] + v;
-          drow[j] = y;
-          dst_leaky[r * S + co + j] = leaky(y);
-          if (last && valid) {      // rows [H, H + tb) by construction
-            float* o = ob + static_cast<size_t>(t) * C + co + j;
-            float m = br == 0 ? y : *o + y;
-            if (br == nb - 1) m = m * (1.0f / nb);
-            *o = m;
-          }
-        }
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-mrf_kernel(const float* __restrict__ x, const float* __restrict__ w,
+template <int CT, int N>
+__global__ void __launch_bounds__(128 * warpgroups(CT), 1)
+mrf_kernel(const float* __restrict__ x, const float* __restrict__ wk,
            const float* __restrict__ bias, float* __restrict__ out, int T,
-           int C, int tb, Plan plan) {
-  extern __shared__ float sm[];
-  const int S = C + 1;
-  const int H = plan.halo;
-  const int L = tb + 2 * H;
-  float* Y = sm;            // branch state y
-  float* LY = Y + L * S;    // leaky(y)
-  float* TB = LY + L * S;   // leaky(conv1 output)
+           int c_arg, const __grid_constant__ Plan plan) {
+  constexpr int KC = k_chunk(N);       // input channels per slab
+  constexpr int KS = KC / 8;           // k-steps per slab
+  constexpr int NGM = (CT ? CT : MAX_C) / N;   // n tiles held
+  constexpr int NWG = warpgroups(CT);
+  constexpr int THREADS = 128 * NWG;
+  constexpr int R = rounds(CT);
+  const int C = CT ? CT : c_arg;
+  const int NG = C / N;
+  const int S = strip_stride(C);
+  const int H = plan.halo, tb = plan.tb, L = tb + 2 * H;
+  const int NCH = C / KC;
+  const int slab = 2 * KC * C;          // floats: the hi and lo halves
+  extern __shared__ __align__(128) float sm[];
+  float* ring = sm;                     // NS weight slabs
+  float* Y = ring + NS * slab;          // the branch state y
+  float* LT = Y + L * S;                // leaky(dilated conv output)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wl = warp & 3;   // warpgroup, warp in it
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y;
   const int g0 = blockIdx.x * tb - H;   // sequence row of strip row 0
   const float* xb = x + static_cast<size_t>(b) * T * C;
   float* ob = out + static_cast<size_t>(b) * T * C;
-  const int tid = threadIdx.x;
+  const int c4 = C / 4;
 
-  size_t woff = 0;
-  int boff = 0;
+  // every slab has the same size, so slab s of the stream is at s * slab
+  int n_slabs = 0;
+  for (int br = 0; br < plan.nb; ++br)
+    n_slabs += 2 * plan.np[br] * plan.k[br] * NCH;
+  auto issue = [&](int s) {
+    if (s < n_slabs) {
+      const float* src = wk + static_cast<size_t>(s) * slab;
+      float* dst = ring + (s % NS) * slab;
+      for (int idx = tid; idx < slab / 4; idx += THREADS)
+        cp_async16(dst + 4 * idx, src + 4 * idx, true);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) issue(s);
+
+  float acc[R][NGM][N / 2];
+  int s = 0;          // slab index
+  int boff = 0;       // bias offset of the current conv
   for (int br = 0; br < plan.nb; ++br) {
     const int K = plan.k[br];
     int rem = 0;
     for (int p = 0; p < plan.np[br]; ++p)
       rem += (K - 1) * plan.d[br][p] / 2 + (K - 1) / 2;
 
-    // the rows this branch needs: [H - rem, H + tb + rem)
-    const int lo = H - rem, n = tb + 2 * rem;
-    for (int idx = tid; idx < n * C; idx += THREADS) {
-      const int r = lo + idx / C, c = idx % C;
-      const int t = g0 + r;
-      const float v = (t >= 0 && t < T) ? xb[static_cast<size_t>(t) * C + c] : 0.f;
-      Y[r * S + c] = v;
-      LY[r * S + c] = leaky(v);
-    }
+    // the rows this branch needs, [H - rem, H + tb + rem), from x (zero
+    // outside [0, T)); the barrier first: the previous branch's last conv
+    // may still be updating Y
     __syncthreads();
+    {
+      const int lo = H - rem, n = tb + 2 * rem;
+      for (int idx = tid; idx < n * c4; idx += THREADS) {
+        const int r = lo + idx / c4, q = idx % c4;
+        const int tt = g0 + r;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (tt >= 0 && tt < T)
+          v = __ldg(reinterpret_cast<const float4*>(
+                        xb + static_cast<size_t>(tt) * C) + q);
+        *reinterpret_cast<float4*>(Y + r * S + 4 * q) = v;
+      }
+    }
 
     for (int p = 0; p < plan.np[br]; ++p) {
       const int d = plan.d[br][p];
       const int p1 = (K - 1) * d / 2, p2 = (K - 1) / 2;
-      const float* w1 = w + woff;
-      const float* w2 = w1 + static_cast<size_t>(K) * C * C;
-      const float* b1 = bias + boff;
-      const float* b2 = b1 + C;
-      woff += 2 * static_cast<size_t>(K) * C * C;
-      boff += 2 * C;
-      conv_rows(LY, TB, nullptr, w1, b1, K, d, p1, H - rem + p1,
-                H + tb + rem - p1, S, C, g0, T, 1, false, br, plan.nb, ob, H,
-                tid);
-      __syncthreads();
-      rem -= p1 + p2;
-      conv_rows(TB, Y, LY, w2, b2, K, 1, p2, H - rem, H + tb + rem, S, C, g0,
-                T, 2, p == plan.np[br] - 1, br, plan.nb, ob, H, tid);
-      __syncthreads();
+#pragma unroll 1
+      for (int cv = 0; cv < 2; ++cv) {
+        const int dil = cv ? 1 : d, pad = cv ? p2 : p1;
+        if (cv) rem -= p1 + p2;
+        const int lo = cv ? H - rem : H - rem + p1;
+        const int hi = cv ? H + tb + rem : H + tb + rem - p1;
+        const float* src = cv ? LT : Y;
+        // every unit's sum starts at the bias
+#pragma unroll
+        for (int ng = 0; ng < NGM; ++ng)
+#pragma unroll
+          for (int i = 0; i < N / 2; i += 2) {
+            const int co = ng * N + 8 * (i / 4) + 2 * t;
+            const float b0 = ng < NG ? __ldg(bias + boff + co) : 0.f;
+            const float b1 = ng < NG ? __ldg(bias + boff + co + 1) : 0.f;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              acc[r][ng][i] = b0;
+              acc[r][ng][i + 1] = b1;
+            }
+          }
+        for (int tap = 0; tap < K; ++tap) {
+          const int shift = tap * dil - pad;
+          for (int ch = 0; ch < NCH; ++ch, ++s) {
+            cp_async_wait<NS - 2>();   // this thread's copies of slab s
+            fence_proxy_async();       // visible to the tensor cores' reads
+            __syncthreads();           // everyone's; slot s - 1 is free
+            issue(s + NS - 1);
+            const float* ws = ring + (s % NS) * slab;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              // a round runs while its first unit has rows: a test the
+              // whole block agrees on, so the wgmmas are on no divergent
+              // path (ptxas serializes them there); the second warpgroup's
+              // unit past hi computes on the clamped last row, unstored
+              if (lo + r * NWG * UNIT_ROWS >= hi) continue;
+              const int m0 = lo + (wg + r * NWG) * UNIT_ROWS;
+              // this warp's 16 rows (ragged rows read the last row)
+              const int ra = min(m0 + 16 * wl + g, hi - 1);
+              const int rb = min(m0 + 16 * wl + g + 8, hi - 1);
+              const float* pa = src + (ra + shift) * S + ch * KC + 2 * t;
+              const float* pb = src + (rb + shift) * S + ch * KC + 2 * t;
+              SplitA a[KS];
+#pragma unroll
+              for (int ks = 0; ks < KS; ++ks) {
+                float2 x0 = *reinterpret_cast<const float2*>(pa + 8 * ks);
+                float2 x1 = *reinterpret_cast<const float2*>(pb + 8 * ks);
+                if (cv == 0) {
+                  x0 = make_float2(leaky(x0.x), leaky(x0.y));
+                  x1 = make_float2(leaky(x1.x), leaky(x1.y));
+                }
+                a[ks] = split_a(x0.x, x1.x, x0.y, x1.y);
+              }
+#pragma unroll
+              for (int ng = 0; ng < NGM; ++ng) {
+                if (ng >= NG) break;
+                float part[N / 2];
+                wg_fence();
+#pragma unroll
+                for (int ks = 0; ks < KS; ++ks) {
+                  // k-step ks: 16-byte k groups 2ks, 2ks + 1 of the slab's
+                  // [KC / 4][C][4] halves; n tile ng starts ng * N rows down
+                  const float* wh = ws + (2 * ks * C + ng * N) * 4;
+                  const uint64_t dh = sdesc(wh, C * 16, 128, kNoSwizzle);
+                  const uint64_t dl = sdesc(wh + KC * C, C * 16, 128,
+                                            kNoSwizzle);
+                  wgmma_tf32(part, a[ks].lo, dh, ks > 0);
+                  wgmma_tf32(part, a[ks].hi, dl, 1);
+                  wgmma_tf32(part, a[ks].hi, dh, 1);
+                }
+                wg_commit();
+                wg_wait<0>();
+                reg_fence(part);
+#pragma unroll
+                for (int i = 0; i < N / 2; ++i) acc[r][ng][i] += part[i];
+              }
+            }
+          }
+        }
+        boff += C;
+
+        // epilogue: the dilated conv stores leaky(t) in LT; the plain one
+        // adds t to Y and, on the branch's last pair, folds y into out
+        const bool last = cv == 1 && p == plan.np[br] - 1;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int m0 = lo + (wg + r * NWG) * UNIT_ROWS;
+          if (m0 >= hi) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + 16 * wl + 8 * h + g;
+            if (row >= hi) continue;
+            const int tt = g0 + row;
+            const bool valid = tt >= 0 && tt < T;
+#pragma unroll
+            for (int ng = 0; ng < NGM; ++ng) {
+              if (ng >= NG) break;
+#pragma unroll
+              for (int i = 2 * h; i < N / 2; i += 4) {
+                const int co = ng * N + 8 * (i / 4) + 2 * t;
+                const float v0 = valid ? acc[r][ng][i] : 0.f;
+                const float v1 = valid ? acc[r][ng][i + 1] : 0.f;
+                if (cv == 0) {
+                  *reinterpret_cast<float2*>(LT + row * S + co) =
+                      make_float2(leaky(v0), leaky(v1));
+                } else {
+                  float2* yp = reinterpret_cast<float2*>(Y + row * S + co);
+                  float2 y = *yp;
+                  y.x += v0;
+                  y.y += v1;
+                  *yp = y;
+                  if (last && valid) {   // rows [H, H + tb) by construction
+                    float2* o = reinterpret_cast<float2*>(
+                        ob + static_cast<size_t>(tt) * C + co);
+                    float2 m = y;
+                    if (br > 0) {
+                      const float2 prev = *o;
+                      m.x = prev.x + y.x;
+                      m.y = prev.y + y.y;
+                    }
+                    if (br == plan.nb - 1) {
+                      m.x *= 1.0f / plan.nb;
+                      m.y *= 1.0f / plan.nb;
+                    }
+                    *o = m;
+                  }
+                }
+              }
+            }
+          }
+        }
+      }
     }
   }
+  cp_async_wait<0>();
 }
 
 size_t smem_bytes(int tb, int halo, int C) {
-  return 3 * static_cast<size_t>(tb + 2 * halo) * (C + 1) * sizeof(float);
+  return sizeof(float) *
+         (2 * static_cast<size_t>(tb + 2 * halo) * strip_stride(C) +
+          static_cast<size_t>(NS) * 2 * k_chunk(wg_n(C)) * C);
 }
 
-// The time tile: the largest multiple of 32 (up to 1024) whose strips fit
-// two blocks per SM (113 KB each) while tb >= 2 * halo; else the largest
-// that fits one block (227 KB); else 16 rows.
-int pick_tb(int halo, int C) {
-  const size_t budgets[2] = {115712, 232448};
-  for (size_t budget : budgets) {
-    for (int tb = 1024; tb >= 32; tb -= 32)
-      if (smem_bytes(tb, halo, C) <= budget && (budget > 115712 || tb >= 2 * halo))
-        return tb;
-  }
-  return 16;
+template <int CT, int N>
+int launch(const float* x, const float* wk, const float* bias, float* out,
+           int B, int T, int C, const Plan& plan, cudaStream_t stream) {
+  const int rows = plan.tb + 2 * plan.halo;
+  if ((rows + UNIT_ROWS - 1) / UNIT_ROWS > warpgroups(CT) * rounds(CT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = smem_bytes(plan.tb, plan.halo, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      mrf_kernel<CT, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + plan.tb - 1) / plan.tb, B);
+  mrf_kernel<CT, N><<<grid, 128 * warpgroups(CT), bytes, stream>>>(
+      x, wk, bias, out, T, C, plan);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int fused_mrf_tile(int halo, int C) { return pick_tb(halo, C); }
-
-extern "C" int fused_mrf_f32(const float* x, const float* w, const float* bias,
-                             float* out, int B, int T, int C, int n_branch,
-                             const int* kernel_sizes, const int* n_pairs,
-                             const int* dilations, int halo, void* stream) {
-  if (n_branch < 1 || n_branch > MAXB || C % CN != 0 || C / CN > THREADS)
+extern "C" int fused_mrf_f32(const float* x, const float* wk,
+                             const float* bias, float* out, int B, int T,
+                             int C, int n_branch, const int* kernel_sizes,
+                             const int* n_pairs, const int* dilations,
+                             int halo, int tb, void* stream) {
+  if (n_branch < 1 || n_branch > MAXB || C % 8 != 0 || C < 8 || C > MAX_C ||
+      tb < 16 || halo < 0 || B < 1 || B > 65535 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan plan{};
   plan.nb = n_branch;
   plan.halo = halo;
+  plan.tb = tb;
   for (int br = 0; br < n_branch; ++br) {
-    if (n_pairs[br] < 1 || n_pairs[br] > MAXP)
+    if (n_pairs[br] < 1 || n_pairs[br] > MAXP || kernel_sizes[br] < 1)
       return static_cast<int>(cudaErrorInvalidValue);
     plan.k[br] = kernel_sizes[br];
     plan.np[br] = n_pairs[br];
-    for (int p = 0; p < n_pairs[br]; ++p) plan.d[br][p] = dilations[br * MAXP + p];
+    int rem = 0;
+    for (int p = 0; p < n_pairs[br]; ++p) {
+      plan.d[br][p] = dilations[br * MAXP + p];
+      rem += (plan.k[br] - 1) * plan.d[br][p] / 2 + (plan.k[br] - 1) / 2;
+    }
+    if (rem > halo) return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int tb = pick_tb(halo, C);
-  const size_t bytes = smem_bytes(tb, halo, C);
-  if (bytes > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      mrf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + tb - 1) / tb, B);
-  mrf_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, out, T, C, tb, plan);
-  return static_cast<int>(cudaGetLastError());
+  if (smem_bytes(tb, halo, C) > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 64: return launch<64, 64>(x, wk, bias, out, B, T, C, plan, s);
+    case 32: return launch<32, 32>(x, wk, bias, out, B, T, C, plan, s);
+    case 16: return launch<16, 16>(x, wk, bias, out, B, T, C, plan, s);
+    case 8: return launch<8, 8>(x, wk, bias, out, B, T, C, plan, s);
+    default:
+      switch (wg_n(C)) {
+        case 32: return launch<0, 32>(x, wk, bias, out, B, T, C, plan, s);
+        case 16: return launch<0, 16>(x, wk, bias, out, B, T, C, plan, s);
+        default: return launch<0, 8>(x, wk, bias, out, B, T, C, plan, s);
+      }
+  }
 }

@@ -179,7 +179,8 @@ class CodeGenerator(nn.Module):
 
     def pack_fused_mrf(self) -> None:
         """Pack the weights of every stage the fused route takes, once, for
-        serving: per stage a flat kernel and a bias buffer (moved with the
+        serving: per stage a flat kernel, the kernel's layout of it
+        (`fused_mrf.kernel_weights`) and a bias buffer (moved with the
         module, left out of its state_dict) and its plan. Call it after the
         final weights are loaded; weights changed later need a new call."""
         self.mrf_plans = {}
@@ -190,6 +191,8 @@ class CodeGenerator(nn.Module):
                 if _fuses(self, i, quant=self.cfg.quant == "int8"):
                     w, b, plan = pack_stage(self, i)
                     self.register_buffer(f"mrf_w{i}", w, persistent=False)
+                    self.register_buffer(f"mrf_k{i}", fused_mrf.kernel_weights(
+                        w, plan), persistent=False)
                     self.register_buffer(f"mrf_b{i}", b, persistent=False)
                     self.mrf_plans[i] = plan
 
@@ -319,7 +322,8 @@ def _mrf_stage_fused(model: CodeGenerator, i: int, x: torch.Tensor,
                            "loaded")
     return fused_mrf.mrf_fused(x.contiguous(), getattr(model, f"mrf_w{i}"),
                                getattr(model, f"mrf_b{i}"),
-                               model.mrf_plans[i])
+                               model.mrf_plans[i],
+                               wk=getattr(model, f"mrf_k{i}"))
 
 
 def pack_stage(model: CodeGenerator, i: int):

@@ -351,13 +351,17 @@ def test_fused_mrf_cpu_tensors_take_the_plain_version(rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,c", [(2, 5120, 64), (3, 1013, 32),
-                                   (1, 20480, 16), (2, 7, 16), (1, 300, 8)])
+@pytest.mark.parametrize("b,t,c", [
+    (2, 5120, 64), (3, 1013, 32), (1, 20480, 16), (2, 7, 16), (1, 300, 8),
+    # V1's three stage widths at a ragged T with rows of three lengths
+    (3, 2999, 64), (3, 4001, 32), (3, 6007, 16),
+    # widths the route may send that take the runtime-C instantiations
+    (2, 1000, 24), (2, 700, 48), (2, 333, 96), (1, 400, 120)])
 def test_fused_mrf_matches_plain_on_card(cuda_device, b, t, c):
     rng = np.random.default_rng(t)
     x, w, bias, plan = _mrf_inputs(rng, b, t, c, cuda_device)
-    if b > 1:
-        x[1, t // 2:] = 0.0          # a shorter row, zero past its length
+    for r in range(1, b):            # shorter rows, zero past their lengths
+        x[r, t * (b - r) // b:] = 0.0
     before = fused_mrf.FUSED_MRF.launches
     got = fused_mrf.mrf_fused(x, w, bias, plan)
     torch.cuda.synchronize()
