@@ -109,7 +109,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    (its rate and share of the bound), plain, bound and torch._int_mm /
    torch.matmul ms at the rate shape, and the int8 B^T pass alone; then
    the ported int8 experiment (`python -m parrot_tts_tpu_torch.scripts.exp_int8_rate`)
-   parts 1 and 2 with few repetitions, its GEMM launches counted.
+   parts 1 and 2 with few repetitions, its GEMM launches counted;
+14. vocoder GAN training at full width (no TPU kernel lies on its path):
+   the V1 VocoderModelConfig and VocoderTrainConfig() defaults (batch 16,
+   segments of 8960 samples) through pipeline/train_vocoder.run for 4
+   steps on a seeded corpus (32 + 4 wavs of 1-1.6 s over two speakers,
+   random units at 50 per second): finite losses, every tensor of the
+   generator, the MPD and the MSD changed at every step, the MSD scale-0
+   power-iteration vector advanced, the validation mel error logged, the
+   checkpoint equal to the live state bit for bit, a resumed run carrying
+   on from step 4; then one step from the seeded initial state under
+   exact_numerics(True) and deterministic algorithms, taken twice in
+   float32 (the same bits required) and once in float64: losses within
+   1e-4, |dg|/|g| <= 1e-3 per network, each tensor's max |dg| <= 1e-2 of
+   its max |g|; GAN steps per second over 5 warm steps (CUDA events) and
+   one profiled step (readings, TF32 as training runs). Then the manifest
+   entry points on phase 4's TTE: write_predictions on every non-empty
+   request gives the serve's units, and synthesize_text a finite waveform
+   of len(units) * 320 samples.
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -126,6 +143,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -940,11 +958,13 @@ def phase_batch_invariance(quant, device="cuda") -> None:
           "the same bits alone and beside a loud row (std 10)")
 
 
-def phase_profile(serve, label: str) -> None:
+def phase_profile(serve, label: str, split=()) -> None:
     """One more serve under torch.profiler: device time by kernel and the
     device's busy share of the wall time. Busy time is the union of the
     kernels' intervals; the profiler's device-side annotations of aten ops
-    span those same kernels and are left out."""
+    span those same kernels and are left out. split: (label, name
+    substrings) pairs; each kernel's time goes to the first whose
+    substring its name holds, the rest to "other"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -977,6 +997,17 @@ def phase_profile(serve, label: str) -> None:
           f"{sum(ms for ms, _ in by_name.values()):.3f} ms summed")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+    if split:
+        groups: dict[str, list] = {}
+        for name, (ms, n) in by_name.items():
+            group = next((g for g, keys in split
+                          if any(k in name for k in keys)), "other")
+            acc = groups.setdefault(group, [0.0, 0])
+            acc[0] += ms
+            acc[1] += n
+        print("profile by kind: " + "; ".join(
+            f"{g} {ms:.3f} ms / {n} kernels"
+            for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
     for row, source, key in ((6, "fused_mrf", MRF_KERNEL),
                              (7, "int8_conv", INT8_CONV_KERNEL)):
         runs = [v for name, v in by_name.items() if key in name]
@@ -1610,14 +1641,338 @@ def phase_int8_experiment(qc) -> int:
     return launches
 
 
+GAN_STEPS = 4                # phase 14's training steps
+GAN_TIMED = 5                # warm steps of its steps-per-second reading
+# phase 14's parity: one full-width GAN step in IEEE float32 against the
+# same step in float64 on the card, from the seeded initial state
+GAN_LOSS_RTOL = 1e-4
+GAN_GRAD_RTOL = 1e-3         # |dg| / |g| per network
+GAN_GRAD_MAX = 1e-2          # max |dg| <= this * max |g|, per tensor
+# kinds of kernel in phase 14's profiled step, by name
+GAN_PROFILE_SPLIT = (
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolutions", ("conv", "cudnn", "cutlass", "xmma", "implicit_gemm",
+                      "dgrad", "wgrad")),
+    ("AdamW (fused)", ("fused_adam", "FusedAdam", "multi_tensor")),
+    ("FFT", ("fft", "FFT")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def write_vocoder_corpus(root, n_train: int, n_val: int, seconds,
+                         seed: int):
+    """A seeded vocoder corpus in the format `data/vocoder_data.py` reads:
+    16 kHz wavs of `seconds` = (min, max) length over two speakers (file
+    names spk0_x_* / spk1_x_*), and train.txt / val.txt manifests of random
+    HuBERT units at 50 per second."""
+    from pathlib import Path
+
+    from parrot_tts_tpu_torch.data.audio_io import write_wav
+    from parrot_tts_tpu_torch.data.manifest import write_manifest
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        entries = []
+        for i in range(n):
+            n_samp = int(16000 * rng.uniform(*seconds))
+            path = root / "wavs" / f"spk{i % 2}_x_{split}_{i:03d}.wav"
+            # a few harmonics under noise, so the mel is not flat
+            t = np.arange(n_samp) / 16000.0
+            f0 = rng.uniform(90, 250)
+            wav = sum(np.sin(2 * np.pi * f0 * k * t) / k for k in (1, 2, 3))
+            write_wav(path, 0.3 * wav + 0.05 * rng.standard_normal(n_samp),
+                      16000)
+            entries.append({"audio": str(path), "hubert": " ".join(map(
+                str, rng.integers(0, 1000, n_samp * 50 // 16000)))})
+        write_manifest(root / f"{split}.txt", entries)
+    return root
+
+
+def to_float64(state):
+    """The GAN state in float64 (networks, buffers and moments; the
+    parameters stay the optimizers' own)."""
+    for m in (state.gen, state.mpd, state.msd):
+        m.double()
+    for opt in (state.opt_g, state.opt_d):
+        for st in opt.state.values():
+            for key in ("exp_avg", "exp_avg_sq"):
+                st[key] = st[key].double()
+    return state
+
+
+def gan_grads(state) -> dict:
+    """Each network's gradients of the state's one update from zero
+    moments: the first moment is (1 - b1) g."""
+    mu = state.moments()
+    nets = {"G": mu["mu_g"],
+            "MPD": {k: v for k, v in mu["mu_d"].items()
+                    if k.startswith("mpd.")},
+            "MSD": {k: v for k, v in mu["mu_d"].items()
+                    if k.startswith("msd.")}}
+    return {n: {k: v.double() for k, v in d.items()} for n, d in nets.items()}
+
+
+def phase_gan(mcfg, tcfg, mel_cfg, corpus: dict, device=None) -> dict:
+    """Vocoder GAN training at full width through pipeline/train_vocoder.run
+    for GAN_STEPS steps on a seeded corpus, with the checks; a resumed run;
+    one step in IEEE float32 against float64 from the seeded initial
+    state; steps per second and a profiled step (readings)."""
+    import tempfile
+
+    from parrot_tts_tpu_torch.core.checkpoint import CheckpointManager
+    from parrot_tts_tpu_torch.core.config import PipelineConfig
+    from parrot_tts_tpu_torch.core.device import resolve_device
+    from parrot_tts_tpu_torch.data.vocoder_data import (VocoderDataset,
+                                                        VocoderLoader)
+    from parrot_tts_tpu_torch.pipeline import train_vocoder
+    from parrot_tts_tpu_torch.train import vocoder as voc_train
+
+    dev = resolve_device(device)
+    records: list = []
+    real_step = voc_train.train_step
+
+    def step_spy(state, *args, **kwargs):
+        nets = (state.gen, state.mpd, state.msd)
+        before = [[p.detach().clone() for p in m.parameters()] for m in nets]
+        u0 = state.msd.discriminators[0].convs[0].weight_u.clone()
+        start = state.step
+        t0 = time.perf_counter()
+        metrics = real_step(state, *args, **kwargs)
+        values = {k: float(v) for k, v in metrics.items()}
+        records.append({
+            "start": start, "s": time.perf_counter() - t0, **values,
+            "changed": [all(not torch.equal(a, p) for a, p in
+                            zip(b, m.parameters()))
+                        for b, m in zip(before, nets)],
+            "u_moved": not torch.equal(
+                u0, state.msd.discriminators[0].convs[0].weight_u),
+            "state": state})
+        return metrics
+
+    with tempfile.TemporaryDirectory(prefix="parrot_gan_") as tmp:
+        data = write_vocoder_corpus(tmp, seed=SEED + 7, **corpus)
+        cfg = PipelineConfig(vocoder_model=mcfg, vocoder_train=tcfg,
+                             mel=mel_cfg)
+        run_dir = f"{tmp}/run"
+        with mock.patch.object(voc_train, "train_step", step_spy):
+            t0 = time.perf_counter()
+            out = train_vocoder.run(cfg, data_dir=data, run_dir=run_dir,
+                                    max_steps=GAN_STEPS, device=device)
+            wall = time.perf_counter() - t0
+        print(f"GAN train: {out}, {len(records)} steps in {wall:.3f} s "
+              f"(first use, corpus load and checkpoints included)")
+        for r in records:
+            print(f"  step {r['start']}: {r['s']:.3f} s, D loss "
+                  f"{r['loss_disc_all']:.5f}, G loss {r['loss_gen_all']:.5f},"
+                  f" mel error {r['mel_error']:.5f}; G / MPD / MSD every "
+                  f"tensor changed {r['changed']}, MSD scale-0 u advanced "
+                  f"{r['u_moved']}")
+        if out["steps"] != GAN_STEPS or len(records) != GAN_STEPS:
+            raise AssertionError(f"GAN run: {out}, {len(records)} steps")
+        if not all(math.isfinite(r[k]) for r in records
+                   for k in ("loss_disc_all", "loss_gen_all", "mel_error")):
+            raise AssertionError("a non-finite GAN loss")
+        if not all(all(r["changed"]) and r["u_moved"] for r in records):
+            raise AssertionError("a GAN step left a network or the MSD's "
+                                 "power-iteration vector unchanged")
+        logs = [json.loads(line) for line in
+                open(f"{run_dir}/logs/metrics.jsonl")]
+        val = [x["value"] for x in logs
+               if x["tag"] == "validation/mel_spec_error"]
+        if len(val) != GAN_STEPS // tcfg.validation_interval or not all(
+                math.isfinite(v) for v in val):
+            raise AssertionError(f"validation mel errors {val}")
+        rates = [round(x["value"], 3) for x in logs
+                 if x["tag"] == "train_audio_seconds_per_second"]
+        print(f"validation mel error {val}; train audio-s/s logged {rates}")
+        # the checkpoint holds the live state, bit for bit
+        live = records[-1]["state"].state_dict()
+        mgr = CheckpointManager(f"{run_dir}/ckpt")
+        saved = mgr.restore()
+        for part in ("gen", "mpd", "msd", "mu_g", "nu_g", "mu_d", "nu_d"):
+            if saved[part].keys() != live[part].keys() or not all(
+                    torch.equal(saved[part][k], v.cpu())
+                    for k, v in live[part].items()):
+                raise AssertionError(f"checkpoint {part} differs")
+        if (saved["step"], mgr.latest_step()) != (GAN_STEPS, GAN_STEPS):
+            raise AssertionError(f"checkpoint step {saved['step']}")
+        del live, saved
+        records.clear()
+        with mock.patch.object(voc_train, "train_step", step_spy):
+            out2 = train_vocoder.run(cfg, data_dir=data, run_dir=run_dir,
+                                     max_steps=GAN_STEPS + 1, device=device)
+        if out2["steps"] != GAN_STEPS + 1 or [r["start"] for r in records] \
+                != [GAN_STEPS]:
+            raise AssertionError(f"resume: {out2}, steps "
+                                 f"{[r['start'] for r in records]}")
+        print(f"resumed: {out2}, first step {records[0]['start']}; the "
+              "checkpoint held the networks, buffers, moments and step "
+              "bit for bit")
+        records.clear()
+        ds = VocoderDataset(data / "train.txt",
+                            segment_size=tcfg.segment_size,
+                            code_hop_size=tcfg.code_hop_size)
+        batch_np = next(VocoderLoader(ds, tcfg.batch_size,
+                                      seed=tcfg.seed).batches(0))
+        steps_per_epoch = max(1, len(ds) // tcfg.batch_size)
+
+    # one step from the seeded initial state: IEEE float32 (twice) against
+    # float64, deterministic algorithms
+    def one_step(float64: bool):
+        state = voc_train.init_state(tcfg.seed, mcfg, dev)
+        batch = voc_train.to_batch(batch_np, dev)
+        if float64:
+            state = to_float64(state)
+            batch["audio"] = batch["audio"].double()
+        with deterministic_algorithms():
+            m = voc_train.train_step(state, batch, mcfg, tcfg, mel_cfg,
+                                     steps_per_epoch, exact=True)
+        return {k: float(v) for k, v in m.items()}, state
+
+    m32, s32 = one_step(False)
+    m32b, s32b = one_step(False)
+    a, b = s32.state_dict(), s32b.state_dict()
+    repeat = m32 == m32b and all(
+        torch.equal(a[p][k], b[p][k]) for p in a if isinstance(a[p], dict)
+        for k in a[p])
+    print(f"GAN step in float32 taken twice: bit-equal {repeat}")
+    if not repeat:
+        raise AssertionError("the float32 GAN step is not reproducible")
+    del s32b, a, b
+    m64, s64 = one_step(True)
+    g32, g64 = gan_grads(s32), gan_grads(s64)
+    del s32, s64
+    fails = []
+    for k in m32:
+        rel = abs(m32[k] - m64[k]) / abs(m64[k])
+        print(f"  {k}: float32 {m32[k]:.8f} float64 {m64[k]:.8f} rel "
+              f"{rel:.2e}")
+        if not rel <= GAN_LOSS_RTOL:
+            fails.append(k)
+    for net in g32:
+        num = sum(float((g32[net][k] - v).pow(2).sum())
+                  for k, v in g64[net].items())
+        den = sum(float(v.pow(2).sum()) for v in g64[net].values())
+        worst = max(float((g32[net][k] - v).abs().max())
+                    / max(float(v.abs().max()), 1e-30)
+                    for k, v in g64[net].items())
+        rel = math.sqrt(num / den)
+        print(f"  {net} gradients: |dg|/|g| {rel:.2e}, worst tensor "
+              f"max|dg|/max|g| {worst:.2e} ({len(g64[net])} tensors)")
+        if not (rel <= GAN_GRAD_RTOL and worst <= GAN_GRAD_MAX):
+            fails.append(net)
+    if fails:
+        raise AssertionError(f"GAN step float32 against float64: {fails}")
+    del g32, g64
+
+    # readings: steps per second and one profiled step, as training runs
+    # (TF32 convolutions)
+    state = voc_train.init_state(tcfg.seed, mcfg, dev)
+    batch = voc_train.to_batch(batch_np, dev)
+
+    def step():
+        voc_train.train_step(state, batch, mcfg, tcfg, mel_cfg,
+                             steps_per_epoch)
+
+    if dev.type == "cuda":
+        ms = cuda_ms(step, GAN_TIMED)
+        audio_s = tcfg.batch_size * tcfg.segment_size / mel_cfg.sampling_rate
+        print(f"GAN reading: {1e3 / ms:.3f} steps/s ({ms:.3f} ms per step "
+              f"over {GAN_TIMED} warm steps, CUDA events; "
+              f"{audio_s * 1e3 / ms:.3f} audio-s/s of {audio_s:.2f} s "
+              f"segments per step)")
+        phase_profile(lambda: (step(), torch.cuda.synchronize()),
+                      f"GAN step at batch {tcfg.batch_size} x "
+                      f"{tcfg.segment_size} samples", GAN_PROFILE_SPLIT)
+    return {"records": records}
+
+
+def phase_manifest_io(fa, tts, speakers, device=None) -> None:
+    """write_predictions on the phase-4 TTE, for every non-empty request
+    and with the serve's encoder buckets (so the same decode batches),
+    gives the units that ParrotTTS decodes; synthesize_text gives a finite
+    waveform of len(units) * 320 samples for each."""
+    import tempfile
+    from pathlib import Path
+
+    from parrot_tts_tpu_torch.data.manifest import parse_manifest_line
+    from parrot_tts_tpu_torch.data.tte_data import TTEDataset
+    from parrot_tts_tpu_torch.infer import synthesize, tte_infer
+    from parrot_tts_tpu_torch.models.tte import parrot
+    from parrot_tts_tpu_torch.text.cleaners import english_cleaners
+
+    picked = [i for i, t in enumerate(TEXTS) if len(tts.tokenize(t))]
+    tokens = [tts.tokenize(TEXTS[i]) for i in picked]
+    spk = [speakers[i] for i in picked]
+    want = tts.predict_units(tokens, spk)
+    with tempfile.TemporaryDirectory(prefix="parrot_pred_") as tmp:
+        root = Path(tmp)
+        (root / "aligner").mkdir()
+        (root / "aligner" / "symbols.json").write_text(json.dumps(
+            [" "] + list("abcdefghijklmnopqrstuvwxyz,.?")))
+        n_spk = tts.tte_cfg.n_speaker
+        (root / "speakers.json").write_text(json.dumps(
+            {f"spk{i}": i for i in range(n_spk)}))
+        (root / "val.txt").write_text("".join(str({
+            "audio": f"{tmp}/req_{i}.wav", "hubert": "0", "duration": "1",
+            "speaker": f"spk{s}",
+            "characters": " ".join(tts.tokenizer.itos[int(x)] for x in tok),
+        }) + "\n" for i, (tok, s) in enumerate(zip(tokens, spk))))
+        ds = TTEDataset(root, root / "aligner", "val",
+                        tts.tte_cfg.hubert_codes)
+        fa.FLASH_FWD.launches = 0
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # no wavs: durations fall back
+            path = tte_infer.write_predictions(
+                tts.tte, ds, root / "predictions.txt",
+                src_buckets=tts.src_buckets, device=device)
+        launches = fa.FLASH_FWD.launches
+        got = [parse_manifest_line(line)["hubert"]
+               for line in path.read_text().splitlines()]
+    same = [g == " ".join(map(str, u.tolist())) for g, u in zip(got, want)]
+    print(f"write_predictions: {len(got)} requests of "
+          f"{[len(t) for t in tokens]} tokens, units equal to the serve's "
+          f"decode {same}; row-1 launches {launches}")
+    if len(got) != len(want) or not all(same):
+        raise AssertionError("write_predictions differs from the serve's "
+                             "decode")
+    if device is None and launches == 0:
+        raise AssertionError("write_predictions never launched row 1")
+    decoded = []
+    real = parrot.infer_codes
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        decoded.append(int(out[1].sum()))
+        return out
+
+    lengths = []
+    with mock.patch.object(parrot, "infer_codes", spy):
+        for i, s in zip(picked, spk):
+            decoded.clear()
+            wav = synthesize.synthesize_text(
+                TEXTS[i], tte_model=tts.tte, tokenizer=tts.tokenizer,
+                synthesizer=tts.vocoder, cleaner=english_cleaners,
+                speaker_id=s, device=device)
+            lengths.append((len(wav), decoded[-1], len(decoded)))
+            if len(wav) != decoded[-1] * 320 or not np.isfinite(wav).all():
+                raise AssertionError(f"synthesize_text({TEXTS[i]!r}): "
+                                     f"{len(wav)} samples for {decoded[-1]}"
+                                     " units")
+    print(f"synthesize_text: (samples, units, decodes) {lengths}, finite")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from parrot_tts_tpu_torch.core import kernels
-    from parrot_tts_tpu_torch.core.config import (TTEModelConfig,
+    from parrot_tts_tpu_torch.core.config import (MelConfig, TTEModelConfig,
                                                   TTETrainConfig,
-                                                  VocoderModelConfig)
+                                                  VocoderModelConfig,
+                                                  VocoderTrainConfig)
     from parrot_tts_tpu_torch.core.device import exact_numerics
     from parrot_tts_tpu_torch.ops import flash_attention as fa
     from parrot_tts_tpu_torch.ops import flash_dropout as fd
@@ -1662,6 +2017,13 @@ def main() -> int:
                         tr["out_len"])
     gemm = phase_gemm(qc)
     gemm_launches = phase_int8_experiment(qc)
+    # the V1 vocoder and VocoderTrainConfig() defaults (batch 16, segments
+    # of 8960 samples), logging every step, validation at the last
+    phase_gan(vcfg, VocoderTrainConfig(summary_interval=1,
+                                       validation_interval=GAN_STEPS,
+                                       checkpoint_interval=GAN_STEPS),
+              MelConfig(), dict(n_train=32, n_val=4, seconds=(1.0, 1.6)))
+    phase_manifest_io(fa, base["tts"], base["speakers"])
     rep = kern["report"]
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",

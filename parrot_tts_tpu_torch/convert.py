@@ -8,12 +8,14 @@ modules load with `strict=True`. It is the inverse of the JAX package's
 `models/tte/convert.py::params_from_torch` and
 `models/vocoder/convert.py::generator_params_from_torch`.
 
-Parameters only: a JAX run's optimizer state is not carried across,
-because the port's training checkpoints are its own (`core/checkpoint.py`).
-The vocoder's int8 serving modes need nothing more: their int8 weights are
-derived from the float state (`CodeGenerator.pack_int8`,
-`generator_staticq.quantize_generator`), and the int8 GEMM of `ops/qconv.py`
-has no weights.
+`vocoder_train_state_from_jax` also carries a JAX GAN training state
+(generator, MPD, MSD with its spectral-norm vectors, both AdamW optimizers'
+moments and the step) into the port's trainer (`train/vocoder.py`), so
+both packages can take a step from the same numbers. The TTE's optimizer
+state is not carried across. The vocoder's int8 serving modes need nothing
+more: their int8 weights are derived from the float state
+(`CodeGenerator.pack_int8`, `generator_staticq.quantize_generator`), and
+the int8 GEMM of `ops/qconv.py` has no weights.
 """
 
 from __future__ import annotations
@@ -116,3 +118,92 @@ def generator_state_from_jax(params: Mapping,
     if "spkr" in params:
         sd["spkr.weight"] = _t(params["spkr"])
     return sd
+
+
+def _conv2d(w) -> torch.Tensor:
+    """(Kh, Kw, Cin, Cout) -> torch Conv2d (Cout, Cin, Kh, Kw)."""
+    return _t(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+
+def _norm_conv(sd: dict, name: str, p: Mapping, to_torch) -> None:
+    """A weight-normed {g, v, b} or spectral-normed {w, u, sn_v, b} conv
+    under the reference's keys."""
+    if "u" in p:
+        sd[f"{name}.weight_orig"] = to_torch(p["w"])
+        sd[f"{name}.weight_u"] = _t(p["u"])
+        sd[f"{name}.weight_v"] = _t(p["sn_v"])
+    else:
+        sd[f"{name}.weight_g"] = _t(np.asarray(p["g"]).reshape(
+            -1, *(1,) * (np.ndim(p["v"]) - 1)))
+        sd[f"{name}.weight_v"] = to_torch(p["v"])
+    sd[f"{name}.bias"] = _t(p["b"])
+
+
+def _discriminators_state(params: Mapping, n: int, to_torch) -> dict:
+    if len(params["discriminators"]) != n:
+        raise ValueError(f"{len(params['discriminators'])} discriminators, "
+                         f"expected {n}")
+    sd: dict = {}
+    for i, d in enumerate(params["discriminators"]):
+        for j, c in enumerate(d["convs"]):
+            _norm_conv(sd, f"discriminators.{i}.convs.{j}", c, to_torch)
+        _norm_conv(sd, f"discriminators.{i}.conv_post", d["conv_post"],
+                   to_torch)
+    return sd
+
+
+def mpd_state_from_jax(params: Mapping) -> dict:
+    """JAX `init_mpd` / `mpd_params_from_torch` tree ->
+    `MultiPeriodDiscriminator()` state."""
+    return _discriminators_state(params, 5, _conv2d)
+
+
+def msd_state_from_jax(params: Mapping) -> dict:
+    """JAX `init_msd` / `msd_params_from_torch` tree (scale 0 with its
+    power-iteration vectors u, sn_v) -> `MultiScaleDiscriminator()` state."""
+    return _discriminators_state(params, 3, _conv1d)
+
+
+def _adam_moments(opt_state, step: int) -> tuple:
+    """(mu, nu) of an optax adamw chain state whose counts are `step`."""
+    counts = {int(np.asarray(part.count)) for part in opt_state
+              if "count" in getattr(part, "_fields", ())}
+    if counts != {step}:
+        raise ValueError(f"optimizer counts {sorted(counts)} differ from "
+                         f"the step {step}")
+    for part in opt_state:
+        if hasattr(part, "mu"):
+            return part.mu, part.nu
+    raise ValueError("no scale_by_adam state in the optimizer state")
+
+
+def _sn_buffer(key: str, sd: Mapping) -> bool:
+    """Whether a state key is a spectral-norm power-iteration buffer."""
+    base = key.rsplit(".", 1)[0]
+    return key.endswith(".weight_u") or (key.endswith(".weight_v")
+                                         and f"{base}.weight_orig" in sd)
+
+
+def vocoder_train_state_from_jax(state, cfg: VocoderModelConfig) -> dict:
+    """JAX `train/vocoder.py::VocoderTrainState` (numpy or jax leaves) ->
+    the port's `VocoderTrainState.state_dict()` form: the three networks'
+    state dicts, the AdamW moments keyed by parameter name (the
+    discriminators' as "mpd.<name>" / "msd.<name>"; optax's moments of the
+    spectral-norm vectors are dropped, since the port keeps those vectors
+    out of the optimizer) and the step."""
+    out = {"gen": generator_state_from_jax(state.gen_params, cfg),
+           "mpd": mpd_state_from_jax(state.mpd_params),
+           "msd": msd_state_from_jax(state.msd_params),
+           "step": int(np.asarray(state.step))}
+    for name, g_tree, d_tree in zip(("mu", "nu"),
+                                    _adam_moments(state.opt_g_state,
+                                                  out["step"]),
+                                    _adam_moments(state.opt_d_state,
+                                                  out["step"])):
+        out[f"{name}_g"] = generator_state_from_jax(g_tree, cfg)
+        d = {f"mpd.{k}": v for k, v in mpd_state_from_jax(d_tree[0]).items()}
+        msd = msd_state_from_jax(d_tree[1])
+        d.update({f"msd.{k}": v for k, v in msd.items()
+                  if not _sn_buffer(k, msd)})
+        out[f"{name}_d"] = d
+    return out

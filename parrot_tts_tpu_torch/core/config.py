@@ -1,8 +1,8 @@
 """Configurations for the port: copies of `TransformerStackConfig`,
-`TTEModelConfig`, `TTETrainConfig` and `VocoderModelConfig` from
-`parrot_tts_tpu/core/config.py` (defaults are the reference's full-width
-model and recipe), the fields of `PipelineConfig` that TTE training reads,
-and `to_json`.
+`TTEModelConfig`, `TTETrainConfig`, `VocoderModelConfig`, `MelConfig` and
+`VocoderTrainConfig` from `parrot_tts_tpu/core/config.py` (defaults are
+the reference's full-width model and recipe), the fields of
+`PipelineConfig` that TTE and vocoder training read, and `to_json`.
 
 Not copied: the reference-file loaders, the other stages' configs, and the
 TPU-only fields. `dtype` and `fold_tail` select TPU layouts. `remat` /
@@ -11,8 +11,10 @@ attention's saved (B, H, T, T) weights fit in memory; the port's training
 attention (`ops/flash_dropout.py`) never stores (B, H, T, T) scores, so
 there is nothing to rematerialise. The vocoder keeps `f0`, `fused_mrf` and
 `quant`; the port serves `fused_mrf=True` and every `quant` mode ("int8",
-"int8-tail", "int8-static") and refuses `f0=True` until a later slice
-ports it.
+"int8-tail", "int8-static"), trains only the float generator without the
+fused MRF (`train/vocoder.py`), and refuses `f0=True` until a later slice
+ports it. `MelConfig` leaves out `center`, which no trainer reads: the
+loss mel is always the reference's uncentred one.
 """
 
 from __future__ import annotations
@@ -79,17 +81,6 @@ class TTETrainConfig:
     tgt_buckets: tuple[int, ...] = (512, 1024, 2048, 3584)
 
 
-@dataclass(frozen=True)
-class PipelineConfig:
-    """The fields of the JAX package's `PipelineConfig` that TTE training
-    reads: the corpus and aligner directories and the TTE configs."""
-
-    root_path: str = "runs/TTE"
-    alignment_path: str = "runs/aligner"
-    tte_model: TTEModelConfig = field(default_factory=TTEModelConfig)
-    tte_train: TTETrainConfig = field(default_factory=TTETrainConfig)
-
-
 def to_json(cfg: Any) -> str:
     """Serialize any config dataclass (saved beside checkpoints)."""
     return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
@@ -131,3 +122,55 @@ class VocoderModelConfig:
         for u in self.upsample_rates:
             r *= u
         return r  # 320 == code_hop_size
+
+
+@dataclass(frozen=True)
+class MelConfig:
+    """STFT / mel parameters (the vocoder's loss mel; reference
+    config.json:24-35)."""
+
+    n_fft: int = 1024
+    num_mels: int = 80
+    sampling_rate: int = 16_000
+    hop_size: int = 256
+    win_size: int = 1024
+    fmin: float = 0.0
+    fmax: float | None = 8000.0
+
+
+@dataclass(frozen=True)
+class VocoderTrainConfig:
+    """Reference config.json training keys + train.py optimizer setup."""
+
+    batch_size: int = 16
+    learning_rate: float = 2e-4
+    adam_b1: float = 0.8
+    adam_b2: float = 0.99
+    lr_decay: float = 0.999          # ExponentialLR gamma, per epoch
+    seed: int = 1234
+    segment_size: int = 8960
+    code_hop_size: int = 320
+    training_epochs: int = 2000
+    checkpoint_interval: int = 10_000
+    summary_interval: int = 100
+    # discriminator compute dtype: inputs and weights are cast to it for
+    # the convolutions; parameters and loss reductions stay float32
+    disc_dtype: str = "float32"
+    validation_interval: int = 1000
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """The fields of the JAX package's `PipelineConfig` that TTE and
+    vocoder training read: the corpus and aligner directories, the TTE
+    configs, the loss mel and the vocoder configs."""
+
+    root_path: str = "runs/TTE"
+    alignment_path: str = "runs/aligner"
+    tte_model: TTEModelConfig = field(default_factory=TTEModelConfig)
+    tte_train: TTETrainConfig = field(default_factory=TTETrainConfig)
+    mel: MelConfig = field(default_factory=MelConfig)
+    vocoder_model: VocoderModelConfig = field(
+        default_factory=VocoderModelConfig)
+    vocoder_train: VocoderTrainConfig = field(
+        default_factory=VocoderTrainConfig)

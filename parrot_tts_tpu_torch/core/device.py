@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -45,3 +46,19 @@ def exact_numerics(exact: bool):
     finally:
         for (obj, name), value in zip(flags, prev):
             setattr(obj, name, value)
+
+
+def batch_to_device(batch: dict, dtypes: dict, device) -> dict:
+    """The keys of `dtypes` present in a numpy batch -> tensors of those
+    dtypes on device (other keys dropped). For a CUDA device the host copy
+    is pinned and the transfer does not block the host."""
+    device = torch.device(device)
+    out = {}
+    for k, dt in dtypes.items():
+        if k not in batch:
+            continue
+        x = torch.as_tensor(np.asarray(batch[k])).to(dt)
+        if device.type == "cuda":
+            x = x.pin_memory()
+        out[k] = x.to(device, non_blocking=True)
+    return out

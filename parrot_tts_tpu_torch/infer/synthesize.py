@@ -1,11 +1,13 @@
-"""Vocoder batch synthesis: HuBERT units -> waveforms.
+"""Vocoder batch synthesis: HuBERT units -> waveforms, and text ->
+waveform for one request.
 
 Port of `parrot_tts_tpu/infer/synthesize.py::{VocoderSynthesizer,
-peak_normalize}`, single device: the float generator (with the fused MRF
-kernel under `fused_mrf=True`), the dynamic int8 generator (`quant="int8"`
-or `"int8-tail"`: per-row activation scales taken on every call, nothing
-to calibrate) and the int8-static generator (`quant="int8-static"`,
-calibrated explicitly or on the first served batch). Code sequences are
+peak_normalize, synthesize_text}`, single device: the float generator
+(with the fused MRF kernel under `fused_mrf=True`), the dynamic int8
+generator (`quant="int8"` or `"int8-tail"`: per-row activation scales
+taken on every call, nothing to calibrate) and the int8-static generator
+(`quant="int8-static"`, calibrated explicitly or on the first served
+batch). Code sequences are
 batched per length bucket (`CODE_BUCKETS`; longer sequences are cropped to
 the largest bucket, as in the JAX package), short rows are repeat-padded
 with their own codes, and each waveform is trimmed to len(units) * hop.
@@ -21,8 +23,11 @@ import torch
 from parrot_tts_tpu_torch.core.config import VocoderModelConfig
 from parrot_tts_tpu_torch.core.device import resolve_device
 from parrot_tts_tpu_torch.data.tte_data import pick_bucket
+from parrot_tts_tpu_torch.infer.tte_infer import max_decode_len
+from parrot_tts_tpu_torch.models.tte import parrot
 from parrot_tts_tpu_torch.models.vocoder import generator as gen
 from parrot_tts_tpu_torch.models.vocoder import generator_staticq as sq
+from parrot_tts_tpu_torch.text.tokenizer import DFATokenizer
 
 CODE_BUCKETS = (128, 256, 512, 1024, 2048)
 
@@ -121,3 +126,30 @@ class VocoderSynthesizer:
         dt = time.perf_counter() - t0
         self.last_rtf = dt / total_audio_s if total_audio_s else None
         return results  # type: ignore[return-value]
+
+
+def synthesize_text(text: str, *, tte_model: parrot.Parrot,
+                    tokenizer: DFATokenizer,
+                    synthesizer: VocoderSynthesizer, cleaner,
+                    speaker_id: int = 0, device=None) -> np.ndarray:
+    """Clean text -> char tokens -> TTE units (the exact decode) ->
+    waveform (the demo notebook path, demo.ipynb cells 9-13). The decode
+    bucket is s_len * 16
+    frames; a prediction that overflows it is decoded again at the length
+    it needs (up to the positional table's cap)."""
+    cleaned = cleaner(text)
+    symbols = ["sil" if ch == " " else ch for ch in cleaned]
+    phones = [tokenizer.stoi[s] for s in symbols if s in tokenizer.stoi]
+    batch = {"phones": np.asarray(phones, np.int64)[None],
+             "src_mask": np.ones((1, len(phones)), bool),
+             "speaker": np.asarray([speaker_id], np.int64)}
+    cap = max_decode_len(tte_model.cfg)
+    out_len = min(len(phones) * 16, cap)
+    codes, mask, total = parrot.infer_codes(tte_model, batch, out_len=out_len,
+                                            exact=True, device=device)
+    if int(total[0]) > out_len and out_len < cap:
+        out_len = min(-(-int(total[0]) // 128) * 128, cap)
+        codes, mask, total = parrot.infer_codes(
+            tte_model, batch, out_len=out_len, exact=True, device=device)
+    units = codes[0][mask[0]].cpu().numpy()
+    return synthesizer.synthesize([units], [speaker_id])[0]

@@ -52,11 +52,12 @@ class WNConv(nn.Module):
     """A conv's parameters: weight (torch layout) as weight_g/weight_v
     under weight norm, else plain weight; and bias."""
 
-    def __init__(self, shape: tuple[int, int, int], n_out: int,
+    def __init__(self, shape: tuple[int, ...], n_out: int,
                  weight_norm: bool):
         super().__init__()
         if weight_norm:
-            self.weight_g = nn.Parameter(torch.empty(shape[0], 1, 1))
+            self.weight_g = nn.Parameter(
+                torch.empty(shape[0], *(1,) * (len(shape) - 1)))
             self.weight_v = nn.Parameter(torch.empty(shape))
         else:
             self.weight = nn.Parameter(torch.empty(shape))

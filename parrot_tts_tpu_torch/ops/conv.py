@@ -94,6 +94,22 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
     return y.transpose(1, 2)
 
 
+def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """Reflect-pad the last axis (numpy / torch mode "reflect"). Built from
+    slices and flips, so its backward is a sum of slices: the CUDA
+    reflection-pad backward accumulates with atomics, and a training step
+    through it would not repeat bit for bit."""
+    n = x.shape[-1]
+    if max(left, right) >= n:
+        raise ValueError(f"reflect pad ({left}, {right}) needs more than "
+                         f"{n} samples")
+    parts = [x[..., 1:left + 1].flip(-1)] if left else []
+    parts.append(x)
+    if right:
+        parts.append(x[..., n - right - 1:n - 1].flip(-1))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else x
+
+
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
     """'same'-style padding helper (reference utils/vocoder/utils.py:44-45)."""
     return (kernel_size * dilation - dilation) // 2

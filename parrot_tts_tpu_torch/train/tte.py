@@ -32,11 +32,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from parrot_tts_tpu_torch.core.config import TTEModelConfig, TTETrainConfig
-from parrot_tts_tpu_torch.core.device import exact_numerics
+from parrot_tts_tpu_torch.core.device import batch_to_device, exact_numerics
 from parrot_tts_tpu_torch.models.tte import parrot
 from parrot_tts_tpu_torch.models.tte.loss import tte_loss
 from parrot_tts_tpu_torch.train.schedules import cosine_warmup_schedule
@@ -97,19 +96,9 @@ def init_state(seed: int, model_cfg: TTEModelConfig,
 
 
 def to_batch(batch: dict, device) -> dict:
-    """numpy batch (the loader's keys; `ids` dropped) -> tensors on device.
-    For a CUDA device the host copy is pinned and the transfer does not
-    block the host."""
-    device = torch.device(device)
-    out = {}
-    for k, dt in BATCH_DTYPES.items():
-        if k not in batch:
-            continue
-        x = torch.as_tensor(np.asarray(batch[k])).to(dt)
-        if device.type == "cuda":
-            x = x.pin_memory()
-        out[k] = x.to(device, non_blocking=True)
-    return out
+    """numpy batch (the loader's keys; `ids` dropped) -> tensors on device,
+    copied from pinned memory without blocking the host."""
+    return batch_to_device(batch, BATCH_DTYPES, device)
 
 
 def loss_fn(model: parrot.Parrot, batch: dict, model_cfg: TTEModelConfig,
