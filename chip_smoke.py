@@ -126,7 +126,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    one profiled step (readings, TF32 as training runs). Then the manifest
    entry points on phase 4's TTE: write_predictions on every non-empty
    request gives the serve's units, and synthesize_text a finite waveform
-   of len(units) * 320 samples.
+   of len(units) * 320 samples;
+15. HuBERT unit extraction at base width (no TPU kernel on its path): the
+   default HubertConfig (7 convs of 512, 12 post-LN layers of 768, output
+   layer 11) with seeded random weights and 1000 k-means centers drawn
+   from a first pass's features (seeded frames plus noise), through
+   pipeline/extract_units.extract_units_corpus on a seeded corpus of 60
+   speech-like wavs of 0.5-38.3 s over two speakers and one of 100.5 s
+   (the chunk path): feat_extract_output_length codes per wav, all in
+   [0, 1000); a second pass, defer_readback and upload_thread=False give
+   the same bits; each wav alone at its exact length gives its codes
+   from the padded batches wherever the nearest-centroid margin exceeds
+   1e-4 |x|^2 (frames below it counted); one batch in float32 against
+   float64 on the card (max |df|/|f| <= 1e-4, codes equal above the
+   margin); audio-s/s over the corpus, the positional conv's time and one
+   profiled batch (readings);
+16. f0 on the card (no TPU kernel on its path): estimate_f0 on the card
+   against the CPU on tests/test_f0.py's sine, chirp, silence and noise
+   fixtures, with interp off and on (voicing equal, voiced f0 within
+   1e-2 Hz); an f0-conditioned V1 vocoder (model_in_dim 2E + 1) serving
+   phase 4's units with f0_for_codes tracks of phase 15's wavs, in float
+   and "int8", each twice: deterministic, len(units) * 320 samples,
+   finite, and half the f0 changes exactly the waveforms whose track has
+   a voiced frame; int8-static refuses f0; two f0 GAN steps at
+   VocoderTrainConfig() defaults through pipeline/train_vocoder.run on
+   phase 14's corpus (finite losses, conv_pre's f0 input column with a
+   gradient and moved), the checkpoint equal to the live generator and a
+   resume.
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -1964,12 +1990,393 @@ def phase_manifest_io(fa, tts, speakers, device=None) -> None:
     print(f"synthesize_text: (samples, units, decodes) {lengths}, finite")
 
 
+# phase 15: HuBERT unit extraction at base width (no TPU kernel on it)
+HUB_MARGIN_REL = 1e-4        # codes compared where the nearest-centroid
+#                              margin exceeds this * |x|^2 of the frame
+HUB_F64_RTOL = 1e-4          # float32 features against float64: max over
+#                              frames of |f32 - f64| / |f64| (norms)
+HUB_SECONDS = (0.5, 1.2, 2.0, 3.1, 4.4, 5.0, 6.3, 7.7, 9.0, 10.2, 12.5, 14.0,
+               16.6, 19.0, 21.7, 24.3, 27.5, 30.1, 33.8, 36.5)
+HUB_PER_LENGTH = 3           # wavs of each length (+-5%, so at most
+#                              38.3 s: below the 38.4 s bucket), two speakers
+HUB_LONG_S = 100.5           # one wav past max_chunk (100 s): the chunk path
+HUB_CENTERS = 1000
+# phase 16: f0 on the card
+F0_ATOL = 1e-2               # Hz on voiced frames, card against CPU
+GAN_F0_STEPS = 2
+
+
+def speech_like(rng, seconds: float, rate: int = 16000) -> np.ndarray:
+    """A float wav in [-1, 1]: harmonics of an f0 that glides between
+    90 and 250 Hz, syllable-rate amplitude, short pauses, and noise."""
+    n = int(seconds * rate)
+    t = np.arange(n) / rate
+    f0 = rng.uniform(110, 200) * np.exp(0.25 * np.sin(
+        2 * np.pi * rng.uniform(0.2, 0.8) * t + rng.uniform(0, 6.3)))
+    phase = 2 * np.pi * np.cumsum(f0) / rate
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
+    env = np.clip(np.sin(2 * np.pi * rng.uniform(2, 5) * t), 0, None) ** 0.5
+    return (0.25 * voiced * env
+            + 0.02 * rng.standard_normal(n)).astype(np.float32)
+
+
+def hubert_margins(hub, feats: torch.Tensor, centers: torch.Tensor):
+    """(codes, margin relative to |x|^2) of feats (T, D) in float64."""
+    f = feats.double()
+    d2 = hub.kmeans_distances(f, centers.double())
+    two = d2.topk(2, dim=-1, largest=False).values
+    return (d2.argmin(-1).cpu().numpy(),
+            ((two[:, 1] - two[:, 0]) / f.square().sum(-1)).cpu().numpy())
+
+
+def phase_hubert(cfg, device=None) -> dict:
+    """HuBERT unit extraction at `cfg`'s width through extract_units_corpus
+    and UnitExtractor, on a seeded corpus in a temp dir, with the checks;
+    audio-s/s and one profiled batch (readings)."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    from parrot_tts_tpu_torch.core.device import exact_numerics, resolve_device
+    from parrot_tts_tpu_torch.data.audio_io import read_wav, write_wav
+    from parrot_tts_tpu_torch.data.manifest import read_manifest
+    from parrot_tts_tpu_torch.infer.unit_extractor import UnitExtractor
+    from parrot_tts_tpu_torch.models.hubert import model as hub
+    from parrot_tts_tpu_torch.pipeline.extract_units import (
+        extract_units_corpus)
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(SEED + 15)
+    scale = cfg.max_chunk / 1_600_000       # a tiny rehearsal shrinks it
+    seconds = [s * scale * rng.uniform(0.95, 1.05) for s in HUB_SECONDS
+               for _ in range(HUB_PER_LENGTH)] + [HUB_LONG_S * scale]
+    wavs = [speech_like(rng, s) for s in seconds]
+    state = hub.init_hubert(cfg, torch.Generator().manual_seed(SEED + 15))
+    model = hub.HubertModel(cfg)
+    model.load_state_dict(state, strict=True)
+    model.to(dev).eval()
+    # what the extractor reads back: int16 sample values in float32
+    as_read = [(np.clip(w, -1, 1) * 32767.0).astype(np.int16).astype(
+        np.float32) for w in wavs]
+
+    # k-means centers: frames of a first pass's output-layer features at
+    # seeded picks, plus a little noise
+    feats = []
+    for w in as_read[::7]:
+        f, _ = hub.apply_hubert(model, w[None], [len(w)], device=dev)
+        feats.append(f[0])
+    feats = torch.cat(feats)
+    pick = torch.as_tensor(rng.choice(len(feats), HUB_CENTERS, replace=False))
+    noise = torch.as_tensor(rng.standard_normal(
+        (HUB_CENTERS, cfg.d_model)), dtype=torch.float32)
+    centers = (feats[pick.to(dev)] + 0.05 * feats.std(0) * noise.to(dev))
+    del feats
+    ex = UnitExtractor(state, cfg, centers.cpu().numpy(), device=dev)
+    buckets = {ex._bucket(len(w)) for w in as_read
+               if len(w) <= cfg.max_chunk}
+    audio_s = sum(len(w) for w in wavs) / cfg.sample_rate
+    print(f"HuBERT corpus: {len(wavs)} wavs, {audio_s:.3f} audio-s, "
+          f"{len(buckets)} buckets, longest {max(seconds):.2f} s "
+          f"(max_chunk {cfg.max_chunk / cfg.sample_rate:.2f} s)")
+    if len(buckets) < 4 or max(len(w) for w in wavs) <= cfg.max_chunk:
+        raise AssertionError("the corpus misses a bucket or the chunk path")
+
+    with tempfile.TemporaryDirectory(prefix="parrot_hubert_") as tmp:
+        root = Path(tmp) / "corpus"
+        for i, w in enumerate(wavs):
+            spk = ("spk_a", "spk_b")[i % 2]
+            write_wav(root / spk / "wavs" / f"{spk}_{i:03d}.wav", w,
+                      cfg.sample_rate)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entries = extract_units_corpus(ex, root, Path(tmp) / "out")
+        wall = time.perf_counter() - t0
+        on_disk = read_manifest(Path(tmp) / "out" / "hubert.txt")
+        first = read_wav(root / "spk_a" / "wavs" / "spk_a_000.wav")[0]
+    if on_disk != entries or not np.array_equal(first, as_read[0]):
+        raise AssertionError("hubert.txt differs from the entries, or a "
+                             "wav from what was written")
+    print(f"extract_units_corpus: {audio_s:.3f} audio-s in {wall:.3f} s = "
+          f"{audio_s / wall:.3f} audio-s/s (first pass: wav reads, the "
+          "manifest and cuDNN's first use included)")
+    # entries follow the sorted paths; map them back to the wavs
+    order = sorted(range(len(wavs)),
+                   key=lambda i: (("spk_a", "spk_b")[i % 2], i))
+    codes = [None] * len(wavs)
+    for i, e in zip(order, entries):
+        codes[i] = np.array(e["hubert"].split(), np.int64)
+    for i, (w, c) in enumerate(zip(as_read, codes)):
+        chunks = [min(cfg.max_chunk, len(w) - s)
+                  for s in range(0, len(w), cfg.max_chunk)]
+        want = sum(hub.feat_extract_output_length(cfg, n) for n in chunks)
+        if len(c) != want or not ((c >= 0) & (c < HUB_CENTERS)).all():
+            raise AssertionError(f"wav {i}: {len(c)} codes, want {want}, "
+                                 f"range [{c.min()}, {c.max()}]")
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = ex.codes_for_wavs(as_read)
+    warm = time.perf_counter() - t0
+    print(f"codes_for_wavs, second pass: {warm:.3f} s = "
+          f"{audio_s / warm:.3f} audio-s/s; the same bits "
+          f"{all(np.array_equal(a, c) for a, c in zip(again, codes))}")
+    if not all(np.array_equal(a, c) for a, c in zip(again, codes)):
+        raise AssertionError("a second pass gave other codes")
+    for opts in (dict(defer_readback=True), dict(upload_thread=False),
+                 dict(upload_thread=False, defer_readback=True)):
+        got = ex.codes_for_wavs(as_read, **opts)
+        if not all(np.array_equal(a, c) for a, c in zip(got, codes)):
+            raise AssertionError(f"codes_for_wavs({opts}) differs")
+    print("codes_for_wavs with defer_readback / upload_thread=False: the "
+          "same codes")
+
+    # each wav alone at its exact length (chunked as the extractor
+    # chunks) against its codes from the padded batches
+    low = frames = 0
+    for i, (w, c) in enumerate(zip(as_read, codes)):
+        alone, margin = [], []
+        for s in range(0, len(w), cfg.max_chunk):
+            part = w[s: s + cfg.max_chunk]
+            f, _ = hub.apply_hubert(model, part[None], [len(part)],
+                                    device=dev)
+            a, m = hubert_margins(hub, f[0], ex.centers)
+            alone.append(a)
+            margin.append(m)
+        alone, margin = np.concatenate(alone), np.concatenate(margin)
+        sure = margin > HUB_MARGIN_REL
+        if not np.array_equal(alone[sure], c[sure]):
+            raise AssertionError(f"wav {i}: padded-batch codes differ from "
+                                 "the exact-length codes above the margin")
+        low += int((~sure).sum())
+        frames += len(c)
+    print(f"padded batches against exact-length runs: codes equal above the "
+          f"margin {HUB_MARGIN_REL:g} |x|^2 on {frames} frames; {low} frames "
+          f"({100 * low / frames:.3f}%) below it")
+
+    # one batch in float32 against float64 on the card: the batch with the
+    # most audio
+    grp = max(ex.batches(as_read),
+              key=lambda g: len(g) * ex._bucket(len(as_read[g[0]])))
+    batch = ex._prepare_batch([as_read[i] for i in grp])
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad(), exact_numerics(True):
+        f32, nf = model(batch["wav"], batch["n_samples"])
+        f64, _ = model64(batch["wav"].double(), batch["n_samples"])
+    del model64
+    worst, low64, n64 = 0.0, 0, 0
+    for j, i in enumerate(grp):
+        t = int(nf[j])
+        a, b = f32[j, :t].double(), f64[j, :t]
+        worst = max(worst, float(((a - b).norm(dim=-1)
+                                  / b.norm(dim=-1)).max()))
+        c64, m64 = hubert_margins(hub, b, ex.centers)
+        sure = m64 > HUB_MARGIN_REL
+        if not np.array_equal(c64[sure], codes[i][:t][sure]):
+            raise AssertionError(f"wav {i}: float32 codes differ from "
+                                 "float64 above the margin")
+        low64 += int((~sure).sum())
+        n64 += t
+    print(f"float32 against float64, batch of {len(grp)} x "
+          f"{batch['wav'].shape[1] / cfg.sample_rate:.2f} s: max |df|/|f| "
+          f"{worst:.3e} (<= {HUB_F64_RTOL:g}); codes equal above the margin, "
+          f"{low64} of {n64} frames below it")
+    if not worst <= HUB_F64_RTOL:
+        raise AssertionError(f"float32 features off float64 by {worst}")
+    del f32, f64
+
+    if dev.type == "cuda":
+        pc = model.encoder.pos_conv_embed.conv
+        x = torch.randn(len(grp), cfg.d_model, int(nf.max()), device=dev)
+        with torch.no_grad(), exact_numerics(True):
+            pos_ms = cuda_ms(lambda: pc(x), 5)
+            all_ms = cuda_ms(lambda: ex._run(batch), 3)
+        print(f"positional conv (k={cfg.pos_conv_kernel}, "
+              f"{cfg.pos_conv_groups} groups, cuDNN deterministic IEEE "
+              f"float32) on ({len(grp)}, {cfg.d_model}, {int(nf.max())}): "
+              f"{pos_ms:.3f} ms of the batch's {all_ms:.3f} ms (CUDA events)")
+        phase_profile(lambda: (ex._run(batch), torch.cuda.synchronize()),
+                      f"HuBERT batch of {len(grp)} x "
+                      f"{batch['wav'].shape[1] / cfg.sample_rate:.2f} s",
+                      HUBERT_PROFILE_SPLIT)
+    return {"wavs": wavs}
+
+
+HUBERT_PROFILE_SPLIT = (
+    ("convolutions", ("fprop", "convolve", "conv", "cudnn")),
+    ("matmuls", ("gemm", "Kernel2")),
+    ("softmax", ("softmax", "Softmax")),
+    ("layer / group norm", ("layer_norm", "LayerNorm", "reduce_kernel")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def phase_f0(vcfg, tcfg, mel_cfg, corpus: dict, units, speakers, wavs,
+             device=None) -> None:
+    """f0 on the card against the CPU on the fixtures of tests/test_f0.py;
+    an f0-conditioned vocoder served in float and "int8" (int8-static
+    refuses it); two f0 GAN steps through pipeline/train_vocoder.run with
+    checkpoint and resume."""
+    import tempfile
+
+    from parrot_tts_tpu_torch.core.checkpoint import CheckpointManager
+    from parrot_tts_tpu_torch.core.config import PipelineConfig
+    from parrot_tts_tpu_torch.core.device import resolve_device
+    from parrot_tts_tpu_torch.infer.synthesize import VocoderSynthesizer
+    from parrot_tts_tpu_torch.models.vocoder import generator
+    from parrot_tts_tpu_torch.ops import f0 as f0_ops
+    from parrot_tts_tpu_torch.pipeline import train_vocoder
+    from parrot_tts_tpu_torch.train import vocoder as voc_train
+
+    dev = resolve_device(device)
+    rate = 16000
+    t = np.arange(rate) / rate
+    n = 8960
+    chirp_f = 100.0 + 200.0 * (np.arange(n) / rate) / (n / rate)
+    fixtures = {
+        "sines": np.stack([0.5 * np.sin(2 * np.pi * f * t)
+                           for f in (120.0, 220.0, 330.0)]),
+        "chirp": 0.5 * np.sin(2 * np.pi * np.cumsum(chirp_f) / rate)[None],
+        "silence": np.zeros((1, rate)),
+        "noise": np.random.default_rng(0).normal(0, 0.1, (1, rate)),
+    }
+    for name, audio in fixtures.items():
+        audio = audio.astype(np.float32)
+        for interp in (False, True):
+            got = f0_ops.estimate_f0(audio, device=dev, interp=interp).cpu()
+            want = f0_ops.estimate_f0(audio, device="cpu", interp=interp)
+            same = torch.equal(got > 0, want > 0)
+            err = float((got - want).abs().max())
+            print(f"estimate_f0 {name} (interp {interp}) on {dev.type} "
+                  f"against the CPU: voicing equal {same} "
+                  f"({int((want > 0).sum())} of {want.numel()} voiced), "
+                  f"max |df0| {err:.3e} Hz")
+            if not same or not err <= F0_ATOL:
+                raise AssertionError(f"estimate_f0 {name}: the card differs")
+
+    # an f0-conditioned vocoder on phase 4's units, tracks from phase 15's
+    # wavs
+    fcfg = dataclasses.replace(vcfg, f0=True,
+                               model_in_dim=2 * vcfg.embedding_dim + 1)
+    state = generator.init_code_generator(
+        fcfg, torch.Generator().manual_seed(SEED + 16))
+    hop = fcfg.total_upsample
+    # each request's source: the shortest wav that covers its units
+    by_len = sorted(wavs, key=len)
+    src = [next((w for w in by_len if len(w) >= len(u) * hop), by_len[-1])
+           [: max(1, len(u)) * hop] for u in units]
+    tracks = f0_ops.f0_for_codes(src, [len(u) for u in units], code_hop=hop,
+                                 device=dev)
+    voiced = float(np.mean(np.concatenate(tracks) > 0))
+    print(f"f0_for_codes: {len(tracks)} tracks, {100 * voiced:.1f}% of "
+          "code frames voiced")
+    if dev.type == "cuda":
+        seg = np.concatenate(wavs)[: tcfg.batch_size * tcfg.segment_size]
+        seg = seg.reshape(tcfg.batch_size, tcfg.segment_size)
+        ms = cuda_ms(lambda: f0_ops.estimate_f0(seg, device=dev), 5)
+        print(f"estimate_f0 of one GAN batch ({tcfg.batch_size} x "
+              f"{tcfg.segment_size} samples, host copy included): {ms:.3f} "
+              "ms (CUDA events)")
+    for quant in ("none", "int8"):
+        synth = VocoderSynthesizer(state, dataclasses.replace(
+            fcfg, quant=quant), device=device)
+        a = synth.synthesize(units, speakers, f0=tracks)
+        b = synth.synthesize(units, speakers, f0=tracks)
+        c = synth.synthesize(units, speakers, f0=[x * 0.5 for x in tracks])
+        for i, (x, y, z, u) in enumerate(zip(a, b, c, units)):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"f0 serve ({quant}) request {i}: not "
+                                     "deterministic")
+            if len(x) != len(u) * hop or not np.isfinite(x).all():
+                raise AssertionError(f"f0 serve ({quant}) request {i}: "
+                                     f"{len(x)} samples for {len(u)} units")
+            if tracks[i].any() == np.array_equal(x, z):
+                raise AssertionError(f"f0 serve ({quant}) request {i}: half "
+                                     "the f0 must change the waveform iff "
+                                     "its track has a voiced frame")
+        print(f"f0 serve ({quant}): {len(units)} requests, deterministic, "
+              f"len(units) * {hop} samples, finite; half the f0 changes "
+              f"the {sum(bool(x.any()) for x in tracks)} waveforms with a "
+              f"voiced frame, and only those; {synth.last_rtf:.5f} s per "
+              "audio-s (host clock, the last serve)")
+    try:
+        VocoderSynthesizer(state, dataclasses.replace(
+            fcfg, quant="int8-static"), device=device)
+    except ValueError as e:
+        print(f"int8-static with f0 refused: {str(e)[:60]}...")
+    else:
+        raise AssertionError("int8-static serving accepted f0")
+
+    # two f0 GAN steps through the training entry point, checkpoint and
+    # resume
+    records = []
+    real_step = voc_train.train_step
+
+    def step_spy(state, batch, *args, **kwargs):
+        col = state.gen.conv_pre.weight_v[:, -1].detach().clone()
+        metrics = real_step(state, batch, *args, **kwargs)
+        grad = state.opt_g.state[state.gen.conv_pre.weight_v]["exp_avg"]
+        records.append({
+            "start": state.step - 1, "f0": "f0" in batch,
+            **{k: float(v) for k, v in metrics.items()},
+            "grad": float(grad[:, -1].abs().max()),
+            "moved": not torch.equal(col, state.gen.conv_pre.weight_v[:, -1]),
+            "state": state})
+        return metrics
+
+    with tempfile.TemporaryDirectory(prefix="parrot_gan_f0_") as tmp:
+        data = write_vocoder_corpus(tmp, seed=SEED + 7, **corpus)
+        cfg = PipelineConfig(vocoder_model=fcfg, vocoder_train=tcfg,
+                             mel=mel_cfg)
+        run_dir = f"{tmp}/run"
+        with mock.patch.object(voc_train, "train_step", step_spy):
+            t0 = time.perf_counter()
+            out = train_vocoder.run(cfg, data_dir=data, run_dir=run_dir,
+                                    max_steps=GAN_F0_STEPS, device=device)
+            wall = time.perf_counter() - t0
+        for r in records:
+            print(f"  f0 GAN step {r['start']}: f0 in the batch {r['f0']}, D "
+                  f"loss {r['loss_disc_all']:.5f}, G loss "
+                  f"{r['loss_gen_all']:.5f}, mel error {r['mel_error']:.5f}; "
+                  f"conv_pre f0 column: max |m1| {r['grad']:.3e}, moved "
+                  f"{r['moved']}")
+        print(f"f0 GAN train: {out} in {wall:.3f} s")
+        if out["steps"] != GAN_F0_STEPS or len(records) != GAN_F0_STEPS:
+            raise AssertionError(f"f0 GAN run: {out}")
+        if not all(r["f0"] and r["grad"] > 0 and r["moved"]
+                   and all(math.isfinite(r[k]) for k in
+                           ("loss_disc_all", "loss_gen_all", "mel_error"))
+                   for r in records):
+            raise AssertionError("an f0 GAN step: no f0, a non-finite loss "
+                                 "or an f0 column without gradient")
+        live = records[-1]["state"].state_dict()
+        saved = CheckpointManager(f"{run_dir}/ckpt").restore()
+        for part in ("gen", "mu_g", "nu_g"):
+            if not all(torch.equal(saved[part][k], v.cpu())
+                       for k, v in live[part].items()):
+                raise AssertionError(f"f0 checkpoint {part} differs")
+        del live, saved
+        records.clear()
+        with mock.patch.object(voc_train, "train_step", step_spy):
+            out2 = train_vocoder.run(cfg, data_dir=data, run_dir=run_dir,
+                                     max_steps=GAN_F0_STEPS + 1,
+                                     device=device)
+        if out2["steps"] != GAN_F0_STEPS + 1 or [
+                r["start"] for r in records] != [GAN_F0_STEPS]:
+            raise AssertionError(f"f0 resume: {out2}")
+        records.clear()
+        print(f"f0 GAN resumed: {out2}; the checkpoint held the generator "
+              "and its moments bit for bit")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from parrot_tts_tpu_torch.core import kernels
-    from parrot_tts_tpu_torch.core.config import (MelConfig, TTEModelConfig,
+    from parrot_tts_tpu_torch.core.config import (HubertConfig, MelConfig,
+                                                  TTEModelConfig,
                                                   TTETrainConfig,
                                                   VocoderModelConfig,
                                                   VocoderTrainConfig)
@@ -2024,6 +2431,12 @@ def main() -> int:
                                        checkpoint_interval=GAN_STEPS),
               MelConfig(), dict(n_train=32, n_val=4, seconds=(1.0, 1.6)))
     phase_manifest_io(fa, base["tts"], base["speakers"])
+    hubert = phase_hubert(HubertConfig())
+    phase_f0(vcfg, VocoderTrainConfig(summary_interval=1,
+                                      validation_interval=GAN_F0_STEPS,
+                                      checkpoint_interval=GAN_F0_STEPS),
+             MelConfig(), dict(n_train=32, n_val=4, seconds=(1.0, 1.6)),
+             base["units"], base["speakers"], hubert["wavs"])
     rep = kern["report"]
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",

@@ -8,6 +8,9 @@ modules load with `strict=True`. It is the inverse of the JAX package's
 `models/tte/convert.py::params_from_torch` and
 `models/vocoder/convert.py::generator_params_from_torch`.
 
+`hubert_state_from_jax` carries a JAX HuBERT tree (`init_hubert` /
+`params_from_state_dict`, positional conv folded) into `HubertModel`.
+
 `vocoder_train_state_from_jax` also carries a JAX GAN training state
 (generator, MPD, MSD with its spectral-norm vectors, both AdamW optimizers'
 moments and the step) into the port's trainer (`train/vocoder.py`), so
@@ -25,7 +28,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from parrot_tts_tpu_torch.core.config import TTEModelConfig, VocoderModelConfig
+from parrot_tts_tpu_torch.core.config import (HubertConfig, TTEModelConfig,
+                                              VocoderModelConfig)
 
 
 def _t(x) -> torch.Tensor:
@@ -117,6 +121,46 @@ def generator_state_from_jax(params: Mapping,
         sd["dict.weight"] = _t(params["dict"])
     if "spkr" in params:
         sd["spkr.weight"] = _t(params["spkr"])
+    return sd
+
+
+def hubert_state_from_jax(params: Mapping, cfg: HubertConfig) -> dict:
+    """JAX `init_hubert` / `params_from_state_dict` tree -> `HubertModel(cfg)`
+    state (HF keys). A conv bias the JAX tree holds where cfg.conv_bias is
+    False (its init gives "layer" extractors one) must be zero, and is left
+    out."""
+    sd: dict = {}
+
+    def lin(name, p):
+        sd[name + ".weight"], sd[name + ".bias"] = _linear(p["w"]), _t(p["b"])
+
+    def ln(name, p):
+        sd[name + ".weight"] = _t(p["scale"])
+        sd[name + ".bias"] = _t(p["bias"])
+
+    for i, lp in enumerate(params["conv_layers"]):
+        base = f"feature_extractor.conv_layers.{i}"
+        sd[base + ".conv.weight"] = _conv1d(lp["w"])
+        if cfg.conv_bias:
+            sd[base + ".conv.bias"] = _t(lp["b"])
+        elif "b" in lp and np.any(np.asarray(lp["b"])):
+            raise ValueError(f"conv layer {i} has a bias; cfg.conv_bias "
+                             "is False")
+        if "norm" in lp:
+            ln(base + ".layer_norm", lp["norm"])
+    ln("feature_projection.layer_norm", params["fp_ln"])
+    lin("feature_projection.projection", params["fp_proj"])
+    sd["encoder.pos_conv_embed.conv.weight"] = _conv1d(params["pos_conv"]["w"])
+    sd["encoder.pos_conv_embed.conv.bias"] = _t(params["pos_conv"]["b"])
+    ln("encoder.layer_norm", params["enc_ln"])
+    for i, lp in enumerate(params["layers"]):
+        base = f"encoder.layers.{i}"
+        for key, proj in (("q", "q"), ("k", "k"), ("v", "v"), ("o", "out")):
+            lin(f"{base}.attention.{proj}_proj", lp[key])
+        ln(base + ".layer_norm", lp["attn_ln"])
+        lin(base + ".feed_forward.intermediate_dense", lp["fc1"])
+        lin(base + ".feed_forward.output_dense", lp["fc2"])
+        ln(base + ".final_layer_norm", lp["final_ln"])
     return sd
 
 

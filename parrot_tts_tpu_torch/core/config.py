@@ -1,7 +1,8 @@
 """Configurations for the port: copies of `TransformerStackConfig`,
-`TTEModelConfig`, `TTETrainConfig`, `VocoderModelConfig`, `MelConfig` and
-`VocoderTrainConfig` from `parrot_tts_tpu/core/config.py` (defaults are
-the reference's full-width model and recipe), the fields of
+`TTEModelConfig`, `TTETrainConfig`, `VocoderModelConfig`, `MelConfig`,
+`VocoderTrainConfig` and `HubertConfig` from
+`parrot_tts_tpu/core/config.py` (defaults are the reference's full-width
+models and recipe), the fields of
 `PipelineConfig` that TTE and vocoder training read, and `to_json`.
 
 Not copied: the reference-file loaders, the other stages' configs, and the
@@ -11,9 +12,9 @@ attention's saved (B, H, T, T) weights fit in memory; the port's training
 attention (`ops/flash_dropout.py`) never stores (B, H, T, T) scores, so
 there is nothing to rematerialise. The vocoder keeps `f0`, `fused_mrf` and
 `quant`; the port serves `fused_mrf=True` and every `quant` mode ("int8",
-"int8-tail", "int8-static"), trains only the float generator without the
-fused MRF (`train/vocoder.py`), and refuses `f0=True` until a later slice
-ports it. `MelConfig` leaves out `center`, which no trainer reads: the
+"int8-tail", "int8-static"; int8-static refuses `f0=True`), and trains
+only the float generator without the fused MRF (`train/vocoder.py`), with
+or without f0. `MelConfig` leaves out `center`, which no trainer reads: the
 loss mel is always the reference's uncentred one.
 """
 
@@ -110,8 +111,8 @@ class VocoderModelConfig:
     # 16-channel stages); int8 supersedes the fused MRF on a stage.
     # "int8-static": every conv between conv_pre and conv_post runs int8
     # with calibrated static scales (models/vocoder/generator_staticq.py).
-    # conv_pre and conv_post stay float32. Not ported yet: the generator
-    # raises on f0=True.
+    # conv_pre and conv_post stay float32. f0=True: a code-rate pitch
+    # channel joins the embedding (model_in_dim counts it).
     f0: bool = False
     fused_mrf: bool = False
     quant: str = "none"
@@ -174,3 +175,53 @@ class PipelineConfig:
         default_factory=VocoderModelConfig)
     vocoder_train: VocoderTrainConfig = field(
         default_factory=VocoderTrainConfig)
+
+
+@dataclass(frozen=True)
+class HubertConfig:
+    """HuBERT encoder for unit extraction. Defaults are the base topology of
+    the fairseq mHuBERT the reference loads (`utils/hubert_extraction/
+    hubert_api.py:16-31`; layer-11 features, k-means 1000), identical to
+    HF `HubertModel` base: 7-layer conv frontend, 12-layer post-LN
+    transformer."""
+
+    # conv feature extractor (wav 16 kHz -> 50 Hz frames, hop 320)
+    conv_dim: tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_kernel: tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    # "group": GroupNorm(C, C) after conv 0 only (base); "layer": per-conv
+    # channel LayerNorm (large-style extractors)
+    feat_extract_norm: str = "group"
+    # transformer encoder (post-LN, HF do_stable_layer_norm=False)
+    d_model: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    ffn_dim: int = 3072
+    layer_norm_eps: float = 1e-5
+    pos_conv_kernel: int = 128
+    pos_conv_groups: int = 16
+    # task.cfg.normalize: wav-level layer norm (False for base checkpoints,
+    # hubert_api.py:55-56 gates on it)
+    normalize_input: bool = False
+    sample_rate: int = 16_000
+    # extraction defaults (extractor.py:12, hubert_api.py:17)
+    output_layer: int = 11
+    max_chunk: int = 1_600_000
+    n_units: int = 1000
+    dtype: str = "float32"
+
+    @property
+    def frame_hop(self) -> int:
+        r = 1
+        for s in self.conv_stride:
+            r *= s
+        return r  # 320 samples per frame
+
+    @property
+    def receptive_field(self) -> int:
+        rf, hop = 1, 1
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            rf += (k - 1) * hop
+            hop *= s
+        return rf  # 400 samples

@@ -6,8 +6,9 @@ Copies of `VocoderDataset` and `VocoderLoader` from
 the audio to the codes, repeat-pad short clips, and an aligned random
 crop of `segment_size` samples, from the same `np.random.default_rng(seed +
 epoch)` in the same order, so both packages yield the same batches. The
-ground-truth loss mel is computed on the device in the train step. f0
-conditioning (`with_f0=True`) is not ported yet and raises.
+ground-truth loss mel is computed on the device in the train step. With
+`with_f0=True` each batch also carries its code-rate pitch track
+(`code_rate_f0`), extracted on the loader's device.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ from typing import Iterator
 
 import numpy as np
 
+from parrot_tts_tpu_torch.core.device import resolve_device
 from parrot_tts_tpu_torch.data.audio_io import load_normalized
 from parrot_tts_tpu_torch.data.manifest import parse_speaker, read_manifest
+from parrot_tts_tpu_torch.ops.f0 import estimate_f0, f0_hop, f0_to_code_rate
 
 
 @dataclass
@@ -91,6 +94,16 @@ class VocoderDataset:
                 code[start : start + seq_len // hop])
 
 
+def code_rate_f0(audio: np.ndarray, code_len: int, code_hop_size: int,
+                 f0_kwargs: dict, device) -> np.ndarray:
+    """(B, 1, code_len) float32 pitch of (B, N) audio at the code rate:
+    `estimate_f0` on `device`, pooled over code_hop_size // f0 hop frames
+    per code (4 at 16 kHz)."""
+    track = estimate_f0(audio, device=device, **f0_kwargs)
+    per = max(1, code_hop_size // f0_hop(**f0_kwargs))
+    return f0_to_code_rate(track, code_len, per).cpu().numpy()
+
+
 class VocoderLoader:
     """Deterministic epoch iterator with per-process slicing; fixed shapes.
 
@@ -98,14 +111,17 @@ class VocoderLoader:
     every process derives the same global schedule from the shared seed and
     takes its contiguous `batch_size / process_count` slice of each global
     batch (the reference divides its global batch across DDP workers,
-    `utils/vocoder/train.py:279`)."""
+    `utils/vocoder/train.py:279`).
+
+    with_f0=True adds batch["f0"] (`code_rate_f0`; `f0_kwargs` go to
+    `estimate_f0`, for corpora off the 16 kHz / speech-band defaults),
+    extracted on `device`: default the CUDA card (raises without one);
+    a host-side loader passes device="cpu"."""
 
     def __init__(self, dataset: VocoderDataset, batch_size: int,
                  seed: int = 1234, process_index: int = 0,
-                 process_count: int = 1, with_f0: bool = False):
-        if with_f0:
-            raise NotImplementedError(
-                "the port does not extract f0 yet (with_f0=False)")
+                 process_count: int = 1, with_f0: bool = False,
+                 f0_kwargs: dict | None = None, device=None):
         if batch_size % process_count != 0:
             raise ValueError(
                 f"global batch_size={batch_size} must be divisible by "
@@ -116,6 +132,9 @@ class VocoderLoader:
         self.seed = seed
         self.process_index = process_index
         self.process_count = process_count
+        self.with_f0 = with_f0
+        self.f0_kwargs = dict(f0_kwargs or {})
+        self.device = resolve_device(device) if with_f0 else None
 
     def batches(self, epoch: int = 0) -> Iterator[dict]:
         rng = np.random.default_rng(self.seed + epoch)
@@ -132,9 +151,14 @@ class VocoderLoader:
             idxs = idxs[self.process_index * local
                         : (self.process_index + 1) * local]
             items = [self.ds.load_item(i, rng) for i in idxs]
-            yield {
+            batch = {
                 "audio": np.stack([it["audio"] for it in items]),
                 "code": np.stack([it["code"] for it in items]),
                 "spkr": np.asarray([it["spkr"] for it in items], np.int32),
                 "filenames": [it["filename"] for it in items],
             }
+            if self.with_f0:
+                batch["f0"] = code_rate_f0(
+                    batch["audio"], batch["code"].shape[1],
+                    self.ds.code_hop_size, self.f0_kwargs, self.device)
+            yield batch

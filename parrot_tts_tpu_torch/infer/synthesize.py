@@ -11,17 +11,21 @@ batch). Code sequences are
 batched per length bucket (`CODE_BUCKETS`; longer sequences are cropped to
 the largest bucket, as in the JAX package), short rows are repeat-padded
 with their own codes, and each waveform is trimmed to len(units) * hop.
+An f0-conditioned vocoder (`cfg.f0`) takes a code-rate pitch track per
+utterance, padded as its codes are; int8-static serving refuses it.
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from parrot_tts_tpu_torch.core.config import VocoderModelConfig
 from parrot_tts_tpu_torch.core.device import resolve_device
+from parrot_tts_tpu_torch.data.audio_io import write_wav
 from parrot_tts_tpu_torch.data.tte_data import pick_bucket
 from parrot_tts_tpu_torch.infer.tte_infer import max_decode_len
 from parrot_tts_tpu_torch.models.tte import parrot
@@ -55,6 +59,12 @@ class VocoderSynthesizer:
                  sample_rate: int = 16_000,
                  exact: bool = True, device=None,
                  calib_margin: float = 1.0):
+        if cfg.f0 and cfg.quant == "int8-static":
+            raise ValueError(
+                "int8-static serving does not support f0 conditioning: the "
+                "static activation scales are calibrated on the unconditioned "
+                "graph (models/vocoder/generator_staticq.py). Serve "
+                "f0-conditioned checkpoints with quant='none'/'int8'.")
         self.cfg = cfg
         self.sample_rate = sample_rate
         self.exact = exact
@@ -84,20 +94,35 @@ class VocoderSynthesizer:
         self.staticq = sq.quantize_generator(self.model, qscales,
                                              device=self.device)
 
-    def _launch(self, code_pad: np.ndarray, spk: np.ndarray) -> torch.Tensor:
+    def _launch(self, code_pad: np.ndarray, spk: np.ndarray,
+                f0_pad: np.ndarray | None) -> torch.Tensor:
         if self.cfg.quant == "int8-static":
             if self.staticq is None:
                 self.calibrate(code_pad, spk)
             return sq.apply_code_generator_staticq(
                 self.model, code_pad, spk, self.staticq, exact=self.exact,
                 device=self.device)
-        return gen.apply_code_generator(self.model, code_pad, spk,
-                                        exact=self.exact, device=self.device)
+        return gen.apply_code_generator(
+            self.model, code_pad, spk,
+            extra_feats=None if f0_pad is None else {"f0": f0_pad},
+            exact=self.exact, device=self.device)
 
-    def synthesize(self, codes: list[np.ndarray],
-                   speakers: list[int]) -> list[np.ndarray]:
+    def synthesize(self, codes: list[np.ndarray], speakers: list[int],
+                   f0: list[np.ndarray] | None = None) -> list[np.ndarray]:
         """Batch per length bucket; returns trimmed float32 waveforms (an
-        empty code sequence gives an empty waveform)."""
+        empty code sequence gives an empty waveform).
+
+        f0: per-utterance CODE-RATE pitch tracks ((Tc,) or (1, Tc)),
+        required iff the model was trained with cfg.f0 (from the source
+        audio: `ops/f0.py::f0_for_codes`) and dropped otherwise, as the
+        reference drops the key."""
+        if self.cfg.f0 and f0 is None:
+            raise ValueError(
+                "this checkpoint is f0-conditioned (cfg.f0): pass per-"
+                "utterance code-rate f0 tracks (ops/f0.py::f0_for_codes on "
+                "the source audio)")
+        if not self.cfg.f0:
+            f0 = None
         hop = self.cfg.total_upsample
         results: list[np.ndarray | None] = [None] * len(codes)
         by_bucket: dict[int, list[int]] = {}
@@ -107,18 +132,13 @@ class VocoderSynthesizer:
         t0 = time.perf_counter()
         total_audio_s = 0.0
         for t_len, idxs in sorted(by_bucket.items()):
-            code_pad = np.zeros((len(idxs), t_len), np.int64)
-            spk = np.zeros((len(idxs),), np.int64)
-            for j, gi in enumerate(idxs):
-                c = np.asarray(codes[gi])[:t_len]
-                code_pad[j, : len(c)] = c
-                # repeat-pad with the sequence itself (code 0 would
-                # synthesize phantom audio; the output is trimmed anyway);
-                # an empty sequence keeps a zero row and trims to nothing
-                if 0 < len(c) < t_len:
-                    code_pad[j] = np.tile(c, -(-t_len // len(c)))[:t_len]
-                spk[j] = speakers[gi]
-            y = self._launch(code_pad, spk)[:, :, 0].cpu().numpy()
+            code_pad = _repeat_pad([np.asarray(codes[gi], np.int64)
+                                    for gi in idxs], t_len)
+            spk = np.asarray([speakers[gi] for gi in idxs], np.int64)
+            f0_pad = None if f0 is None else _repeat_pad(
+                [np.asarray(f0[gi], np.float32).reshape(-1) for gi in idxs],
+                t_len)[:, None, :]
+            y = self._launch(code_pad, spk, f0_pad)[:, :, 0].cpu().numpy()
             for j, gi in enumerate(idxs):
                 n = min(len(codes[gi]), t_len) * hop
                 results[gi] = y[j, :n]
@@ -126,6 +146,32 @@ class VocoderSynthesizer:
         dt = time.perf_counter() - t0
         self.last_rtf = dt / total_audio_s if total_audio_s else None
         return results  # type: ignore[return-value]
+
+    def to_wavs(self, codes, speakers, out_dir: str | Path,
+                names: list[str] | None = None,
+                f0: list[np.ndarray] | None = None) -> list[Path]:
+        """`synthesize`, each waveform written to <out_dir>/<name>_gen.wav
+        (names default utt_00000, ...); returns the paths."""
+        out_dir = Path(out_dir)
+        paths = []
+        for i, w in enumerate(self.synthesize(codes, speakers, f0=f0)):
+            p = out_dir / f"{names[i] if names else f'utt_{i:05d}'}_gen.wav"
+            write_wav(p, w, self.sample_rate)
+            paths.append(p)
+        return paths
+
+
+def _repeat_pad(rows: list[np.ndarray], t_len: int) -> np.ndarray:
+    """(len(rows), t_len) of the rows cropped to t_len, each shorter one
+    repeat-padded with itself (code 0 would synthesize phantom audio; the
+    output is trimmed anyway); an empty row stays zero and trims to
+    nothing."""
+    out = np.zeros((len(rows), t_len), rows[0].dtype)
+    for j, r in enumerate(rows):
+        r = r[:t_len]
+        if len(r):
+            out[j] = np.tile(r, -(-t_len // len(r)))[:t_len]
+    return out
 
 
 def synthesize_text(text: str, *, tte_model: parrot.Parrot,

@@ -18,7 +18,8 @@ the card), on int8 weights quantized once by `CodeGenerator.pack_int8`:
 "int8" every MRF conv and upsample, "int8-tail" those of the stages the
 JAX package folds (`quant_plan`). int8 supersedes the fused MRF on a
 stage, as in the JAX package. `quant="int8-static"` is served by
-`generator_staticq.py`. f0 conditioning is not ported.
+`generator_staticq.py`. Conditioning features (f0 under `cfg.f0`) are
+upsample-concatenated onto the embedding as in the JAX package (`embed`).
 
 Weight norm is kept as plain `weight_g` / `weight_v` parameters under the
 reference's state_dict keys; `fold_params` collapses them into `weight`
@@ -152,9 +153,6 @@ class CodeGenerator(nn.Module):
 
     def __init__(self, cfg: VocoderModelConfig, *, weight_norm: bool = True):
         super().__init__()
-        if cfg.f0:
-            raise NotImplementedError(
-                "the port does not serve f0 conditioning yet (f0=False)")
         if cfg.quant not in ("none", "int8-static", *DYNAMIC_QUANT):
             raise ValueError(f"unknown quant mode {cfg.quant!r}")
         self.cfg = cfg
@@ -220,9 +218,9 @@ class CodeGenerator(nn.Module):
                         _register_int8(c, quant_ops.quantize_weight(
                             c.kernel().permute(2, 1, 0)))
 
-    def forward(self, code: torch.Tensor,
-                spkr: torch.Tensor | None) -> torch.Tensor:
-        return _code_generator(self, code, spkr)
+    def forward(self, code: torch.Tensor, spkr: torch.Tensor | None,
+                extra_feats: dict | None = None) -> torch.Tensor:
+        return _code_generator(self, code, spkr, extra_feats)
 
 
 def _register_int8(c: WNConv, qweight: tuple) -> None:
@@ -359,37 +357,52 @@ def upsample_cond(signal: torch.Tensor, max_frames: int) -> torch.Tensor:
 
 
 def embed(model: CodeGenerator, code: torch.Tensor,
-          spkr: torch.Tensor | None) -> torch.Tensor:
+          spkr: torch.Tensor | None,
+          extra_feats: dict | None = None) -> torch.Tensor:
     """Code embedding, concatenated with the speaker embedding repeated
-    over frames: (B, T) -> (B, T, model_in_dim)."""
+    over frames, then each conditioning feature of `extra_feats` ((B, C,
+    Tc), (B, C) or (B,)) nearest-repeated to the frame axis
+    (`upsample_cond`): (B, T) -> (B, T, model_in_dim). Features go in
+    sorted-name order; "spkr" and "code" are skipped, and so is "f0" unless
+    cfg.f0 (the reference's skip list, models.py:160-166). f0 goes in as
+    raw Hz, as in the JAX package, whose checkpoints expect it."""
     x = model.dict.weight[code]                                # (B, T, E)
     if model.cfg.multispkr:
         if spkr is None:
             raise ValueError("multispeaker model needs spkr ids")
         s = model.spkr.weight[spkr.reshape(spkr.shape[0])]     # (B, E)
         x = torch.cat([x, s[:, None, :].expand_as(x)], dim=-1)
+    for name in sorted(extra_feats or {}):
+        if name in ("spkr", "code") or (name == "f0" and not model.cfg.f0):
+            continue
+        feat = upsample_cond(torch.as_tensor(extra_feats[name]).to(
+            x.device, x.dtype), x.shape[1])
+        x = torch.cat([x, feat.transpose(1, 2)], dim=-1)
     return x
 
 
 def _code_generator(model: CodeGenerator, code: torch.Tensor,
-                    spkr: torch.Tensor | None) -> torch.Tensor:
-    return apply_generator(model, embed(model, code, spkr))
+                    spkr: torch.Tensor | None,
+                    extra_feats: dict | None = None) -> torch.Tensor:
+    return apply_generator(model, embed(model, code, spkr, extra_feats))
 
 
 def apply_code_generator(model: CodeGenerator, code, spkr, *,
-                         exact: bool = True, device=None) -> torch.Tensor:
-    """code: (B, T) int unit ids; spkr: (B,) or (B, 1) int speaker ids
-    (numpy or tensors). Returns the (B, T*320, 1) waveform in [-1, 1] on
-    `device` (default: the CUDA card; raises without one unless
-    device="cpu"). exact=True: IEEE float32 convs (no TF32), deterministic
-    cuDNN algorithms."""
+                         extra_feats: dict | None = None, exact: bool = True,
+                         device=None) -> torch.Tensor:
+    """code: (B, T) int unit ids; spkr: (B,) or (B, 1) int speaker ids;
+    extra_feats: conditioning features by name (`embed`), e.g. {"f0": (B,
+    1, T) code-rate pitch in Hz} (numpy or tensors). Returns the (B,
+    T*320, 1) waveform in [-1, 1] on `device` (default: the CUDA card;
+    raises without one unless device="cpu"). exact=True: IEEE float32
+    convs (no TF32), deterministic cuDNN algorithms."""
     device = resolve_device(device)
     model = model.to(device)
     code = torch.as_tensor(code).to(device, torch.int64)
     if spkr is not None:
         spkr = torch.as_tensor(spkr).to(device, torch.int64)
     with torch.no_grad(), exact_numerics(exact):
-        return _code_generator(model, code, spkr)
+        return _code_generator(model, code, spkr, extra_feats)
 
 
 def fold_params(state: dict) -> dict:

@@ -20,7 +20,8 @@ from parrot_tts_tpu_torch.core.config import PipelineConfig, to_json
 from parrot_tts_tpu_torch.core.device import resolve_device
 from parrot_tts_tpu_torch.core.metrics import MetricsWriter, Throughput
 from parrot_tts_tpu_torch.data.vocoder_data import (VocoderDataset,
-                                                    VocoderLoader)
+                                                    VocoderLoader,
+                                                    code_rate_f0)
 from parrot_tts_tpu_torch.models.vocoder import generator as gen
 from parrot_tts_tpu_torch.ops import stft
 from parrot_tts_tpu_torch.train import vocoder as voc_train
@@ -49,7 +50,7 @@ def run(cfg: PipelineConfig, *, data_dir: str | Path,
         code_hop_size=tcfg.code_hop_size, multispkr=mcfg.multispkr,
         speaker_ids=train_ds.spkr_to_id)
     loader = VocoderLoader(train_ds, tcfg.batch_size, seed=tcfg.seed,
-                           with_f0=mcfg.f0)
+                           with_f0=mcfg.f0, device=device)
     steps_per_epoch = max(1, len(train_ds) // tcfg.batch_size)
 
     state = voc_train.init_state(tcfg.seed, mcfg, device)
@@ -87,7 +88,8 @@ def run(cfg: PipelineConfig, *, data_dir: str | Path,
             if steps % tcfg.validation_interval == 0:
                 writer.scalar("validation/mel_spec_error",
                               validate(state.gen, val_ds, mcfg, mel_cfg,
-                                       writer, steps, device), steps)
+                                       writer, steps, device,
+                                       f0_kwargs=loader.f0_kwargs), steps)
             if steps % tcfg.checkpoint_interval == 0:
                 mgr.save(steps, state.state_dict())
             if crash_at_step is not None and steps >= crash_at_step:
@@ -107,23 +109,31 @@ def run(cfg: PipelineConfig, *, data_dir: str | Path,
 
 def validate(generator: gen.CodeGenerator, val_ds: VocoderDataset, mcfg,
              mel_cfg, writer: MetricsWriter, step: int, device,
-             max_items: int = 16) -> float:
+             f0_kwargs: dict | None = None, max_items: int = 16) -> float:
     """Mean mel-L1 over the first `max_items` validation crops, with the
     first two generated clips and their banded mel logged (reference
-    train.py:199-228)."""
+    train.py:199-228). An f0-conditioned generator gets each crop's f0 by
+    the training loader's rule (`code_rate_f0`); pass the loader's
+    `f0_kwargs`, as `run` does, so both take one pitch track."""
     rng = np.random.default_rng(0)
     errs = []
     for i in range(min(max_items, len(val_ds))):
         item = val_ds.load_item(i, rng)
-        batch = voc_train.to_batch({
-            "audio": item["audio"][None, :], "code": item["code"][None, :],
-            "spkr": np.asarray([item["spkr"]], np.int32)}, device)
+        batch = {"audio": item["audio"][None, :],
+                 "code": item["code"][None, :],
+                 "spkr": np.asarray([item["spkr"]], np.int32)}
+        if mcfg.f0:
+            batch["f0"] = code_rate_f0(batch["audio"], batch["code"].shape[1],
+                                       val_ds.code_hop_size,
+                                       f0_kwargs or {}, device)
+        batch = voc_train.to_batch(batch, device)
         batch["mel"] = voc_train.loss_mel(batch["audio"], mel_cfg)
         errs.append(float(voc_train.val_step(generator, batch, mcfg,
                                              mel_cfg)))
         if i < 2:
             with torch.no_grad():
-                y_hat = generator(batch["code"], batch["spkr"])[:, :, 0]
+                y_hat = generator(batch["code"], batch["spkr"],
+                                  voc_train.extra_feats(batch))[:, :, 0]
                 # the GENERATED audio's mel (reference train.py:221-226),
                 # banded with fmax, not the full-band loss mel
                 y_hat_mel = stft.mel_spectrogram(

@@ -48,7 +48,7 @@ from parrot_tts_tpu_torch.ops import stft
 from parrot_tts_tpu_torch.train.schedules import exponential_epoch_schedule
 
 BATCH_DTYPES = {"audio": torch.float32, "code": torch.int64,
-                "spkr": torch.int64, "mel": torch.float32}
+                "spkr": torch.int64, "mel": torch.float32, "f0": torch.float32}
 
 
 def make_optimizers(g_params, d_params) -> tuple[torch.optim.AdamW,
@@ -136,7 +136,8 @@ class VocoderTrainState:
 
 
 def _check_trainable(model_cfg: VocoderModelConfig) -> None:
-    """Only the float generator with weight norm live trains."""
+    """Only the float generator with weight norm live trains (with or
+    without f0 conditioning)."""
     if model_cfg.quant != "none":
         raise ValueError(
             f"VocoderModelConfig.quant={model_cfg.quant!r} is a SERVING "
@@ -148,9 +149,6 @@ def _check_trainable(model_cfg: VocoderModelConfig) -> None:
             "VocoderModelConfig.fused_mrf=True is a serving config (the "
             "fused kernel runs on folded weights and has no backward). Train "
             "with fused_mrf=False and enable it at synthesis time.")
-    if model_cfg.f0:
-        raise NotImplementedError(
-            "the port does not train f0-conditioned vocoders yet (f0=False)")
 
 
 def init_state(seed: int, model_cfg: VocoderModelConfig,
@@ -221,12 +219,19 @@ def _detached(fmaps):
     return [[f.detach() for f in fm] for fm in fmaps]
 
 
+def extra_feats(batch: dict) -> dict | None:
+    """The batch's conditioning tracks (f0 from `VocoderLoader(with_f0=
+    True)`) for the generator's upsample-concat."""
+    return {k: batch[k] for k in ("f0",) if k in batch} or None
+
+
 def train_step(state: VocoderTrainState, batch: dict,
                model_cfg: VocoderModelConfig, train_cfg: VocoderTrainConfig,
                mel_cfg: MelConfig, steps_per_epoch: int, *,
                exact: bool = False) -> dict:
     """One GAN step on batch (tensors on the state's device: audio (B, T),
-    code (B, Tc), spkr (B,), optionally the ground-truth loss mel). Updates
+    code (B, Tc), spkr (B,), optionally the ground-truth loss mel and the
+    code-rate f0 (B, 1, Tc) of an f0-conditioned generator). Updates
     state in place; returns the metrics as 0-d tensors (no host sync)."""
     _check_trainable(model_cfg)
     set_hyperparameters((state.opt_g, state.opt_d), train_cfg,
@@ -234,7 +239,8 @@ def train_step(state: VocoderTrainState, batch: dict,
     ddt = _disc_dtype(train_cfg)
     with exact_numerics(exact):
         y = batch["audio"][:, :, None]
-        y_g_hat = state.gen(batch["code"], batch.get("spkr"))
+        y_g_hat = state.gen(batch["code"], batch.get("spkr"),
+                            extra_feats(batch))
         y_hat = y_g_hat.detach()
 
         # discriminator step (reference train.py:138-151)
@@ -280,6 +286,7 @@ def val_step(generator: gen.CodeGenerator, batch: dict,
     train.py:199-228), with the training step's TF32 convolutions on the
     card."""
     with torch.no_grad(), exact_numerics(False):
-        y_hat = generator(batch["code"], batch.get("spkr"))
+        y_hat = generator(batch["code"], batch.get("spkr"),
+                          extra_feats(batch))
         return torch.mean(torch.abs(batch["mel"]
                                     - loss_mel(y_hat[:, :, 0], mel_cfg)))

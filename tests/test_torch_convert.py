@@ -95,7 +95,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert 'parrot_tts_tpu_torch.models.vocoder.generator_staticq' in mods\n"
         "for name in ('train.tte', 'pipeline.train_tte', 'ops.flash_dropout',\n"
         "             'core.checkpoint', 'data.tte_data', 'ops.quant',\n"
-        "             'ops.qconv', 'scripts.exp_int8_rate'):\n"
+        "             'ops.qconv', 'scripts.exp_int8_rate', 'ops.f0',\n"
+        "             'models.hubert.model', 'models.hubert.convert',\n"
+        "             'infer.unit_extractor', 'pipeline.extract_units'):\n"
         "    assert 'parrot_tts_tpu_torch.' + name in mods, name\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'parrot_tts_tpu' or m.startswith('parrot_tts_tpu.')]\n"

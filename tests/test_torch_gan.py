@@ -40,10 +40,12 @@ from parrot_tts_tpu_torch.core.checkpoint import CheckpointManager
 from parrot_tts_tpu_torch.core.config import (MelConfig, PipelineConfig,
                                               VocoderModelConfig,
                                               VocoderTrainConfig)
+from parrot_tts_tpu_torch.core.metrics import MetricsWriter
 from parrot_tts_tpu_torch.data import vocoder_data
 from parrot_tts_tpu_torch.data.audio_io import write_wav
 from parrot_tts_tpu_torch.data.manifest import write_manifest
 from parrot_tts_tpu_torch.models.vocoder import discriminator as disc
+from parrot_tts_tpu_torch.models.vocoder import generator as gen
 from parrot_tts_tpu_torch.models.vocoder import losses
 from parrot_tts_tpu_torch.ops import conv as conv_ops
 from parrot_tts_tpu_torch.ops import stft, weight_norm
@@ -564,7 +566,7 @@ def test_pipeline_defaults_to_the_card(tmp_path):
 
 @pytest.mark.parametrize("change,error", [
     (dict(quant="int8"), ValueError), (dict(quant="int8-static"), ValueError),
-    (dict(fused_mrf=True), ValueError), (dict(f0=True), NotImplementedError)])
+    (dict(fused_mrf=True), ValueError)])
 def test_untrainable_configs_raise(change, error):
     mcfg = dataclasses.replace(VocoderModelConfig(**TINY), **change)
     with pytest.raises(error):
@@ -575,12 +577,79 @@ def test_untrainable_configs_raise(change, error):
                              mcfg, VocoderTrainConfig(), MelConfig(**MEL), 1)
 
 
-def test_loader_refuses_f0(tmp_path):
-    root = write_wav_corpus(tmp_path, n_train=1, n_val=1)
+def test_f0_generator_trains():
+    """An f0-conditioned generator (model_in_dim counts the f0 channel)
+    takes a step: finite metrics, conv_pre's f0 input column moves."""
+    mcfg = VocoderModelConfig(**dict(TINY, f0=True,
+                                     model_in_dim=TINY["model_in_dim"] + 1))
+    state = voc_train.init_state(0, mcfg, "cpu")
+    before = state.gen.conv_pre.weight_v[:, -1].detach().clone()
+    batch = tiny_batch()
+    batch["f0"] = np.full((2, 1, TC), 150.0, np.float32)
+    metrics = voc_train.train_step(
+        state, voc_train.to_batch(batch, "cpu"), mcfg,
+        VocoderTrainConfig(learning_rate=LR), MelConfig(**MEL), SPE)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert not torch.equal(before, state.gen.conv_pre.weight_v[:, -1])
+
+
+def test_loader_with_f0_on_the_cpu(tmp_path):
+    """with_f0=True adds each batch's code-rate pitch, extracted on the
+    loader's device (the card unless told "cpu")."""
+    root = write_wav_corpus(tmp_path, n_train=3, n_val=1)
     ds = vocoder_data.VocoderDataset(root / "train.txt",
                                      segment_size=TC * HOP, code_hop_size=HOP)
-    with pytest.raises(NotImplementedError):
-        vocoder_data.VocoderLoader(ds, 2, with_f0=True)
+    plain = list(vocoder_data.VocoderLoader(ds, 2, seed=3).batches(0))
+    got = list(vocoder_data.VocoderLoader(ds, 2, seed=3, with_f0=True,
+                                          device="cpu").batches(0))
+    assert len(got) == len(plain) == 1
+    np.testing.assert_array_equal(got[0]["audio"], plain[0]["audio"])
+    np.testing.assert_array_equal(got[0]["f0"], vocoder_data.code_rate_f0(
+        plain[0]["audio"], TC, HOP, {}, "cpu"))
+    assert got[0]["f0"].shape == (2, 1, TC)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            vocoder_data.VocoderLoader(ds, 2, with_f0=True)
+
+
+def test_validation_takes_the_loaders_f0(tmp_path, monkeypatch):
+    """validate, given the loader's f0_kwargs as run passes them, feeds
+    the generator the loader's pitch track, here under a non-default
+    f0_min that moves an 80 Hz tone's track."""
+    seg = 128 * HOP
+    t = np.arange(3 * seg) / 16000
+    write_wav(tmp_path / "wavs" / "en_f_val_000.wav",
+              0.5 * np.sin(2 * np.pi * 80 * t), 16000)
+    write_manifest(tmp_path / "val.txt", [{
+        "audio": str(tmp_path / "wavs" / "en_f_val_000.wav"),
+        "hubert": " ".join(["1"] * (3 * seg // HOP))}])
+    ds = vocoder_data.VocoderDataset(tmp_path / "val.txt", segment_size=seg,
+                                     code_hop_size=HOP)
+    loader = vocoder_data.VocoderLoader(ds, 1, with_f0=True,
+                                        f0_kwargs={"f0_min": 100.0},
+                                        device="cpu")
+    mcfg = VocoderModelConfig(**dict(TINY, f0=True,
+                                     model_in_dim=TINY["model_in_dim"] + 1))
+    generator = gen.CodeGenerator(mcfg)
+    generator.load_state_dict(gen.init_code_generator(
+        mcfg, torch.Generator().manual_seed(0)), strict=True)
+    seen = []
+
+    def spy(g, batch, *args):
+        seen.append(batch)
+        return torch.zeros(())
+
+    monkeypatch.setattr(voc_train, "val_step", spy)
+    writer = MetricsWriter(tmp_path / "logs")
+    train_vocoder.validate(generator, ds, mcfg, MelConfig(**MEL), writer, 1,
+                           "cpu", f0_kwargs=loader.f0_kwargs)
+    writer.close()
+    assert len(seen) == 1
+    audio = seen[0]["audio"].numpy()
+    want = vocoder_data.code_rate_f0(audio, 128, HOP, loader.f0_kwargs, "cpu")
+    np.testing.assert_array_equal(seen[0]["f0"].numpy(), want)
+    assert not np.array_equal(want, vocoder_data.code_rate_f0(
+        audio, 128, HOP, {}, "cpu"))
 
 
 def test_port_vocoder_configs_match_jax():

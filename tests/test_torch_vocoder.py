@@ -7,6 +7,8 @@ convs. The two agree up to float32 reassociation, hence atol 2e-5 on a
 waveform in [-1, 1].
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -83,11 +85,38 @@ def test_peak_normalize_matches_jax(rng, kind):
     assert synthesize.peak_normalize(np.zeros(0, np.float32)).shape == (0,)
 
 
-def test_unported_generator_options_raise():
-    """f0 conditioning is not ported; every quant mode is."""
-    with pytest.raises(NotImplementedError):
-        gen.CodeGenerator(VocoderModelConfig(**SMALL, f0=True))
+def test_generator_quant_modes():
+    """Every quant mode is ported; an unknown one raises."""
     for mode in ("none", "int8", "int8-tail", "int8-static"):
         gen.CodeGenerator(VocoderModelConfig(**SMALL, quant=mode))
     with pytest.raises(ValueError):
         gen.CodeGenerator(VocoderModelConfig(**SMALL, quant="int4"))
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int8-tail"])
+def test_f0_generator_matches_jax(rng, quant):
+    """f0=True: the f0 channel joins conv_pre's input (model_in_dim 2E + 1)
+    in float and the dynamic int8 modes, whose conv_pre stays float; the
+    float mode within atol 2e-5 of the JAX package."""
+    cfg = dict(SMALL, model_in_dim=17, f0=True)
+    jcfg, tcfg = JaxVocoderConfig(**cfg), VocoderModelConfig(**cfg)
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(
+        jax_gen.init_code_generator, static_argnums=1)(jax.random.key(3),
+                                                       jcfg))
+    model = gen.CodeGenerator(dataclasses.replace(tcfg, quant=quant),
+                              weight_norm=False)
+    model.load_state_dict(gen.fold_params(generator_state_from_jax(
+        params, tcfg)), strict=True)
+    model.eval().pack_int8()
+    assert model.conv_pre.weight.shape[1] == 17
+    code = rng.integers(0, 40, size=(2, 24)).astype(np.int32)
+    spkr = np.array([0, 3], np.int32)
+    f0 = rng.uniform(80, 250, (2, 1, 24)).astype(np.float32)
+    got = gen.apply_code_generator(model, code, spkr, extra_feats={"f0": f0},
+                                   device="cpu").numpy()
+    assert got.shape == (2, 24 * 8, 1) and np.isfinite(got).all()
+    if quant == "none":
+        want = np.asarray(jax_gen.apply_code_generator(
+            jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(code),
+            jnp.asarray(spkr), jcfg, extra_feats={"f0": jnp.asarray(f0)}))
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
