@@ -152,7 +152,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    VocoderTrainConfig() defaults through pipeline/train_vocoder.run on
    phase 14's corpus (finite losses, conv_pre's f0 input column with a
    gradient and moved), the checkpoint equal to the live generator and a
-   resume.
+   resume;
+17. the offline supervision pipeline at reference width (no TPU kernel on
+   its path), on phase 15's wavs up to 40.96 s and its units, with seeded
+   English transcripts of ~12.5 characters per second: clean_corpus and
+   compute_mels_and_tokens on the card (the top bucket pair (2048, 512)
+   reached, every row feasible for CTC); pipeline/train_aligner at the
+   default AlignerModelConfig / AlignerTrainConfig (checkpoints and text
+   artifacts every 2 steps) crashing at step 3 and resumed to step 4;
+   then, on a batch of 16 rows of the top pair, one step in float32
+   against float64 (loss within 1e-4 relative, |dg|/|g| <= 1e-3), two
+   float32 steps and the CTC's eager loops against its CUDA graphs, all
+   the same bits under torch.use_deterministic_algorithms(True), and a
+   NaN frame's step changing no parameter, BN statistic, moment or count;
+   ms per step (CUDA events), the CTC's share, torch's
+   F.ctc_loss as a yardstick and one profiled step (readings);
+   extract_all_durations in dijkstra and beam modes (durations summing to
+   the frames; items/s, device and DP seconds), the card's durations
+   against the CPU port's on the same weights (equal but where the
+   best-path margin is <= 1e-4, such items counted);
+   build_tte_manifests over phase 15's units (every line's durations sum
+   to its units); and `python -m parrot_tts_tpu_torch.cli
+   run-aligner-pipeline` on three short wavs per speaker, exit 0.
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -165,6 +186,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -172,8 +194,13 @@ import time
 import warnings
 from unittest import mock
 
-import numpy as np
-import torch
+# cuBLAS's workspace pinned before the first CUDA call: cuDNN's LSTM
+# backward (phase 17) repeats bit for bit only with it, and
+# torch.use_deterministic_algorithms(True) refuses cuBLAS without it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 SEED = 20261016
 FP32_PEAK = 67e12            # H100 SXM float32 non-tensor FLOP/s (data sheet)
@@ -2200,7 +2227,9 @@ def phase_hubert(cfg, device=None) -> dict:
                       f"HuBERT batch of {len(grp)} x "
                       f"{batch['wav'].shape[1] / cfg.sample_rate:.2f} s",
                       HUBERT_PROFILE_SPLIT)
-    return {"wavs": wavs}
+    spk = [("spk_a", "spk_b")[i % 2] for i in range(len(wavs))]
+    return {"wavs": wavs, "codes": codes, "speakers": spk,
+            "names": [f"{s}_{i:03d}" for i, s in enumerate(spk)]}
 
 
 HUBERT_PROFILE_SPLIT = (
@@ -2370,12 +2399,479 @@ def phase_f0(vcfg, tcfg, mel_cfg, corpus: dict, units, speakers, wavs,
               "and its moments bit for bit")
 
 
+# phase 17: the aligner, duration extraction and the TTE manifests at
+# reference width (no TPU kernel on this path)
+ALIGN_STEPS = 4              # train_aligner's steps (a crash at 3, resume)
+ALIGN_MAX_S = 40.96          # wavs of phase 15's corpus up to the top bucket
+ALIGN_CHARS_PER_S = 12.5     # transcript length per second of audio
+ALIGN_LOSS_RTOL = 1e-4       # a float32 step against float64: the loss
+ALIGN_GRAD_RTOL = 1e-3       # and |dg| / |g| over the trained parameters
+ALIGN_NEAR_TIE = 1e-4        # card against CPU durations may differ only
+#                              where the best path is within this of the
+#                              second best (`extract_durations_margin`)
+ALIGN_TIMED = 3              # timed steps of the gate batch (CUDA events)
+WORDS = ("the", "a", "speech", "voice", "model", "learns", "to", "align",
+         "every", "frame", "with", "its", "letter", "while", "small",
+         "birds", "sing", "over", "quiet", "rivers", "and", "green", "hills",
+         "people", "read", "long", "stories", "about", "distant", "cities",
+         "under", "bright", "winter", "skies", "of", "north", "light",
+         "music", "from", "old", "radios", "fills", "warm", "kitchens")
+ALIGNER_PROFILE_SPLIT = (
+    ("CTC (elementwise loop)", ("logaddexp", "where", "CatArray", "cat_",
+                                "elementwise", "vectorized", "unrolled")),
+    ("LSTM (cuDNN RNN)", ("RNN", "rnn", "lstm", "LSTM", "elemWise",
+                          "persist")),
+    ("convolutions", ("conv", "Conv", "fprop", "dgrad", "wgrad")),
+    ("batch norm", ("bn_", "batch_norm", "BatchNorm")),
+    ("matmuls", ("gemm", "Gemm", "Kernel2")),
+)
+
+
+@contextlib.contextmanager
+def strict_determinism():
+    """torch.use_deterministic_algorithms(True): an op without a
+    deterministic implementation raises (CUBLAS_WORKSPACE_CONFIG is set at
+    the top of this script, as cuBLAS requires)."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def aligner_text(rng, seconds: float) -> str:
+    """An English transcript of about ALIGN_CHARS_PER_S characters per
+    second: far fewer letters than the 50 mel frames per second, so CTC
+    is feasible on every row."""
+    words, n = [], 0
+    target = max(3, int(ALIGN_CHARS_PER_S * seconds))
+    while n < target:
+        w = str(rng.choice(WORDS))
+        words.append(w)
+        n += len(w) + 1
+    text = " ".join(words)[:target].strip()
+    return text[0].upper() + text[1:] + "."
+
+
+def aligner_gate_batch(dirs, train_cfg) -> dict:
+    """Up to batch_size items of the top (mel, token) bucket pair from the
+    speakers' directories, padded to it as the loader pads."""
+    import pickle
+
+    from parrot_tts_tpu_torch.data.tte_data import pick_bucket
+
+    mt, lt = train_cfg.mel_bucket_sizes[-1], train_cfg.token_bucket_sizes[-1]
+    items = []
+    for d in dirs:
+        with open(d / "dataset.pkl", "rb") as f:
+            for stem, n, l in pickle.load(f):
+                if (pick_bucket(train_cfg.mel_bucket_sizes, n) == mt
+                        and pick_bucket(train_cfg.token_bucket_sizes, l) == lt):
+                    items.append((np.load(d / "mels" / f"{stem}.npy"),
+                                  np.load(d / "tokens" / f"{stem}.npy")))
+    items = items[: train_cfg.batch_size]
+    b = len(items)
+    batch = {"mel": np.zeros((b, mt, items[0][0].shape[1]), np.float32),
+             "tokens": np.zeros((b, lt), np.int64),
+             "mel_lengths": np.zeros(b, np.int64),
+             "token_lengths": np.zeros(b, np.int64)}
+    for i, (m, t) in enumerate(items):
+        nm, nt = min(len(m), mt), min(len(t), lt)
+        batch["mel"][i, :nm] = m[:nm]
+        batch["tokens"][i, :nt] = t[:nt]
+        batch["mel_lengths"][i], batch["token_lengths"][i] = nm, nt
+    return batch
+
+
+def fresh_aligner_state(atrain, model, dtype=torch.float32, graphs=True):
+    """A copy of `model` in `dtype` with zero moments; graphs: the CTC's
+    CUDA graphs (the card's training path) or the eager loops."""
+    import copy
+
+    from parrot_tts_tpu_torch.ops.ctc import CTCGraphs
+
+    m = copy.deepcopy(model).to(dtype)
+    return atrain.AlignerTrainState(
+        model=m, mu={n: torch.zeros_like(p)
+                     for n, p in atrain.trained(m).items()},
+        nu={n: torch.zeros_like(p) for n, p in atrain.trained(m).items()},
+        ctc_graphs=CTCGraphs() if graphs else None)
+
+
+def aligner_state_equal(a, b) -> bool:
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return (all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(a.mu[k], b.mu[k])
+                    and torch.equal(a.nu[k], b.nu[k]) for k in a.mu)
+            and (a.count, a.step) == (b.count, b.step))
+
+
+def phase_aligner(hub: dict, train_cfg, model_kw: dict | None = None,
+                  device=None) -> dict:
+    """The offline supervision pipeline on phase 15's wavs (those up to
+    ALIGN_MAX_S) and units, with the checks: preprocess, train_aligner
+    (a crash and a resume), the step's gates on a batch of the top bucket
+    pair, extraction on the card against the CPU, the TTE manifests, and
+    the CLI's run-aligner-pipeline in a process of its own. model_kw
+    narrows the aligner for a CPU rehearsal; None is the reference width
+    (train_aligner's default AlignerModelConfig)."""
+    import copy
+    import pickle
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.nn.functional as F
+
+    from parrot_tts_tpu_torch.core.checkpoint import CheckpointManager
+    from parrot_tts_tpu_torch.core.config import AlignerModelConfig
+    from parrot_tts_tpu_torch.core.device import exact_numerics, resolve_device
+    from parrot_tts_tpu_torch.data.audio_io import write_wav
+    from parrot_tts_tpu_torch.data.manifest import read_manifest, write_manifest
+    from parrot_tts_tpu_torch.models.aligner.model import Aligner
+    from parrot_tts_tpu_torch.ops import ctc as ctc_ops
+    from parrot_tts_tpu_torch.ops import monotonic_align as ma
+    from parrot_tts_tpu_torch.pipeline import (aligner_preprocess,
+                                               extract_durations,
+                                               prepare_tte, train_aligner)
+    from parrot_tts_tpu_torch.train import aligner as atrain
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(SEED + 17)
+    keep = [i for i, w in enumerate(hub["wavs"])
+            if len(w) <= ALIGN_MAX_S * 16000]
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="parrot_aligner_") as tmp:
+        tmp = Path(tmp)
+        corpus, align = tmp / "corpus", tmp / "aligner"
+        for i in keep:
+            spk, name = hub["speakers"][i], hub["names"][i]
+            write_wav(corpus / spk / "wavs" / f"{name}.wav", hub["wavs"][i],
+                      16000)
+            (corpus / spk / "txt").mkdir(parents=True, exist_ok=True)
+            (corpus / spk / "txt" / f"{name}.txt").write_text(
+                aligner_text(rng, len(hub["wavs"][i]) / 16000))
+        speakers = sorted({hub["speakers"][i] for i in keep})
+        t0 = time.perf_counter()
+        symbols = aligner_preprocess.clean_corpus(corpus, align)
+        for spk in speakers:
+            aligner_preprocess.compute_mels_and_tokens(
+                corpus / spk, align / spk, symbols, device=device)
+        prep_s = time.perf_counter() - t0
+        index = {}
+        for spk in speakers:
+            with open(align / spk / "dataset.pkl", "rb") as f:
+                index[spk] = pickle.load(f)
+        items = [it for spk in speakers for it in index[spk]]
+        top = (train_cfg.mel_bucket_sizes[-1],
+               train_cfg.token_bucket_sizes[-1])
+        in_top = sum(n > train_cfg.mel_bucket_sizes[-2]
+                     and l > train_cfg.token_bucket_sizes[-2]
+                     for _, n, l in items)
+        print(f"aligner corpus: {len(items)} wavs over {len(speakers)} "
+              f"speakers, {len(symbols)} symbols, frames "
+              f"{min(n for _, n, _ in items)}-{max(n for _, n, _ in items)}, "
+              f"tokens {min(l for _, _, l in items)}-"
+              f"{max(l for _, _, l in items)}; {in_top} in the top bucket "
+              f"pair {top}; preprocess {prep_s:.3f} s")
+        if not in_top or any(2 * l > n for _, n, l in items):
+            raise AssertionError("the corpus misses the top bucket pair or "
+                                 "a row is too short for its labels")
+
+        # train_aligner: a crash at step 3, then a resume to ALIGN_STEPS
+        mcfg = AlignerModelConfig(n_mels=80, num_symbols=len(symbols) + 1,
+                                  **(model_kw or {}))
+        cfg = dataclasses.replace(train_cfg, checkpoint_steps=2, plot_steps=2)
+        data = align / speakers[0]
+        t0 = time.perf_counter()
+        try:
+            train_aligner.train_aligner(
+                data, symbols, cfg, model_cfg=None if model_kw is None
+                else mcfg, crash_at_step=3, epoch_saves=False, device=device)
+        except RuntimeError as e:
+            if "simulated crash at step 3" not in str(e):
+                raise
+        else:
+            raise AssertionError("crash_at_step=3 did not raise")
+        mgr = CheckpointManager(data / "ckpt")
+        if mgr.latest_step() != 2:
+            raise AssertionError(f"after the crash: {mgr.latest_step()}")
+        res = train_aligner.train_aligner(
+            data, symbols, cfg, model_cfg=None if model_kw is None else mcfg,
+            max_steps=ALIGN_STEPS, device=device)
+        train_s = time.perf_counter() - t0
+        recs = [json.loads(l) for l in (data / "logs" / "metrics.jsonl")
+                .read_text().splitlines()]
+        losses = [(r["step"], r["value"]) for r in recs
+                  if r["tag"] == "CTC_Loss"]
+        saved = mgr.restore()
+        print(f"train_aligner: crash at step 3 (checkpoint 2 kept), resume "
+              f"to {res['steps']}; CTC_Loss by step {losses}; "
+              f"{train_s:.3f} s for both runs")
+        if ([s for s, _ in losses] != [1, 2, 3, 3, 4]
+                or not all(math.isfinite(v) for _, v in losses)
+                or (res["steps"], saved["step"], saved["count"])
+                != (ALIGN_STEPS, ALIGN_STEPS, ALIGN_STEPS)
+                or not (data / "logs" / "text"
+                        / "Text_Target_Duration_Repeated_4.txt").exists()):
+            raise AssertionError(f"train_aligner: {res}, checkpoint step "
+                                 f"{saved['step']} count {saved['count']}")
+        model = Aligner(mcfg)
+        model.load_state_dict(saved["params"], strict=True)
+        model.to(dev)
+        if not all(torch.isfinite(v).all() for v in
+                   model.state_dict().values() if v.is_floating_point()):
+            raise AssertionError("non-finite weights after training")
+
+        # the step's gates on a batch of the top bucket pair
+        np_batch = aligner_gate_batch([align / s for s in speakers],
+                                      train_cfg)
+        n_frames = int(np_batch["mel_lengths"].max())
+        batch = atrain.to_batch(np_batch, dev)
+        shape = tuple(np_batch["mel"].shape)
+        with strict_determinism():
+            s1 = fresh_aligner_state(atrain, model)
+            s2 = fresh_aligner_state(atrain, model)
+            se = fresh_aligner_state(atrain, model, graphs=False)
+            m1 = atrain.train_step(s1, batch, train_cfg)
+            m2 = atrain.train_step(s2, batch, train_cfg)
+            me = atrain.train_step(se, batch, train_cfg)
+        same = (torch.equal(m1["ctc_loss"], m2["ctc_loss"])
+                and aligner_state_equal(s1, s2))
+        eager_same = (torch.equal(m1["ctc_loss"], me["ctc_loss"])
+                      and aligner_state_equal(s1, se))
+        s64 = fresh_aligner_state(atrain, model, torch.float64, graphs=False)
+        b64 = dict(batch, mel=batch["mel"].double())
+        m64 = atrain.train_step(s64, b64, train_cfg)
+        l32, l64 = float(m1["ctc_loss"]), float(m64["ctc_loss"])
+        num = math.sqrt(sum(float((s1.mu[k].double() - s64.mu[k]).square()
+                                  .sum()) for k in s1.mu))
+        den = math.sqrt(sum(float(s64.mu[k].square().sum()) for k in s64.mu))
+        loss_rel, grad_rel = abs(l32 - l64) / abs(l64), num / den
+        print(f"aligner step on {shape} (tokens {np_batch['tokens'].shape[1]}"
+              f", longest row {n_frames} frames): two float32 steps the same "
+              f"bits {same}, the CTC's CUDA graphs against its eager loops "
+              f"the same bits {eager_same} (torch deterministic algorithms "
+              f"on); float32 "
+              f"loss {l32:.6f} against float64 {l64:.6f}: rel "
+              f"{loss_rel:.3e} (<= {ALIGN_LOSS_RTOL:g}); |dg|/|g| "
+              f"{grad_rel:.3e} (<= {ALIGN_GRAD_RTOL:g})")
+        if not (same and eager_same and loss_rel <= ALIGN_LOSS_RTOL
+                and grad_rel <= ALIGN_GRAD_RTOL):
+            raise AssertionError("aligner step gates failed")
+        del s64, b64, s2
+
+        sn = fresh_aligner_state(atrain, model)
+        ref = fresh_aligner_state(atrain, model)
+        nan_batch = dict(batch, mel=batch["mel"].clone())
+        nan_batch["mel"][0, 5, 3] = float("nan")
+        mn = atrain.train_step(sn, nan_batch, train_cfg)
+        ref.step = 1
+        print(f"NaN drill: loss {float(mn['ctc_loss'])}; parameters, BN "
+              f"statistics, moments and count unchanged "
+              f"{aligner_state_equal(sn, ref)}, step counted {sn.step}")
+        if math.isfinite(float(mn["ctc_loss"])) or not aligner_state_equal(
+                sn, ref):
+            raise AssertionError("the NaN step changed the state")
+        del sn, ref, nan_batch
+
+        out["steps"] = ALIGN_STEPS
+        if on_card:
+            step_ms = cuda_ms(lambda: atrain.train_step(
+                s1, batch, train_cfg), ALIGN_TIMED, warmup=1)
+            eager_ms = cuda_ms(lambda: atrain.train_step(
+                se, batch, train_cfg), ALIGN_TIMED, warmup=1)
+            with exact_numerics(True):
+                logits = model(batch["mel"]).detach().requires_grad_()
+
+                def ctc_port(graphs):
+                    ctc_ops.ctc_loss_torch_mean(
+                        logits, batch["mel_lengths"], batch["tokens"],
+                        batch["token_lengths"], graphs=graphs).backward()
+
+                ctc_ms = cuda_ms(lambda: ctc_port(s1.ctc_graphs),
+                                 ALIGN_TIMED, warmup=1)
+                ctc_eager_ms = cuda_ms(lambda: ctc_port(None), ALIGN_TIMED,
+                                       warmup=1)
+
+                def ctc_torch():
+                    logits.grad = None
+                    loss = F.ctc_loss(
+                        torch.log_softmax(logits, -1).transpose(0, 1),
+                        batch["tokens"], batch["mel_lengths"],
+                        batch["token_lengths"])
+                    loss.backward()
+                    return loss
+
+                torch_ms = cuda_ms(ctc_torch, 10)
+                ya, ga = ctc_torch().detach(), logits.grad.clone()
+                yb, gb = ctc_torch().detach(), logits.grad.clone()
+                logits.grad = None
+                mine = ctc_ops.ctc_loss_torch_mean(
+                    logits, batch["mel_lengths"], batch["tokens"],
+                    batch["token_lengths"], graphs=s1.ctc_graphs)
+                mine.backward()
+                gdiff = float((logits.grad - ga).abs().max()
+                              / ga.abs().max())
+            print(f"aligner step {step_ms:.3f} ms on {shape} (CUDA events, "
+                  f"{ALIGN_TIMED} steps; {eager_ms:.3f} ms with the CTC's "
+                  f"eager loops); the port's CTC forward + backward "
+                  f"{ctc_ms:.3f} ms as CUDA graphs over all {shape[1]} "
+                  f"frames ({100 * ctc_ms / step_ms:.1f}% of the step), "
+                  f"{ctc_eager_ms:.3f} ms eager over {n_frames}")
+            print(f"yardstick: torch.nn.functional.ctc_loss forward + "
+                  f"backward {torch_ms:.3f} ms on the same logits; loss "
+                  f"{float(ya):.6f} against the port's "
+                  f"{float(mine.detach()):.6f}; "
+                  f"its gradient within {gdiff:.3e} of the port's (relative "
+                  f"to max); two runs the same bits "
+                  f"{torch.equal(ya, yb) and torch.equal(ga, gb)}")
+            phase_profile(lambda: (atrain.train_step(s1, batch, train_cfg),
+                                   torch.cuda.synchronize()),
+                          f"aligner step on {shape}", ALIGNER_PROFILE_SPLIT)
+            out.update(step_ms=step_ms, eager_step_ms=eager_ms,
+                       ctc_ms=ctc_ms, ctc_eager_ms=ctc_eager_ms,
+                       torch_ctc_ms=torch_ms)
+            del logits
+        del s1, se, batch
+
+        # extraction on the device (dijkstra, beam) against the CPU
+        model.eval()
+        timings = {}
+        for method in ("beam", "dijkstra"):
+            total = {"device_s": 0.0, "dp_s": 0.0, "wall_s": 0.0}
+            for spk in speakers:
+                d = align / spk
+                if method == "beam":
+                    d = tmp / "beam" / spk
+                    shutil.copytree(align / spk, d,
+                                    ignore=shutil.ignore_patterns(
+                                        "outputs", "ckpt", "logs"))
+                tm = {}
+                n = extract_durations.extract_all_durations(
+                    d, model, method=method, timings=tm)["items"]
+                if n != len(index[spk]):
+                    raise AssertionError(f"{method}: {n} items written")
+                for k in total:
+                    total[k] += tm[k]
+                for stem, frames, toks in index[spk]:
+                    durs = np.load(d / "outputs" / "durations"
+                                   / f"{stem}.npy")
+                    if (durs.sum() != frames
+                            or (method == "dijkstra" and len(durs) != toks)):
+                        raise AssertionError(f"{method} {stem}: durations "
+                                             f"sum {durs.sum()} != {frames}")
+            n_items = len(items)
+            timings[method] = total
+            print(f"extract_all_durations ({method}): {n_items} items in "
+                  f"{total['wall_s']:.3f} s = "
+                  f"{n_items / total['wall_s']:.3f} items/s; posterior "
+                  f"batches {total['device_s']:.3f} s, path jobs "
+                  f"{total['dp_s']:.3f} s summed over threads")
+        out["extract"] = timings
+
+        cpu_model = copy.deepcopy(model).cpu()
+        differ = near = 0
+        for spk in speakers:
+            d = align / spk
+            order = np.argsort([n for (_, n, _) in index[spk]])
+            for off in range(0, len(order), 8):   # extraction's batches
+                idxs = order[off: off + 8]
+                mels = [np.load(d / "mels" / f"{index[spk][i][0]}.npy")
+                        for i in idxs]
+                t_pad = ((max(len(m) for m in mels) + 63) // 64) * 64
+                mel = np.zeros((len(mels), t_pad, 80), np.float32)
+                for j, m in enumerate(mels):
+                    mel[j, :len(m)] = m
+                x = torch.from_numpy(mel)
+                card = atrain.posteriors(model, x.to(dev)).cpu().numpy()
+                host = atrain.posteriors(cpu_model, x).numpy()
+                for j, i in enumerate(idxs):
+                    stem, frames, _ = index[spk][i]
+                    tok = np.load(d / "tokens" / f"{stem}.npy")
+                    dc, gc = ma.extract_durations_margin(tok, card[j, :frames])
+                    dh, gh = ma.extract_durations_margin(tok, host[j, :frames])
+                    written = np.load(d / "outputs" / "durations"
+                                      / f"{stem}.npy")
+                    if not np.array_equal(dc, written):
+                        raise AssertionError(f"{stem}: the written "
+                                             "durations differ from a rerun")
+                    near += min(gc, gh) <= ALIGN_NEAR_TIE
+                    if not np.array_equal(dc, dh):
+                        differ += 1
+                        if min(gc, gh) > ALIGN_NEAR_TIE:
+                            raise AssertionError(
+                                f"{stem}: card and CPU durations differ "
+                                f"with margins {gc:.3e} / {gh:.3e}")
+        print(f"durations on the card against the CPU port (same weights): "
+              f"{len(items) - differ} of {len(items)} equal, {differ} "
+              f"differ, all at near-ties; {near} items with a best-path "
+              f"margin <= {ALIGN_NEAR_TIE:g}")
+        out["near_ties"], out["differ"] = near, differ
+
+        # the TTE manifests over phase 15's units
+        hub_lines = [{"audio": str(corpus / hub["speakers"][i] / "wavs"
+                                   / f"{hub['names'][i]}.wav"),
+                      "hubert": " ".join(map(str, hub["codes"][i])),
+                      "duration": len(hub["wavs"][i]) / 16000} for i in keep]
+        write_manifest(tmp / "hubert.txt", hub_lines)
+        stats = prepare_tte.build_tte_manifests(
+            tmp / "hubert.txt", align, tmp / "TTE", val_size=4, seed=0)
+        lines = (read_manifest(tmp / "TTE" / "train.txt")
+                 + read_manifest(tmp / "TTE" / "val.txt"))
+        ok = all(sum(map(int, e["duration"].split()))
+                 == len(e["hubert"].split())
+                 and len(e["duration"].split())
+                 == len(e["characters"].split(" ")) for e in lines)
+        print(f"build_tte_manifests over phase 15's units: train "
+              f"{stats['train']}, val {stats['val']}, skipped "
+              f"{stats['skipped']} (|sum(durations) - units| > 2 or not "
+              f"adjustable), speakers {stats['speakers']}; every line's "
+              f"durations sum to its units {ok}")
+        if (not ok or stats["train"] + stats["val"] + stats["skipped"]
+                != len(keep) or set(stats["speakers"]) != set(speakers)):
+            raise AssertionError(f"build_tte_manifests: {stats}")
+        out["manifests"] = stats
+
+        # the CLI in a process of its own, on the three shortest wavs of
+        # each speaker, at its default widths and device
+        small = tmp / "small"
+        for spk in speakers:
+            names = sorted((corpus / spk / "wavs").glob("*.wav"),
+                           key=lambda p: p.stat().st_size)[:3]
+            for p in names:
+                for sub, suffix in (("wavs", ".wav"), ("txt", ".txt")):
+                    (small / spk / sub).mkdir(parents=True, exist_ok=True)
+                    shutil.copy(corpus / spk / sub / (p.stem + suffix),
+                                small / spk / sub)
+        cmd = [sys.executable, "-m", "parrot_tts_tpu_torch.cli",
+               "run-aligner-pipeline", "--dataset-dir", str(small),
+               "--out-dir", str(tmp / "small_out"), "--epochs", "1",
+               "--batch-size", "4"] + ([] if on_card else
+                                       ["--device", "cpu"])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=Path(__file__).parent)
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        print(f"python -m parrot_tts_tpu_torch.cli run-aligner-pipeline: "
+              f"exit {proc.returncode} in {time.perf_counter() - t0:.3f} s; "
+              f"{last}")
+        if proc.returncode != 0 or json.loads(last) != {
+                s: "ok" for s in speakers}:
+            raise AssertionError(f"the CLI failed:\n{proc.stderr[-3000:]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from parrot_tts_tpu_torch.core import kernels
-    from parrot_tts_tpu_torch.core.config import (HubertConfig, MelConfig,
+    from parrot_tts_tpu_torch.core.config import (AlignerTrainConfig,
+                                                  HubertConfig, MelConfig,
                                                   TTEModelConfig,
                                                   TTETrainConfig,
                                                   VocoderModelConfig,
@@ -2437,6 +2933,7 @@ def main() -> int:
                                       checkpoint_interval=GAN_F0_STEPS),
              MelConfig(), dict(n_train=32, n_val=4, seconds=(1.0, 1.6)),
              base["units"], base["speakers"], hubert["wavs"])
+    phase_aligner(hubert, AlignerTrainConfig())
     rep = kern["report"]
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",

@@ -8,6 +8,11 @@ modules load with `strict=True`. It is the inverse of the JAX package's
 `models/tte/convert.py::params_from_torch` and
 `models/vocoder/convert.py::generator_params_from_torch`.
 
+`aligner_state_from_jax` carries the JAX aligner's params and BN state
+(`init_aligner` / `params_from_torch`) into `Aligner`: the summed LSTM
+bias goes to `bias_ih`, zeros to `bias_hh`, the running statistics to the
+BN buffers.
+
 `hubert_state_from_jax` carries a JAX HuBERT tree (`init_hubert` /
 `params_from_state_dict`, positional conv folded) into `HubertModel`.
 
@@ -49,6 +54,30 @@ def _conv1d(w) -> torch.Tensor:
 def _conv_t1d(w) -> torch.Tensor:
     """(K, Cin, Cout) -> torch ConvTranspose1d (Cin, Cout, K)."""
     return _t(np.transpose(np.asarray(w), (1, 2, 0)))
+
+
+def aligner_state_from_jax(params: Mapping, bn_state: Mapping) -> dict:
+    """JAX `init_aligner` / `params_from_torch` (params, state) ->
+    `Aligner` state dict."""
+    sd = {}
+    for i, (conv, bn) in enumerate(zip(params["convs"], params["bns"])):
+        p = f"convs.{i}."
+        st = bn_state["bns"][i]
+        sd[p + "conv.weight"] = _conv1d(conv["w"])
+        sd[p + "bnorm.weight"] = _t(bn["scale"])
+        sd[p + "bnorm.bias"] = _t(bn["bias"])
+        sd[p + "bnorm.running_mean"] = _t(st.mean)
+        sd[p + "bnorm.running_var"] = _t(st.var)
+        sd[p + "bnorm.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    for name, sfx in (("lstm_fw", ""), ("lstm_bw", "_reverse")):
+        lp = params[name]
+        sd[f"rnn.weight_ih_l0{sfx}"] = _linear(lp["w_ih"])
+        sd[f"rnn.weight_hh_l0{sfx}"] = _linear(lp["w_hh"])
+        sd[f"rnn.bias_ih_l0{sfx}"] = _t(lp["b"])
+        sd[f"rnn.bias_hh_l0{sfx}"] = torch.zeros_like(_t(lp["b"]))
+    sd["lin.weight"] = _linear(params["lin"]["w"])
+    sd["lin.bias"] = _t(params["lin"]["b"])
+    return sd
 
 
 def tte_state_from_jax(params: Mapping, cfg: TTEModelConfig) -> dict:

@@ -1,12 +1,13 @@
 """Configurations for the port: copies of `TransformerStackConfig`,
 `TTEModelConfig`, `TTETrainConfig`, `VocoderModelConfig`, `MelConfig`,
-`VocoderTrainConfig` and `HubertConfig` from
-`parrot_tts_tpu/core/config.py` (defaults are the reference's full-width
-models and recipe), the fields of
-`PipelineConfig` that TTE and vocoder training read, and `to_json`.
+`VocoderTrainConfig`, `HubertConfig` and `Aligner{Audio,Model,Train}Config`
+from `parrot_tts_tpu/core/config.py` (defaults are the reference's
+full-width models and recipe), the fields of `PipelineConfig` that TTE and
+vocoder training read, `to_json`, `vocoder_config_from_json` and the
+aligner's `aligner_configs_to_json` / `aligner_configs_from_json`.
 
-Not copied: the reference-file loaders, the other stages' configs, and the
-TPU-only fields. `dtype` and `fold_tail` select TPU layouts. `remat` /
+Not copied: the reference-file loaders, `MeshConfig` (multi-GPU is a later
+slice), and the TPU-only fields. `dtype` and `fold_tail` select TPU layouts. `remat` /
 `remat_min_len` rematerialised FFT blocks in the backward pass so the XLA
 attention's saved (B, H, T, T) weights fit in memory; the port's training
 attention (`ops/flash_dropout.py`) never stores (B, H, T, T) scores, so
@@ -225,3 +226,79 @@ class HubertConfig:
             rf += (k - 1) * hop
             hop *= s
         return rf  # 400 samples
+
+
+# ---------------------------------------------------------------------------
+# Aligner stage (reference utils/aligner/aligner_train_config.yaml)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AlignerAudioConfig:
+    """librosa mel for the aligner (reference utils/aligner/audio.py:30-42)."""
+
+    sample_rate: int = 16_000
+    n_filters: int = 1024            # n_fft
+    n_mels: int = 80
+    win_length: int = 1024
+    hop_length: int = 320            # == HuBERT unit hop
+    fmin: float = 0.0
+    fmax: float = 8000.0
+    power: float = 1.0
+
+
+@dataclass(frozen=True)
+class AlignerModelConfig:
+    """conv x3 -> BiLSTM -> linear (reference utils/aligner/model.py:24-48)."""
+
+    n_mels: int = 80
+    conv_dim: int = 512
+    lstm_dim: int = 512
+    num_symbols: int = 100           # len(symbols) + 1 (CTC blank at 0)
+
+
+@dataclass(frozen=True)
+class AlignerTrainConfig:
+    learning_rate: float = 1e-4
+    batch_size: int = 16
+    epochs: int = 450
+    plot_steps: int = 1000
+    checkpoint_steps: int = 10_000
+    grad_clip: float = 1.0
+    mel_bucket_sizes: tuple[int, ...] = (256, 512, 1024, 2048)
+    token_bucket_sizes: tuple[int, ...] = (64, 128, 256, 512)
+
+
+def aligner_configs_to_json(model_cfg: AlignerModelConfig,
+                            train_cfg: AlignerTrainConfig) -> str:
+    """Model + train config, saved as config.json beside the aligner's
+    checkpoints so extract-durations can rebuild the model."""
+    return json.dumps({"model": dataclasses.asdict(model_cfg),
+                       "train": dataclasses.asdict(train_cfg)}, indent=2)
+
+
+def aligner_configs_from_json(text: str
+                              ) -> tuple[AlignerModelConfig,
+                                         AlignerTrainConfig]:
+    d = json.loads(text)
+    t = dict(d["train"])
+    for k in ("mel_bucket_sizes", "token_bucket_sizes"):
+        if t.get(k) is not None:
+            t[k] = tuple(t[k])
+    return AlignerModelConfig(**d["model"]), AlignerTrainConfig(**t)
+
+
+def vocoder_config_from_json(text: str) -> VocoderModelConfig:
+    """Round trip of to_json(VocoderModelConfig): reads the config.json
+    that vocoder training saves beside its checkpoints, restoring the
+    tuple-typed fields JSON flattens to lists."""
+    names = {f.name for f in dataclasses.fields(VocoderModelConfig)}
+    d = {k: v for k, v in json.loads(text).items() if k in names}
+    for k in ("upsample_rates", "upsample_kernel_sizes",
+              "resblock_kernel_sizes"):
+        if k in d:
+            d[k] = tuple(d[k])
+    if "resblock_dilation_sizes" in d:
+        d["resblock_dilation_sizes"] = tuple(
+            tuple(x) for x in d["resblock_dilation_sizes"])
+    return VocoderModelConfig(**d)

@@ -1,9 +1,9 @@
 """Training logs; port of `parrot_tts_tpu/core/metrics.py`.
 `JsonlLogger` (one {step, tag, value, time} per line), `CsvLogger` (a
 Lightning-CSVLogger-style metrics.csv, reference train.py:155),
-`MetricsWriter` (scalars to JSONL; audio clips as WAV files,
-spectrograms as PNG figures when matplotlib is importable; the JAX
-package's TensorBoard event files and text artifacts are not written)
+`MetricsWriter` (scalars to JSONL; text artifacts as .txt files, audio
+clips as WAV files, spectrograms as PNG figures when matplotlib is
+importable; the JAX package's TensorBoard event files are not written)
 and `Throughput`.
 """
 
@@ -63,8 +63,8 @@ class CsvLogger:
 
 
 class MetricsWriter:
-    """Scalars to `<dir>/metrics.jsonl`; audio and figures under
-    `<dir>/{audio,figures}/<tag>_<step>.*`."""
+    """Scalars to `<dir>/metrics.jsonl`; text, audio and figures under
+    `<dir>/{text,audio,figures}/<tag>_<step>.*`."""
 
     def __init__(self, directory: str | Path):
         self.dir = Path(directory)
@@ -81,6 +81,11 @@ class MetricsWriter:
         out = self.dir / kind / f"{tag.replace('/', '_')}_{step}{suffix}"
         out.parent.mkdir(parents=True, exist_ok=True)
         return out
+
+    def text(self, tag: str, value: str, step: int) -> None:
+        """Text artifact (the aligner's decoded-vs-target strings,
+        reference utils/aligner/trainer.py:112-115)."""
+        self._path("text", tag, step, ".txt").write_text(value)
 
     def audio(self, tag: str, wav: np.ndarray, step: int,
               sample_rate: int = 16_000) -> None:

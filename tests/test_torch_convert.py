@@ -82,8 +82,8 @@ def test_seeded_init_loads_and_repeats():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, the lazily loaded ones and the training
-    slice's included, and chip_smoke."""
+    """Every module of the port, the lazily loaded ones, the training
+    slices', the aligner pipeline's and the CLI included, and chip_smoke."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import parrot_tts_tpu_torch as pkg\n"
@@ -97,7 +97,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'core.checkpoint', 'data.tte_data', 'ops.quant',\n"
         "             'ops.qconv', 'scripts.exp_int8_rate', 'ops.f0',\n"
         "             'models.hubert.model', 'models.hubert.convert',\n"
-        "             'infer.unit_extractor', 'pipeline.extract_units'):\n"
+        "             'infer.unit_extractor', 'pipeline.extract_units',\n"
+        "             'models.aligner.model', 'ops.ctc', 'train.aligner',\n"
+        "             'data.aligner_data', 'ops.monotonic_align',\n"
+        "             'pipeline.aligner_preprocess', 'pipeline.train_aligner',\n"
+        "             'pipeline.extract_durations', 'pipeline.prepare_tte',\n"
+        "             'cli'):\n"
         "    assert 'parrot_tts_tpu_torch.' + name in mods, name\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'parrot_tts_tpu' or m.startswith('parrot_tts_tpu.')]\n"
