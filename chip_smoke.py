@@ -1011,13 +1011,16 @@ def phase_batch_invariance(quant, device="cuda") -> None:
           "the same bits alone and beside a loud row (std 10)")
 
 
-def phase_profile(serve, label: str, split=()) -> None:
+def phase_profile(serve, label: str, split=(), unprofiled_ms=None) -> None:
     """One more serve under torch.profiler: device time by kernel and the
     device's busy share of the wall time. Busy time is the union of the
     kernels' intervals; the profiler's device-side annotations of aten ops
     span those same kernels and are left out. split: (label, name
     substrings) pairs; each kernel's time goes to the first whose
-    substring its name holds, the rest to "other"."""
+    substring its name holds, the rest to "other". unprofiled_ms: the
+    same call's time without the profiler (CUDA events); the busy and
+    idle shares are then also read against it, since the profiler's own
+    host work per launch stretches the profiled wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1048,6 +1051,12 @@ def phase_profile(serve, label: str, split=()) -> None:
           f"({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%; {len(kernels)} kernels, "
           f"{sum(ms for ms, _ in by_name.values()):.3f} ms summed")
+    if unprofiled_ms is not None:
+        print(f"profile: against the unprofiled {unprofiled_ms:.3f} ms "
+              f"(CUDA events) busy {100 * busy_ms / unprofiled_ms:.1f}%, "
+              f"idle {100 * max(0.0, 1 - busy_ms / unprofiled_ms):.1f}%; "
+              f"the profiler stretches the wall "
+              f"{wall_ms / unprofiled_ms:.2f}x")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
     if split:
@@ -2409,6 +2418,10 @@ ALIGN_GRAD_RTOL = 1e-3       # and |dg| / |g| over the trained parameters
 ALIGN_NEAR_TIE = 1e-4        # card against CPU durations may differ only
 #                              where the best path is within this of the
 #                              second best (`extract_durations_margin`)
+ALIGN_POST_ATOL = 1e-6       # eval-mode posteriors, card against the CPU
+#                              port: ~10x the float32-against-float64
+#                              reading (7e-8 at the reference width on
+#                              an H100)
 ALIGN_TIMED = 3              # timed steps of the gate batch (CUDA events)
 WORDS = ("the", "a", "speech", "voice", "model", "learns", "to", "align",
          "every", "frame", "with", "its", "letter", "while", "small",
@@ -2731,7 +2744,8 @@ def phase_aligner(hub: dict, train_cfg, model_kw: dict | None = None,
                   f"{torch.equal(ya, yb) and torch.equal(ga, gb)}")
             phase_profile(lambda: (atrain.train_step(s1, batch, train_cfg),
                                    torch.cuda.synchronize()),
-                          f"aligner step on {shape}", ALIGNER_PROFILE_SPLIT)
+                          f"aligner step on {shape}", ALIGNER_PROFILE_SPLIT,
+                          unprofiled_ms=step_ms)
             out.update(step_ms=step_ms, eager_step_ms=eager_ms,
                        ctc_ms=ctc_ms, ctc_eager_ms=ctc_eager_ms,
                        torch_ctc_ms=torch_ms)
@@ -2774,7 +2788,9 @@ def phase_aligner(hub: dict, train_cfg, model_kw: dict | None = None,
         out["extract"] = timings
 
         cpu_model = copy.deepcopy(model).cpu()
+        cpu_model64 = copy.deepcopy(cpu_model).double()
         differ = near = 0
+        post_err = post_err64 = host_err64 = 0.0
         for spk in speakers:
             d = align / spk
             order = np.argsort([n for (_, n, _) in index[spk]])
@@ -2789,8 +2805,13 @@ def phase_aligner(hub: dict, train_cfg, model_kw: dict | None = None,
                 x = torch.from_numpy(mel)
                 card = atrain.posteriors(model, x.to(dev)).cpu().numpy()
                 host = atrain.posteriors(cpu_model, x).numpy()
+                host64 = atrain.posteriors(cpu_model64, x.double()).numpy()
                 for j, i in enumerate(idxs):
                     stem, frames, _ = index[spk][i]
+                    c, h, h64 = (a[j, :frames] for a in (card, host, host64))
+                    post_err = max(post_err, float(np.abs(c - h).max()))
+                    post_err64 = max(post_err64, float(np.abs(c - h64).max()))
+                    host_err64 = max(host_err64, float(np.abs(h - h64).max()))
                     tok = np.load(d / "tokens" / f"{stem}.npy")
                     dc, gc = ma.extract_durations_margin(tok, card[j, :frames])
                     dh, gh = ma.extract_durations_margin(tok, host[j, :frames])
@@ -2806,11 +2827,19 @@ def phase_aligner(hub: dict, train_cfg, model_kw: dict | None = None,
                             raise AssertionError(
                                 f"{stem}: card and CPU durations differ "
                                 f"with margins {gc:.3e} / {gh:.3e}")
+        print(f"posteriors on the card against the CPU port (same weights, "
+              f"eval mode, each item's frames): max |dp| {post_err:.3e} "
+              f"(<= {ALIGN_POST_ATOL:g}); against the CPU in float64 "
+              f"{post_err64:.3e}, the CPU's float32 {host_err64:.3e}")
         print(f"durations on the card against the CPU port (same weights): "
               f"{len(items) - differ} of {len(items)} equal, {differ} "
               f"differ, all at near-ties; {near} items with a best-path "
               f"margin <= {ALIGN_NEAR_TIE:g}")
+        if post_err > ALIGN_POST_ATOL:
+            raise AssertionError("the card's posteriors differ from the "
+                                 "CPU port's")
         out["near_ties"], out["differ"] = near, differ
+        out["posterior_err"] = post_err
 
         # the TTE manifests over phase 15's units
         hub_lines = [{"audio": str(corpus / hub["speakers"][i] / "wavs"
@@ -2847,22 +2876,65 @@ def phase_aligner(hub: dict, train_cfg, model_kw: dict | None = None,
                     (small / spk / sub).mkdir(parents=True, exist_ok=True)
                     shutil.copy(corpus / spk / sub / (p.stem + suffix),
                                 small / spk / sub)
-        cmd = [sys.executable, "-m", "parrot_tts_tpu_torch.cli",
-               "run-aligner-pipeline", "--dataset-dir", str(small),
-               "--out-dir", str(tmp / "small_out"), "--epochs", "1",
-               "--batch-size", "4"] + ([] if on_card else
-                                       ["--device", "cpu"])
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600, cwd=Path(__file__).parent)
-        last = (proc.stdout.strip().splitlines() or [""])[-1]
-        print(f"python -m parrot_tts_tpu_torch.cli run-aligner-pipeline: "
-              f"exit {proc.returncode} in {time.perf_counter() - t0:.3f} s; "
-              f"{last}")
-        if proc.returncode != 0 or json.loads(last) != {
-                s: "ok" for s in speakers}:
-            raise AssertionError(f"the CLI failed:\n{proc.stderr[-3000:]}")
+        # twice, with CUBLAS_WORKSPACE_CONFIG unset in its environment: the
+        # CLI pins the workspace itself, so both runs give the same bits
+        env = {k: v for k, v in os.environ.items()
+               if k != "CUBLAS_WORKSPACE_CONFIG"}
+        runs = []
+        for run in ("cli_a", "cli_b"):
+            cmd = [sys.executable, "-m", "parrot_tts_tpu_torch.cli",
+                   "run-aligner-pipeline", "--dataset-dir", str(small),
+                   "--out-dir", str(tmp / run), "--epochs", "2",
+                   "--batch-size", "4"] + ([] if on_card else
+                                           ["--device", "cpu"])
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=600, env=env,
+                                  cwd=Path(__file__).parent)
+            lines = proc.stdout.strip().splitlines() or [""]
+            steps = [json.loads(l)["steps"] for l in lines
+                     if l.startswith('{"steps"')]
+            print(f"python -m parrot_tts_tpu_torch.cli run-aligner-pipeline "
+                  f"(CUBLAS_WORKSPACE_CONFIG unset): exit {proc.returncode} "
+                  f"in {time.perf_counter() - t0:.3f} s; steps per speaker "
+                  f"{steps}; {lines[-1]}")
+            if (proc.returncode != 0 or len(steps) != len(speakers)
+                    or min(steps) < 2
+                    or json.loads(lines[-1]) != {s: "ok" for s in speakers}):
+                raise AssertionError(
+                    f"the CLI failed:\n{proc.stderr[-3000:]}")
+            runs.append(tmp / run)
+        same = all(cli_outputs_equal(runs[0] / spk, runs[1] / spk)
+                   for spk in speakers)
+        print(f"the CLI's two runs: checkpoints (weights, BN statistics, "
+              f"moments), mels and durations the same bits {same}")
+        if not same:
+            raise AssertionError("the CLI's aligner runs differ")
     return out
+
+
+def cli_outputs_equal(a, b) -> bool:
+    """Two run-aligner-pipeline outputs of one speaker: the last
+    checkpoint's tensors and every .npy file (mels, tokens, durations)
+    equal bit for bit."""
+    from parrot_tts_tpu_torch.core.checkpoint import CheckpointManager
+
+    ca, cb = (CheckpointManager(d / "ckpt").restore() for d in (a, b))
+
+    def equal(x, y) -> bool:
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(equal(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(map(equal, x, y))
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        return x == y
+
+    files = sorted(p.relative_to(a) for p in a.rglob("*.npy"))
+    return (equal(ca, cb) and len(files) > 0
+            and files == sorted(p.relative_to(b) for p in b.rglob("*.npy"))
+            and all(np.array_equal(np.load(a / f), np.load(b / f))
+                    for f in files))
 
 
 def main() -> int:

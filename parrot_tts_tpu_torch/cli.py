@@ -6,7 +6,9 @@ extract-durations, extract-units (ingest), prepare-tte, train-tte,
 infer-tte, prepare-vocoder, train-vocoder, synthesize. The subcommands,
 their arguments, defaults and the JSON line each prints are the JAX CLI's.
 Every subcommand also takes `--device` (default: the CUDA card, which is
-required unless `--device cpu` is given). `synthesize --mesh` raises:
+required unless `--device cpu` is given); `main` pins cuBLAS's workspace
+(CUBLAS_WORKSPACE_CONFIG=:4096:8 unless set) before any subcommand runs.
+`synthesize --mesh` raises:
 sharded serving over several GPUs is not in the port.
 
 Usage: python -m parrot_tts_tpu_torch.cli <subcommand> [args]
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -143,6 +146,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    # before any subcommand touches the card: torch reads the variable at
+    # the process's first cuBLAS call (run-aligner-pipeline's mels come
+    # before its training), and aligner training repeats bit for bit only
+    # with the workspace pinned (pipeline/train_aligner.py)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     args = build_parser().parse_args(argv)
     return DISPATCH[args.cmd](args)
 

@@ -34,13 +34,13 @@ def _window(n_fft: int, win_size: int) -> np.ndarray:
 
 
 def stft_magnitude(y: torch.Tensor, n_fft: int, hop_size: int,
-                   win_size: int, *, center: bool = False,
-                   magnitude_eps: float = 1e-9) -> torch.Tensor:
+                   win_size: int, *, center: bool = False) -> torch.Tensor:
     """|STFT(y)| of (B, T) waveforms -> (B, n_frames, n_fft//2 + 1).
 
-    center=False: reflect-padded by (n_fft - hop)/2 on each side first
-    (the loss mel); center=True: by n_fft // 2 (librosa's centring).
-    magnitude_eps is added under the square root."""
+    center=False, the loss mel: reflect-padded by (n_fft - hop)/2 on each
+    side first, sqrt(re^2 + im^2 + 1e-9). center=True, librosa's: by
+    n_fft // 2, sqrt(re^2 + im^2). (The JAX function's two knobs, centring
+    and the epsilon, are always set together, so the port has one.)"""
     if y.dim() != 2:
         raise ValueError(
             f"expected (B, T) waveform, got shape {tuple(y.shape)}")
@@ -51,8 +51,8 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop_size: int,
     win = torch.as_tensor(_window(n_fft, win_size), dtype=y.dtype,
                           device=y.device)
     spec = torch.fft.rfft(y.unfold(-1, n_fft, hop_size) * win, dim=-1)
-    return torch.sqrt(spec.real.square() + spec.imag.square()
-                      + magnitude_eps)
+    power = spec.real.square() + spec.imag.square()
+    return torch.sqrt(power if center else power + 1e-9)
 
 
 def log_compress(x: torch.Tensor) -> torch.Tensor:
@@ -78,18 +78,15 @@ def librosa_mel_spectrogram(y: torch.Tensor, *, sample_rate: int = 16_000,
                             n_fft: int = 1024, n_mels: int = 80,
                             hop_length: int = 320, win_length: int = 1024,
                             fmin: float = 0.0, fmax: float = 8000.0,
-                            power: float = 1.0, log: bool = True
-                            ) -> torch.Tensor:
+                            power: float = 1.0) -> torch.Tensor:
     """The aligner's feature mel (reference utils/aligner/audio.py:30-47)
     of (B, T) waveforms -> (B, 1 + T // hop_length, n_mels): centred STFT,
     |.|^power, Slaney mel, log(clip(., 1e-5)). In a zero-padded batch a
     short wav's last frames see the zeros, not its own reflection."""
-    mag = stft_magnitude(y, n_fft, hop_length, win_length, center=True,
-                         magnitude_eps=0.0)
+    mag = stft_magnitude(y, n_fft, hop_length, win_length, center=True)
     if power != 1.0:
         mag = mag ** power
     fb = torch.as_tensor(
         mellib.mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax),
         dtype=mag.dtype, device=mag.device)
-    mel = mag @ fb.T
-    return log_compress(mel) if log else mel
+    return log_compress(mag @ fb.T)

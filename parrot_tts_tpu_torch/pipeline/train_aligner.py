@@ -9,10 +9,11 @@ decode against the target transcript, and the target with each symbol
 repeated by its extracted duration. The step itself (IEEE float32 CTC,
 the non-finite skip) is `train/aligner.py`.
 
-On the card `train_aligner` pins cuBLAS's workspace
-(CUBLAS_WORKSPACE_CONFIG=:4096:8 unless already set) before the first
-CUDA call it makes, which cuDNN's LSTM backward needs to repeat bit for
-bit.
+On the card a step repeats bit for bit only when cuBLAS's workspace is
+pinned (CUBLAS_WORKSPACE_CONFIG=:4096:8 or :16:8) for cuDNN's LSTM
+backward. torch reads the variable once, when the process makes its first
+cuBLAS handle, so the caller sets it before its first CUDA call, as
+`cli.main` does; `train_aligner` raises on the card when it is unset.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ from parrot_tts_tpu_torch.models.aligner.model import Aligner
 from parrot_tts_tpu_torch.ops.monotonic_align import extract_durations
 from parrot_tts_tpu_torch.text.tokenizer import CharTokenizer
 from parrot_tts_tpu_torch.train import aligner as atrain
+
+# cuBLAS workspace settings under which its results repeat bit for bit
+DETERMINISTIC_WORKSPACES = (":4096:8", ":16:8")
 
 
 def _longest_sample(ds: AlignerDataset) -> tuple[np.ndarray, np.ndarray]:
@@ -81,11 +85,17 @@ def train_aligner(data_dir: str | Path, symbols: list[str],
     hook: it raises WITHOUT the end-of-epoch save, as a real crash would.
     `epoch_saves=False` drops the reference's per-epoch save and keeps the
     `checkpoint_steps` cadence alone. device: default the CUDA card
-    (raises without one); "cpu" runs on the host. Returns
+    (raises without one, or without the cuBLAS workspace pin of the
+    module docstring); "cpu" runs on the host. Returns
     {"steps", "ctc_loss"}."""
     device = resolve_device(device)
-    if device.type == "cuda":
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if (device.type == "cuda" and os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+            not in DETERMINISTIC_WORKSPACES):
+        raise RuntimeError(
+            "aligner training on the card needs CUBLAS_WORKSPACE_CONFIG="
+            ":4096:8 (or :16:8) in the environment before the process's "
+            "first CUDA call, so that cuDNN's LSTM backward repeats bit for "
+            "bit")
     data_dir = Path(data_dir)
     ds = AlignerDataset(data_dir)
     if model_cfg is None:

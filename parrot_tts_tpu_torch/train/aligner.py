@@ -19,7 +19,8 @@ matmuls, deterministic cuDNN algorithms, and the CTC of `ops/ctc.py`,
 whose backward has no atomics, so a step is a function of (weights, BN
 statistics, batch) bit for bit on the card. cuDNN's LSTM backward repeats
 only with cuBLAS's workspace pinned (CUBLAS_WORKSPACE_CONFIG=:4096:8,
-which `pipeline/train_aligner.py` sets). A state on the card carries a
+set before the process's first CUDA call; `cli.main` sets it and
+`pipeline/train_aligner.py` checks it). A state on the card carries a
 `CTCGraphs` cache, so the CTC's recursion replays as CUDA graphs (the
 same kernels as the eager loops, so the same bits).
 """

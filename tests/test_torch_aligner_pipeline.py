@@ -5,6 +5,7 @@ file: symbols, clean texts, tokens, dataset.pkl, durations, manifests and
 speakers.json equal; mels within 1e-4."""
 
 import json
+import os
 import pickle
 import shutil
 
@@ -19,6 +20,7 @@ from parrot_tts_tpu.models.aligner import model as jax_model
 from parrot_tts_tpu.pipeline import aligner_preprocess as jax_pre
 from parrot_tts_tpu.pipeline import extract_durations as jax_ext
 from parrot_tts_tpu.pipeline import prepare_tte as jax_prep
+from parrot_tts_tpu_torch import cli
 from parrot_tts_tpu_torch.convert import aligner_state_from_jax
 from parrot_tts_tpu_torch.core.checkpoint import CheckpointManager
 from parrot_tts_tpu_torch.core.config import (AlignerModelConfig,
@@ -255,3 +257,20 @@ def test_pipeline_defaults_to_the_card(prepared, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train_aligner.train_aligner(pdir / SPEAKERS[0], symbols,
                                     AlignerTrainConfig())
+
+
+def test_card_training_needs_the_cublas_pin(prepared, monkeypatch):
+    """On the card train_aligner refuses to start without cuBLAS's
+    workspace pinned (torch reads the variable at the process's first
+    cuBLAS call, too early for train_aligner to set it); the CLI's main
+    pins it before any subcommand runs."""
+    _, _, pdir, symbols = prepared
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    monkeypatch.setattr(train_aligner, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
+        train_aligner.train_aligner(pdir / SPEAKERS[0], symbols,
+                                    AlignerTrainConfig())
+    with pytest.raises(SystemExit):
+        cli.main(["--help"])
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
