@@ -19,14 +19,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    serving phase gives it, and a d_head=64 case; max |diff| <= 1e-5 on rows
    with a valid key, all-masked rows exactly 0; kernel, plain, bound (the
    3xTF32 tensor-core bound beside the float32 CUDA-core one) and
-   scaled_dot_product_attention ms (and its max |diff|) per shape;
+   scaled_dot_product_attention ms (and its max |diff|) per shape; and at
+   every shape the 1-pass TF32 mode (each operand rounded to TF32 once,
+   one mma.sync per product) against its plain version, which rounds q, k,
+   P (tile by tile, against the running row max) and v where the kernel
+   does (max |diff| <= 2^-10 max |v| + 1e-5, RMS <= 1/4 of the plain
+   version's RMS distance from IEEE, all-masked rows exactly 0), more than
+   1e-5 from the IEEE version (so it rounds), its ms, its TF32 bound and
+   SDPA's ms with TF32 allowed;
 4. serving at full width: the default TTEModelConfig (d_model 256, 4+4 FFT
    blocks, 2 heads of 128) and V1 VocoderModelConfig with seeded weights,
-   through ParrotTTS.tts twice (deterministic, lengths len(units)*320,
-   finite, the kernel launched once per FFT block per decode batch), then
-   the same decode batches once more with plain attention on the card:
-   durations and totals equal, max |dlogit| <= 1e-4, codes equal wherever
-   the top-2 logit margin exceeds 1e-3;
+   through ParrotTTS.tts twice in its default decode mode,
+   "selective-high" (IEEE float32 on this card, as exact=True;
+   deterministic, lengths len(units)*320, finite, the
+   kernel launched once per FFT block per decode batch), then the same
+   decode batches once more in exact=True with plain attention on the
+   card: durations and totals equal, max |dlogit| <= 1e-4, codes equal
+   wherever the top-2 logit margin exceeds 1e-3. Then the decode modes:
+   the plan through ParrotTTS.predict_units in exact=True,
+   "selective-high", "selective" and "hybrid" (row 1's launches per mode,
+   each mode's counts per FFT block and decode batch: no 1-pass launch in
+   exact=True and "selective-high", "selective"'s decoder blocks all
+   1-pass and its encoder blocks 3xTF32, the hybrid as "selective" plus
+   its re-decode; each repeatable; TTE seconds per mode over 3 warm
+   decodes, CUDA events, beside the card's name and power limit), and each
+   decode batch's logits: "selective-high" bit-equal to exact=True (near-tie
+   frames counted), two decodes bit-equal, its units those of the default
+   serve; "selective" with durations and totals equal, its code agreement
+   printed, and every request whose units differ from exact=True's with a
+   top-2 margin below 0.5; "hybrid": flagged requests (margin < 0.5) give
+   "selective-high"'s units, the others "selective"'s, the flagged share
+   printed;
 5. fused MRF against plain: the fused-MRF kernel (row 6: 3xTF32 products
    on the TF32 tensor cores, wgmma m64nNk8 with A from registers, TF32
    hi / lo weight slabs through a cp.async ring) at every (B, T, C) the
@@ -207,7 +230,22 @@ FP32_PEAK = 67e12            # H100 SXM float32 non-tensor FLOP/s (data sheet)
 INT8_PEAK = 1979e12          # H100 SXM int8 dense tensor-core OP/s (data sheet)
 HBM_RATE = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
 ATOL = 1e-5
+# row 1's 1-pass mode against its plain version: both take exact products
+# of the same TF32 values (q, k, v, and P rounded tile by tile against the
+# running row max), and differ by float32 sums in another order, which
+# sends the rare weight to the neighbouring TF32 value (<= 2^-10 of it;
+# the weights sum to the divisor): max |diff| <= 2^-10 max |v| + ATOL.
+# That rare flip is all: the RMS of the difference stays below
+# ONE_PASS_RMS_SHARE of the plain version's RMS distance from IEEE, where
+# a kernel that truncated P or ran its 3xTF32 mode would read ~1
+# (tests/test_torch_kernels.py::test_one_pass_gate_tells_rounding_apart)
+ONE_PASS_VREL = 2.0**-10
+ONE_PASS_RMS_SHARE = 0.25
 DLOGIT_TOL = 1e-4            # kernel decode against plain-attention decode
+NEAR_TIE = 1e-3              # codes compared where the top-2 margin exceeds it
+HYBRID_THRESHOLD = 0.5       # decode_buckets' default margin_threshold
+DECODE_MODES = (True, "selective-high", "selective", "hybrid")
+MODE_REPEATS = 3             # timed warm decodes of the plan per mode
 MRF_RTOL = 1e-5              # fused MRF: max |diff| <= MRF_RTOL * max |plain|
 FUSED_SERVE_ATOL = 1e-5      # fused serve against the float serve
 SNR_MIN_DB = 15.0            # int8-static serve against the float serve: the
@@ -323,11 +361,13 @@ def queued_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def attention_bound_ms(b: int, h: int, t: int, d: int) -> dict:
     """Row 1's bounds: its 3xTF32 products (3 * 4*B*H*T^2*d on the TF32
-    tensor cores; the kernels line's bound) and the same work as float32
-    FMAs on the CUDA cores; Q, K, V read and O written once, mask bytes."""
+    tensor cores; the kernels line's bound), its 1-pass mode's (4*B*H*T^2*d
+    on them), and the same work as float32 FMAs on the CUDA cores; Q, K, V
+    read and O written once, mask bytes."""
     flops = 4.0 * b * h * t * t * d
     nbytes = 4.0 * (4 * b * h * t * d) + b * t
     return {"3xtf32": bound(3 * flops, TF32_PEAK, nbytes),
+            "tf32": bound(flops, TF32_PEAK, nbytes),
             "f32": bound(flops, FP32_PEAK, nbytes)}
 
 
@@ -397,8 +437,10 @@ def ptxas_registers(log: str) -> dict:
     out, name = {}, None
     for line in log.splitlines():
         if "entry function" in line:
-            m = re.search(r"(flash_fwd|fwd|dq|dkv)_kernelILi(\d+)E", line)
-            name = m and f"{m.group(1)}_kernel<{m.group(2)}>"
+            m = re.search(r"(flash_fwd|fwd|dq|dkv)_kernelILi(\d+)E"
+                          r"(?:Lb([01])E)?", line)
+            name = m and f"{m.group(1)}_kernel<{m.group(2)}" + (
+                {"1": ", 3xTF32", "0": ", 1-pass"}.get(m.group(3), "") + ">")
             m = re.search(r"mrf_kernelILi(\d+)ELi(\d+)E", line)
             if m:       # <C, wgmma n>; C = 0: a runtime-C instantiation
                 name = f"mrf_kernel<{m.group(1)}, {m.group(2)}>"
@@ -419,10 +461,26 @@ def print_registers(registers: dict) -> None:
               f"spill loads {ld} bytes")
 
 
+def one_pass_gate(got, want, ieee, v) -> tuple[float, ...]:
+    """Row 1's 1-pass output `got` against its plain version `want` and
+    the IEEE version `ieee` (rows with a valid key): max |diff|, RMS diff
+    and max |diff from IEEE|, and the max and RMS limits (ONE_PASS_VREL,
+    ONE_PASS_RMS_SHARE)."""
+    def rms(x):
+        return float(x.pow(2).mean().sqrt())
+
+    return (float((got - want).abs().max()), rms(got - want),
+            float((got - ieee).abs().max()),
+            ONE_PASS_VREL * float(v.abs().max()) + ATOL,
+            ONE_PASS_RMS_SHARE * rms(want - ieee))
+
+
 def phase_kernel(fa, exact_numerics, registers: dict) -> dict:
     """Row 1 against its plain version at every KERNEL_SHAPES shape, with
-    its times, bounds and SDPA's. `registers`: ptxas_registers of the
-    source."""
+    its times, bounds and SDPA's, in its 3xTF32 mode and its 1-pass mode
+    (against the plain version that rounds as it does; its distance from
+    the IEEE version; SDPA with TF32 allowed beside it). `registers`:
+    ptxas_registers of the source."""
     print_registers(registers)
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
@@ -468,17 +526,52 @@ def phase_kernel(fa, exact_numerics, registers: dict) -> dict:
 
             library_ms = cuda_ms(sdpa, reps)
             lib_err = float((sdpa()[keep] - want[keep]).abs().max())
+
+            # the 1-pass TF32 mode
+            got1 = fa.flash_attention(q, k, v, mask, scale, passes=1)
+            want1 = fa.flash_attention_reference(q, k, v, mask, scale,
+                                                 passes=1)
+            torch.cuda.synchronize()
+            if masked_row is not None and not torch.equal(
+                    got1[masked_row], torch.zeros_like(got1[masked_row])):
+                raise AssertionError(f"B={b} T={t}: 1-pass all-masked row is "
+                                     "not exactly 0")
+            err1, rms1, ieee1, tol1, rms_tol = one_pass_gate(
+                got1[keep], want1[keep], want[keep], v)
+            if not (err1 <= tol1 and rms1 <= rms_tol and ieee1 > ATOL):
+                raise AssertionError(
+                    f"B={b} T={t} d={d}: 1-pass against its plain version "
+                    f"max |diff| {err1} (<= {tol1}), RMS {rms1} (<= "
+                    f"{rms_tol}); {ieee1} from IEEE (> {ATOL})")
+            ms1 = cuda_ms(lambda: fa.flash_attention(q, k, v, mask, scale,
+                                                     passes=1), reps)
+        with exact_numerics(False):        # SDPA with TF32 allowed
+            library1_ms = cuda_ms(sdpa, reps)
+            lib1_err = float((sdpa()[keep] - want[keep]).abs().max())
         bounds = attention_bound_ms(b, h, t, d)
         (bound_ms, bound_by), (f32_ms, f32_by) = bounds["3xtf32"], bounds["f32"]
+        bound1_ms, bound1_by = bounds["tf32"]
         rows.append({"B": b, "H": h, "T": t, "d": d, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "one_pass": {"max_abs_err": err1, "ieee_err": ieee1,
+                                  "ms": ms1, "bound_ms": bound1_ms,
+                                  "bound_by": bound1_by,
+                                  "library_ms": library1_ms}})
         print(f"kernel B={b} T={t:5d} d={d:3d}: max|diff| {err:.3e}  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound 3xTF32 "
               f"{bound_ms:.4f} ms ({bound_by}), float32 {f32_ms:.4f} ms "
               f"({f32_by})  sdpa {library_ms:.4f} ms (max|diff| "
               f"{lib_err:.3e})")
-        del q, k, v, got, want
+        print(f"  1-pass: max|diff| {err1:.3e} (<= {tol1:.3e}), RMS "
+              f"{rms1:.3e} (<= {rms_tol:.3e}; "
+              f"{rms1 * ONE_PASS_RMS_SHARE / rms_tol:.4f} of the plain "
+              f"version's from IEEE) against its plain version, "
+              f"{ieee1:.3e} from IEEE; kernel {ms1:.4f} ms "
+              f"(3xTF32 {ms:.4f})  bound TF32 {bound1_ms:.4f} ms "
+              f"({bound1_by})  sdpa TF32 {library1_ms:.4f} ms (max|diff| "
+              f"from IEEE {lib1_err:.3e})")
+        del q, k, v, got, want, got1, want1
     return {"rows": rows,
             "report": next(r for r in rows if (r["B"], r["T"], r["d"])
                            == REPORT_SHAPE),
@@ -607,6 +700,186 @@ def phase_serving(fa, tcfg, vcfg, device=None) -> dict:
     return {"launches": launches, "wavs": wavs, "units": units,
             "speakers": speakers, "tts": tts,
             "serve": lambda: tts.tts(TEXTS, speakers=speakers)}
+
+
+def device_seconds(fn) -> float:
+    """Seconds of one fn() between two CUDA events (the host clock without
+    a card, for a CPU rehearsal)."""
+    if torch.cuda.is_available():
+        return cuda_ms(fn, 1, warmup=0) / 1e3
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def phase_decode_modes(fa, base: dict, smi: str, device=None) -> dict:
+    """Phase 4's mixed-precision decodes: the serve's plan through
+    ParrotTTS.predict_units in each of DECODE_MODES (row 1's launches per
+    mode counted, the units repeatable, TTE seconds over MODE_REPEATS warm
+    decodes; exact=True's units through the serve's vocoder give the default
+    serve's waveforms where the units agree), then each decode batch's
+    logits in exact=True, "selective-high" (bit-equal to exact=True's) and
+    "selective" held to the gates of the default mode and of the fast one,
+    the hybrid decode's
+    units to its flags, and TTE seconds per mode of one full decode batch
+    (the 2048 bucket's requests repeated to the serve's batch size)."""
+    from parrot_tts_tpu_torch.core.device import exact_numerics
+    from parrot_tts_tpu_torch.infer.tte_infer import decode_buckets, make_batch
+    from parrot_tts_tpu_torch.models.tte import parrot
+    from parrot_tts_tpu_torch.ops import length_regulator as lr
+
+    tts, speakers = base["tts"], base["speakers"]
+    tokens = [tts.tokenize(t) for t in TEXTS]
+    plan = tts.plan(tokens)
+    units, launches, stats, secs = {}, {}, {}, {}
+    default = tts.exact
+    try:
+        for mode in DECODE_MODES:
+            tts.exact = mode
+            st: dict = {}
+            fa.FLASH_FWD.launches = fa.FLASH_FWD.one_pass = 0
+            units[mode] = tts.predict_units(tokens, speakers, stats=st)
+            launches[mode] = {3: fa.FLASH_FWD.launches - fa.FLASH_FWD.one_pass,
+                              1: fa.FLASH_FWD.one_pass}
+            stats[mode] = st
+            secs[mode] = []
+            for _ in range(MODE_REPEATS):
+                again = []
+                secs[mode].append(device_seconds(
+                    lambda: again.extend(tts.predict_units(tokens, speakers))))
+                if not all(map(np.array_equal, again, units[mode])):
+                    raise AssertionError(f"exact={mode!r}: the decode is not "
+                                         "deterministic")
+    finally:
+        tts.exact = default
+    print("row-1 launches per decode mode (3xTF32, 1-pass): " + ", ".join(
+        f"{m!r} ({n[3]}, {n[1]})" for m, n in launches.items()))
+    # one launch per FFT block per decode batch, in its section's mode; the
+    # hybrid's fast decode is "selective"'s, its re-decode "selective-high"
+    enc, dec = tts.tte_cfg.encoder.n_layer, tts.tte_cfg.decoder.n_layer
+    fast = stats["selective"]["decode_batches"]
+    redo = stats["hybrid"]["decode_batches"] - fast
+    want = {True: ((enc + dec) * stats[True]["decode_batches"], 0),
+            "selective-high": ((enc + dec) * stats["selective-high"][
+                "decode_batches"], 0),
+            "selective": (enc * fast, dec * fast),
+            "hybrid": (enc * fast + (enc + dec) * redo, dec * fast)}
+    for mode, (n3, n1) in want.items():
+        if device is None and (launches[mode][3], launches[mode][1]) != (n3,
+                                                                        n1):
+            raise AssertionError(f"exact={mode!r}: row-1 launches (3xTF32, "
+                                 f"1-pass) {launches[mode][3]}, "
+                                 f"{launches[mode][1]}; want {n3}, {n1}")
+    if not all(map(np.array_equal, units["selective-high"], base["units"])):
+        raise AssertionError("the default serve's units are not the "
+                             "\"selective-high\" decode's")
+    # the serve's vocoder runs as exact=True's: equal units, equal bits
+    same = [i for i, (a, b) in enumerate(zip(units[True], base["units"]))
+            if np.array_equal(a, b)]
+    wavs = tts.vocoder.synthesize(units[True], speakers)
+    if not all(np.array_equal(wavs[i], base["wavs"][i]) for i in same):
+        raise AssertionError("exact=True's units through the serve's vocoder "
+                             "differ from the default serve's waveforms")
+    print(f"exact=True's units through the serve's vocoder: waveforms "
+          f"bit-equal to the default serve's on the {len(same)} of "
+          f"{len(TEXTS)} requests whose units agree")
+
+    samples = [(s, speakers[i]) for i, s in enumerate(tokens)]
+    margin = {}
+    frames = near = 0
+    flips = worst = 0
+    for s_len, out_len, idxs in plan:
+        batch = parrot.to_batch(make_batch(samples, idxs, s_len), tts.device)
+        out = {}
+        with torch.no_grad():
+            for mode in (True, "selective-high", "selective",
+                         "selective-high"):
+                with exact_numerics(mode is not False):
+                    logits, mask, logdur = parrot.apply_parrot(
+                        tts.tte, batch, out_len=out_len, exact=mode)
+                dur = torch.where(batch["src_mask"],
+                                  lr.durations_from_log_pred(logdur), 0)
+                if mode in out and not torch.equal(logits, out[mode][0]):
+                    raise AssertionError(f"bucket {out_len}: two "
+                                         f"{mode!r} decodes differ")
+                out[mode] = (logits, mask, dur)
+        le, me, de = out[True]
+        top2 = torch.topk(le, 2, dim=-1).values
+        clear = me & (top2[..., 0] - top2[..., 1] > NEAR_TIE)
+        frames += int(me.sum())
+        near += int((me & ~clear).sum())
+        for j, m in zip(idxs, parrot.code_margin(out["selective"][0], me)):
+            margin[j] = float(m)
+        # "selective-high" runs as exact=True on this card: the same bits
+        if not all(map(torch.equal, out["selective-high"], out[True])):
+            raise AssertionError(f"bucket {out_len}: \"selective-high\" "
+                                 "logits, durations or mask differ from "
+                                 "exact=True's")
+        lm, mm, dm = out["selective"]
+        if not (torch.equal(dm, de) and torch.equal(mm, me)):
+            raise AssertionError(f"bucket {out_len}: \"selective\" "
+                                 "durations differ from exact=True's")
+        dlogit = float((lm - le)[me].abs().max())
+        worst = max(worst, dlogit)
+        diff = me & (lm.argmax(-1) != le.argmax(-1))
+        flips += int(diff.sum())
+        print(f"bucket ({s_len}, {out_len}) x {len(idxs)}: "
+              f"\"selective-high\" bit-equal to exact=True; \"selective\" "
+              f"durations equal, max |dlogit| {dlogit:.3e}, codes differ at "
+              f"{int(diff.sum())} of {int(me.sum())} frames, "
+              f"{int((diff & clear).sum())} off ties")
+    print(f"frames {frames}, near-tie frames (exact margin <= {NEAR_TIE}) "
+          f"{near}; \"selective\" code flips against exact=True {flips} "
+          f"(agreement {1 - flips / max(frames, 1):.6f}), max |dlogit| "
+          f"{worst:.3e}")
+
+    changed = [i for i, (a, b) in enumerate(zip(units["selective"],
+                                                units[True]))
+               if not np.array_equal(a, b)]
+    low = [i for i in range(len(TEXTS)) if margin[i] < HYBRID_THRESHOLD]
+    print(f"\"selective\": requests whose units differ from exact=True's "
+          f"{changed}; selective margins "
+          f"{[round(margin[i], 6) for i in range(len(TEXTS))]}")
+    if not set(changed) <= set(low):
+        raise AssertionError("a \"selective\" request with changed units has "
+                             f"a margin >= {HYBRID_THRESHOLD}")
+    if stats["hybrid"]["hybrid_flagged"] != len(low):
+        raise AssertionError(f"hybrid flagged {stats['hybrid']} requests, "
+                             f"{len(low)} have a margin < {HYBRID_THRESHOLD}")
+    for i, u in enumerate(units["hybrid"]):
+        want = units["selective-high" if i in low else "selective"][i]
+        if not np.array_equal(u, want):
+            raise AssertionError(f"hybrid request {i} ({'' if i in low else 'not '}"
+                                 "flagged) differs from its mode's units")
+    print(f"hybrid: flagged {len(low)} of {len(TEXTS)} requests "
+          f"({len(low) / len(TEXTS):.3f}), {stats['hybrid']['decode_batches']}"
+          f" decode batches; flagged requests give \"selective-high\"'s "
+          "units, the others \"selective\"'s")
+    # one full decode batch: the (128 -> 2048) bucket's requests repeated
+    # to batch_size rows, where the decoder's products, not the launches,
+    # take the time
+    s_len, out_len, idxs = next(p for p in plan if p[1] == 2048)
+    rows = [samples[idxs[j % len(idxs)]] for j in range(tts.batch_size)]
+    full = [(s_len, out_len, list(range(len(rows))))]
+    full_secs = {}
+    for mode in DECODE_MODES:
+        def decode():
+            decode_buckets(tts.tte, rows, full, batch_size=len(rows),
+                           exact=mode, device=tts.device)
+        decode()
+        full_secs[mode] = [device_seconds(decode)
+                           for _ in range(MODE_REPEATS)]
+    print(smi)
+    for name, plan_secs in ((f"the plan ({len(TEXTS)} requests)", secs),
+                            (f"one batch of {len(rows)} x ({s_len} -> "
+                             f"{out_len})", full_secs)):
+        for mode in DECODE_MODES:
+            t = plan_secs[mode]
+            print(f"TTE seconds, {name}, exact={mode!r}: mean "
+                  f"{np.mean(t):.6f} over {MODE_REPEATS} warm decodes (min "
+                  f"{min(t):.6f}, max {max(t):.6f}); relative to exact=True "
+                  f"{np.mean(t) / np.mean(plan_secs[True]):.3f}")
+    return {"launches": launches, "units": units}
 
 
 def mrf_stages(vcfg) -> list[tuple[int, int, int]]:
@@ -1954,8 +2227,9 @@ def phase_gan(mcfg, tcfg, mel_cfg, corpus: dict, device=None) -> dict:
 def phase_manifest_io(fa, tts, speakers, device=None) -> None:
     """write_predictions on the phase-4 TTE, for every non-empty request
     and with the serve's encoder buckets (so the same decode batches),
-    gives the units that ParrotTTS decodes; synthesize_text gives a finite
-    waveform of len(units) * 320 samples for each."""
+    gives the units that ParrotTTS decodes with exact=True (the mode both
+    manifest entry points run); synthesize_text gives a finite waveform of
+    len(units) * 320 samples for each."""
     import tempfile
     from pathlib import Path
 
@@ -1968,7 +2242,9 @@ def phase_manifest_io(fa, tts, speakers, device=None) -> None:
     picked = [i for i, t in enumerate(TEXTS) if len(tts.tokenize(t))]
     tokens = [tts.tokenize(TEXTS[i]) for i in picked]
     spk = [speakers[i] for i in picked]
-    want = tts.predict_units(tokens, spk)
+    want = tte_infer.decode_buckets(
+        tts.tte, list(zip(tokens, spk)), tts.plan(tokens),
+        batch_size=tts.batch_size, exact=True, device=tts.device)
     with tempfile.TemporaryDirectory(prefix="parrot_pred_") as tmp:
         root = Path(tmp)
         (root / "aligner").mkdir()
@@ -1996,10 +2272,10 @@ def phase_manifest_io(fa, tts, speakers, device=None) -> None:
     same = [g == " ".join(map(str, u.tolist())) for g, u in zip(got, want)]
     print(f"write_predictions: {len(got)} requests of "
           f"{[len(t) for t in tokens]} tokens, units equal to the serve's "
-          f"decode {same}; row-1 launches {launches}")
+          f"exact decode {same}; row-1 launches {launches}")
     if len(got) != len(want) or not all(same):
         raise AssertionError("write_predictions differs from the serve's "
-                             "decode")
+                             "exact decode")
     if device is None and launches == 0:
         raise AssertionError("write_predictions never launched row 1")
     decoded = []
@@ -2955,13 +3231,16 @@ def main() -> int:
     from parrot_tts_tpu_torch.ops import qconv as qc
     from parrot_tts_tpu_torch.ops import quant
 
-    phase_card()
+    smi = phase_card()
     build = phase_build(kernels)
     kern = phase_kernel(fa, exact_numerics,
                         ptxas_registers(build["flash_attn_fwd"]))
     # full width: d_model 256, 4+4 FFT blocks of 2 heads, V1 vocoder
     tcfg, vcfg = TTEModelConfig(n_speaker=4), VocoderModelConfig()
     base = phase_serving(fa, tcfg, vcfg)
+    modes = phase_decode_modes(fa, base, smi)
+    row1_launches = base["launches"] + sum(
+        n[3] + n[1] for n in modes["launches"].values())
     batches = vocoder_batches(base["units"])
     print("vocoder batches (rows, codes):", batches)
     mrf = phase_mrf_kernel(fm, exact_numerics, base["tts"].vocoder.model,
@@ -3007,12 +3286,24 @@ def main() -> int:
              base["units"], base["speakers"], hubert["wavs"])
     phase_aligner(hubert, AlignerTrainConfig())
     rep = kern["report"]
+    one = rep["one_pass"]
+    print(f"row 1 at {REPORT_SHAPE} (B, T, d), H=2: 3xTF32 {rep['ms']:.4f} ms "
+          f"(bound {rep['bound_ms']:.4f}), 1-pass {one['ms']:.4f} ms (bound "
+          f"{one['bound_ms']:.4f}, {one['bound_by']}; max |diff| "
+          f"{one['max_abs_err']:.3e} against its plain version, "
+          f"{one['ieee_err']:.3e} from IEEE), sdpa float32 "
+          f"{rep['library_ms']:.4f} ms, sdpa TF32 {one['library_ms']:.4f} ms; "
+          f"{smi}")
+    print(f"row 1 launches: {row1_launches} (the default serve "
+          f"{base['launches']}, 3xTF32; the decode modes " + ", ".join(
+              f"{m!r} {n[3]} 3xTF32 + {n[1]} 1-pass"
+              for m, n in modes["launches"].items()) + ")")
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "parrot_tts_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "parrot_tts_tpu/ops/attention.py:153",
-        "launches": base["launches"],
+        "launches": row1_launches,
         "max_abs_err": kern["max_abs_err"],
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],

@@ -28,18 +28,23 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 @contextlib.contextmanager
-def exact_numerics(exact: bool):
+def exact_numerics(exact: bool, *, deterministic: bool | None = None):
     """exact=True: IEEE float32 in every matmul and cuDNN convolution (TF32
     off for both; torch turns cuDNN TF32 on by default), and only
     deterministic cuDNN algorithms, so a request gives the same bits every
     time (the default algorithms of the vocoder's convs differ run to run
     in the last bit, measured on an H100). exact=False allows TF32 and any
-    algorithm. The previous flags are restored on exit."""
+    algorithm. deterministic: the cuDNN algorithm rule when it should not
+    follow `exact` (`ops/precision.py` runs TF32 deterministically). This
+    is the one place that sets these global flags; the previous flags are
+    restored on exit."""
     flags = (torch.backends.cuda.matmul, "allow_tf32"), \
         (torch.backends.cudnn, "allow_tf32"), \
         (torch.backends.cudnn, "deterministic")
+    values = (not exact, not exact,
+              exact if deterministic is None else deterministic)
     prev = [getattr(obj, name) for obj, name in flags]
-    for (obj, name), value in zip(flags, (not exact, not exact, exact)):
+    for (obj, name), value in zip(flags, values):
         setattr(obj, name, value)
     try:
         yield

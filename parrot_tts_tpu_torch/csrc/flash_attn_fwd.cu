@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a): float32 attention on the
-// TF32 tensor cores with a 3xTF32 split.
+// TF32 tensor cores with a 3xTF32 split, or in one TF32 pass.
 //
 // Replaces: parrot_tts_tpu/ops/attention.py::_flash_attention
 // (attention.py:153-181), which calls JAX's stock Pallas TPU kernel
@@ -25,13 +25,26 @@
 // the decoder's argmax near-ties and durations. The softmax (scale, mask, max, exp, sums, the division) is
 // IEEE float32 on the CUDA cores.
 //
+// 1-pass mode (passes = 1; the TPU's default precision, which the JAX
+// package's "selective" decode and exact=False run): each operand of a
+// product (Q, K, P, V) is rounded to TF32 once, to nearest, and each product
+// takes one mma.sync in place of three (each warp rounds its fragments as
+// it loads them, one cvt.rna each). P is rounded against the running row
+// max of its 32-key tile, then rescaled by exp(m_old - m_new), and the
+// plain version (ops/flash_attention.py) rounds it the same way. The
+// products of TF32 values are exact in float32, so the two differ only by
+// the order of float32 sums, which now and then sends a weight to the
+// neighbouring TF32 value (<= 2^-10 of it; the output by <= 2^-10 max |v|).
+// Softmax, masking and the zero row are as in 3xTF32 mode.
+//
 // Bound on this card: 4*B*H*T^2*D floating-point operations (QK^T and PV)
 // against 16*B*H*T*D bytes (Q, K, V read once, O written once); T/4
 // operations per byte. Against the float32 rate of the CUDA cores (67
 // TFLOP/s, ridge 20) every serving length is bound by operations; so are
 // the 3xTF32 products (3 * 4*B*H*T^2*D at 494.7 TFLOP/s dense TF32, ridge
 // 148) above T ~ 200, with the split's conversions on the CUDA cores
-// beside them.
+// beside them. The 1-pass mode's bound is one third of that: 4*B*H*T^2*D
+// at 494.7 TFLOP/s (ridge 148 as well).
 //
 // The design: the (T, T) scores never reach device memory. One block of
 // 128 threads (4 warps, 16 queries each) owns 64 queries of one (b, h),
@@ -56,21 +69,23 @@
 //
 // Interface (route (b): plain C, loaded with ctypes):
 //   int flash_attn_fwd_f32(q, k, v, key_padding_mask or NULL, o,
-//                          B, H, T, D, scale, stream)
+//                          B, H, T, D, scale, passes, stream)
 // q, k, v, o: contiguous (B, H, T, D) float32, 16-byte aligned;
 // key_padding_mask: contiguous (B, T) bytes (torch.bool), nonzero = ignore
-// that key. Returns the CUDA error code of the launch (0 on success). D
-// must be 64 or 128.
+// that key. passes: 3 (3xTF32) or 1 (one TF32 pass). Returns the CUDA error
+// code of the launch (0 on success). D must be 64 or 128.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tf32x3.cuh"
 
 namespace {
 
-using namespace tf32x3;   // split_a, mma3, add, cp_async16
+using namespace tf32x3;   // split_a, mma3, round_a, mma1, add, cp_async16
 
 constexpr int BQ = 64;        // queries per block, 16 per warp
 constexpr int BK = 32;        // keys per tile
@@ -86,7 +101,29 @@ struct Layout {
   static constexpr size_t bytes = sizeof(float) * (kQ + STAGES * kStage);
 };
 
-template <int D>
+// the A fragment and the product of a mode: kSplit, 3xTF32 (SplitA, mma3);
+// else one TF32 pass (RoundA, mma1)
+template <bool kSplit>
+using FragA = std::conditional_t<kSplit, SplitA, RoundA>;
+
+template <bool kSplit>
+__device__ __forceinline__ FragA<kSplit> fragment_a(float a0, float a1,
+                                                    float a2, float a3) {
+  if constexpr (kSplit) return split_a(a0, a1, a2, a3);
+  else return round_a(a0, a1, a2, a3);
+}
+
+__device__ __forceinline__ void product(float (&c)[4], const SplitA& a,
+                                        float b0, float b1) {
+  mma3(c, a, b0, b1);
+}
+
+__device__ __forceinline__ void product(float (&c)[4], const RoundA& a,
+                                        float b0, float b1) {
+  mma1(c, a, b0, b1);
+}
+
+template <int D, bool kSplit>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
@@ -168,12 +205,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int kc = 0; kc < KC; ++kc) {
       const float2 x0 = *reinterpret_cast<const float2*>(q_g + kc * 8);
       const float2 x1 = *reinterpret_cast<const float2*>(q_g + 8 * L::kLdK + kc * 8);
-      const SplitA a = split_a(x0.x, x1.x, x0.y, x1.y);
+      const FragA<kSplit> a = fragment_a<kSplit>(x0.x, x1.x, x0.y, x1.y);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const float2 kb = *reinterpret_cast<const float2*>(
             Ks + (nt * 8 + g) * L::kLdK + kc * 8 + 2 * t);
-        mma3(d[nt], a, kb.x, kb.y);
+        product(d[nt], a, kb.x, kb.y);
         if (kc % 4 == 3) add(s[nt], d[nt]);
       }
     }
@@ -215,18 +252,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // accumulator fragment s[kc]; B element (k t, n g) is V[8kc + 2t][n],
     // (k t+4, n g) is V[8kc + 2t + 1][n]. The tile's partial sums on the
     // tensor cores, added in float32.
-    SplitA pa[NT];
+    FragA<kSplit> pa[NT];
 #pragma unroll
     for (int kc = 0; kc < NT; ++kc)
-      pa[kc] = split_a(s[kc][0], s[kc][2], s[kc][1], s[kc][3]);
+      pa[kc] = fragment_a<kSplit>(s[kc][0], s[kc][2], s[kc][1], s[kc][3]);
     const float* v0 = Vs + 2 * t * L::kLdV + g;
 #pragma unroll
     for (int dt = 0; dt < KC; ++dt) {
       float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int kc = 0; kc < NT; ++kc)
-        mma3(part, pa[kc], v0[kc * 8 * L::kLdV + dt * 8],
-             v0[(kc * 8 + 1) * L::kLdV + dt * 8]);
+        product(part, pa[kc], v0[kc * 8 * L::kLdV + dt * 8],
+                v0[(kc * 8 + 1) * L::kLdV + dt * 8]);
       add(acc[dt], part);
     }
   }
@@ -248,19 +285,33 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kSplit>
 int launch(const float* q, const float* k, const float* v,
            const unsigned char* kpm, float* o, int B, int H, int T,
            float scale, cudaStream_t stream) {
   const size_t bytes = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(q, k, v, kpm, o, H, T,
-                                                        scale);
+  flash_fwd_kernel<D, kSplit><<<grid, THREADS, bytes, stream>>>(
+      q, k, v, kpm, o, H, T, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSplit>
+int launch_d(const float* q, const float* k, const float* v,
+             const unsigned char* kpm, float* o, int B, int H, int T, int D,
+             float scale, cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch<64, kSplit>(q, k, v, kpm, o, B, H, T, scale, stream);
+    case 128:
+      return launch<128, kSplit>(q, k, v, kpm, o, B, H, T, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -269,13 +320,14 @@ extern "C" int flash_attn_fwd_f32(const float* q, const float* k,
                                   const float* v,
                                   const unsigned char* key_padding_mask,
                                   float* o, int B, int H, int T, int D,
-                                  float scale, void* stream) {
+                                  float scale, int passes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(q, k, v, key_padding_mask, o, B, H, T, scale, s);
-    case 128:
-      return launch<128>(q, k, v, key_padding_mask, o, B, H, T, scale, s);
+  switch (passes) {
+    case 3:
+      return launch_d<true>(q, k, v, key_padding_mask, o, B, H, T, D, scale, s);
+    case 1:
+      return launch_d<false>(q, k, v, key_padding_mask, o, B, H, T, D, scale,
+                             s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,7 @@
 // float32 products on the TF32 tensor cores with a 3xTF32 split, shared by
 // the serving attention (flash_attn_fwd.cu: mma.sync m16n8k8) and the fused
-// MRF stage (fused_mrf.cu: wgmma m64nNk8, sm_90a). Header-only;
+// MRF stage (fused_mrf.cu: wgmma m64nNk8, sm_90a), and the serving
+// attention's 1-pass TF32 rounding (round_tf32). Header-only;
 // core/kernels.py hashes it with every source that includes it.
 //
 // Each float32 operand x is split exactly as x = hi + lo (Veltkamp: hi is x
@@ -37,6 +38,15 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(__fsub_rn(x, h));
 }
 
+// x rounded to TF32 (11 significant bits), to nearest, ties away from zero:
+// the 1-pass operand, as ops/precision.py::round_tf32 rounds it in the
+// bits the tensor cores read
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 // c += a * b: m16n8k8 TF32, a row-major 16x8, b "col" (stored n-major)
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
@@ -71,6 +81,24 @@ __device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a,
   mma(c, a.lo, bh0, bh1);
   mma(c, a.hi, bl0, bl1);
   mma(c, a.hi, bh0, bh1);
+}
+
+// an A fragment rounded to TF32 once, for the products it takes part in
+// (the 1-pass mode)
+struct RoundA {
+  uint32_t r[4];
+};
+
+__device__ __forceinline__ RoundA round_a(float a0, float a1, float a2,
+                                          float a3) {
+  return {{round_tf32(a0), round_tf32(a1), round_tf32(a2), round_tf32(a3)}};
+}
+
+// c += a b in one TF32 pass: b the two float32 values of a B fragment,
+// rounded here
+__device__ __forceinline__ void mma1(float (&c)[4], const RoundA& a,
+                                     float b0, float b1) {
+  mma(c, a.r, round_tf32(b0), round_tf32(b1));
 }
 
 // c += d, d a partial product summed on the tensor cores from 0: c sums

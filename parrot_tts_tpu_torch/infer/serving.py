@@ -1,10 +1,13 @@
 """Joint TTE + vocoder serving: batched text -> 16 kHz waveforms.
 
 Port of `parrot_tts_tpu/infer/serving.py::ParrotTTS` on one CUDA device.
-Both stages use folded (inference) parameters. Unlike the JAX class, whose
-default decode is "selective-high", the port's default `exact=True` is
-IEEE float32 (no TF32) but for attention's 3xTF32 kernel, which keeps
-float32 accuracy; `exact=False` allows TF32.
+Both stages use folded (inference) parameters. The default decode is
+"selective-high", as in the JAX class, which the card runs as IEEE
+float32 throughout (`models/tte/parrot.py` lists the modes). A string
+mode sets the TTE decode only: the vocoder then runs as under exact=True
+(IEEE float32, deterministic), so units equal to exact=True's give the
+same waveform bits. exact=True is IEEE float32 but
+for attention's 3xTF32 kernel; exact=False allows TF32 in both stages.
 """
 
 from __future__ import annotations
@@ -30,16 +33,18 @@ class ParrotTTS:
     """End-to-end synthesizer. Construct once; `tts()` serves batches.
 
     tte_state / vocoder_state: unfolded `Parrot` and `CodeGenerator` state
-    dicts (convert.py carries JAX trees across). device: default the CUDA
-    card, raising without one; pass "cpu" to run on the host."""
+    dicts (convert.py carries JAX trees across). exact: the TTE decode
+    mode, "selective-high" by default (module docstring), or "hybrid"
+    (`infer/tte_infer.py::decode_buckets`, threshold 0.5). device: default
+    the CUDA card, raising without one; pass "cpu" to run on the host."""
 
     def __init__(self, tte_state: dict, tte_cfg: TTEModelConfig,
                  vocoder_state: dict, vocoder_cfg: VocoderModelConfig,
                  tokenizer: DFATokenizer, cleaner: Callable[[str], str], *,
                  src_buckets: tuple[int, ...] = SRC_BUCKETS,
                  out_len_per_token: int = 16, batch_size: int = 64,
-                 exact: bool = True, device=None):
-        parrot.check_exact(exact)
+                 exact: bool | str = "selective-high", device=None):
+        parrot.check_exact(exact, hybrid=True)
         self.device = resolve_device(device)
         self.tte_cfg = tte_cfg
         self.tokenizer = tokenizer
@@ -51,8 +56,9 @@ class ParrotTTS:
         self.tte = parrot.Parrot(tte_cfg, folded=True)
         self.tte.load_state_dict(fold_tte_params(tte_state), strict=True)
         self.tte.to(self.device).eval()
-        self.vocoder = VocoderSynthesizer(vocoder_state, vocoder_cfg,
-                                          exact=exact, device=self.device)
+        self.vocoder = VocoderSynthesizer(
+            vocoder_state, vocoder_cfg, exact=exact is not False,
+            device=self.device)
         self.last_stats: dict = {}
 
     def tokenize(self, text: str) -> np.ndarray:
@@ -87,9 +93,10 @@ class ParrotTTS:
     def tts(self, texts: Sequence[str],
             speakers: Sequence[int] | None = None,
             vocoder_speakers: Sequence[int] | None = None) -> list[np.ndarray]:
-        """Batched text -> float32 waveforms. Records wall time, the TTE /
-        vocoder split, audio-seconds per second, RTF and the number of
-        decode batches in `last_stats`."""
+        """Batched text -> float32 waveforms. Records the decode mode, wall
+        time, the TTE / vocoder split, audio-seconds per second, RTF, the
+        number of decode batches and (hybrid) of re-decoded requests in
+        `last_stats`."""
         n = len(texts)
         speakers = list(speakers) if speakers is not None else [0] * n
         vocoder_speakers = (list(vocoder_speakers)
@@ -103,6 +110,7 @@ class ParrotTTS:
         dt = time.perf_counter() - t0
         audio_s = sum(len(w) for w in wavs) / self.vocoder.sample_rate
         self.last_stats = {
+            "exact": self.exact,
             **stats,
             "wall_s": dt,
             "tte_s": t1 - t0,

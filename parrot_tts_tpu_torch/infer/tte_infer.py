@@ -3,10 +3,10 @@ their manifest entry point, which writes them as predictions.txt.
 
 Port of `parrot_tts_tpu/infer/tte_infer.py::{max_decode_len,
 decode_buckets, predict_units, write_predictions}` (reference
-`inference.py`), single device: no mesh and no hybrid mode. Samples are
-decoded batched in static (s_len, out_len) buckets; a sample whose
-predicted total duration overflows its bucket is re-decoded in a larger
-one (the reference's dynamic shapes never truncate).
+`inference.py`), single device (no mesh). Samples are decoded batched in
+static (s_len, out_len) buckets; a sample whose predicted total duration
+overflows its bucket is re-decoded in a larger one (the reference's
+dynamic shapes never truncate).
 """
 
 from __future__ import annotations
@@ -47,12 +47,23 @@ def make_batch(samples: list[tuple[np.ndarray, int]], chunk: list[int],
 
 def decode_buckets(model: parrot.Parrot, samples: list[tuple[np.ndarray, int]],
                    plan: list[tuple[int, int, list[int]]], *,
-                   batch_size: int, exact: bool = True,
+                   batch_size: int, exact: bool | str = True,
+                   margin_threshold: float = 0.5,
                    device: torch.device | str | None = None,
                    stats: dict | None = None) -> list[np.ndarray]:
     """Greedy decode over a (s_len, out_len, indices) bucket plan; returns
-    one int32 unit array per sample. `stats["decode_batches"]`, when a dict
-    is given, counts the infer_codes calls made."""
+    one int32 unit array per sample. exact: a mode of `parrot.infer_codes`,
+    or "hybrid": decode in "selective" (IEEE lengths, a 1-pass TF32
+    decoder) reading back each sample's min top-2 logit margin, then decode
+    the samples whose margin is below `margin_threshold` (where an argmax
+    could flip) again in "selective-high", through the same bucket and
+    overflow plan, and keep those units. When a dict is given,
+    `stats["decode_batches"]` counts the infer_codes calls made, and
+    `stats["hybrid_flagged"]` the samples a hybrid decode re-decoded."""
+    parrot.check_exact(exact, hybrid=True)
+    hybrid = exact == "hybrid"
+    fast_exact = "selective" if hybrid else exact
+    flagged: dict[tuple[int, int], list[int]] = {}
     cap = max_decode_len(model.cfg)
     results: list[np.ndarray | None] = [None] * len(samples)
     pending = list(plan)
@@ -61,13 +72,13 @@ def decode_buckets(model: parrot.Parrot, samples: list[tuple[np.ndarray, int]],
         retry: dict[tuple[int, int], list[int]] = {}
         for off in range(0, len(idxs), batch_size):
             chunk = idxs[off : off + batch_size]
-            codes, mask, total = parrot.infer_codes(
+            out = parrot.infer_codes(
                 model, make_batch(samples, chunk, s_len), out_len=out_len,
-                exact=exact, device=device)
+                exact=fast_exact, with_margin=hybrid, device=device)
             if stats is not None:
                 stats["decode_batches"] = stats.get("decode_batches", 0) + 1
-            codes, mask, total = (codes.cpu().numpy(), mask.cpu().numpy(),
-                                  total.cpu().numpy())
+            codes, mask, total = (x.cpu().numpy() for x in out[:3])
+            margin = out[3].cpu().numpy() if hybrid else None
             for j, gi in enumerate(chunk):
                 if total[j] > out_len and out_len < cap:
                     need = min(-(-int(total[j]) // 128) * 128, cap)
@@ -79,8 +90,25 @@ def decode_buckets(model: parrot.Parrot, samples: list[tuple[np.ndarray, int]],
                         f" frames exceeds the model's positional-table "
                         f"cap {cap}; output truncated")
                 results[gi] = codes[j][mask[j]].astype(np.int32)
+                if hybrid and margin[j] < margin_threshold:
+                    flagged.setdefault((s_len, out_len), []).append(gi)
         for (rs, rt), ridx in sorted(retry.items()):
             pending.append((rs, rt, ridx))
+
+    if hybrid:
+        if stats is not None:
+            stats["hybrid_flagged"] = sum(map(len, flagged.values()))
+        if flagged:
+            # the near-tie samples again in "selective-high", in the
+            # buckets where their fast decode ended
+            again = decode_buckets(
+                model, samples, [(s, t, i) for (s, t), i in
+                                 sorted(flagged.items())],
+                batch_size=batch_size, exact="selective-high", device=device,
+                stats=stats)
+            for idxs in flagged.values():
+                for gi in idxs:
+                    results[gi] = again[gi]
     return results  # type: ignore[return-value]
 
 

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from parrot_tts_tpu_torch.ops import conv as conv_ops
+from parrot_tts_tpu_torch.ops import precision as prec
 from parrot_tts_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -105,11 +105,14 @@ class FFTBlock(nn.Module):
 
 def apply_fft_block(block: FFTBlock, x: torch.Tensor, *,
                     key_padding_mask: torch.Tensor | None = None,
-                    dropout_p: float = 0.0, seed: int | None = None
-                    ) -> torch.Tensor:
+                    dropout_p: float = 0.0, seed: int | None = None,
+                    precision: str | None = None) -> torch.Tensor:
     """One FFT block on x (B, T, D); key_padding_mask (B, T) True = IGNORE.
     seed: the attention's dropout stream (training, with `dropout_p` on
-    the attention weights); None for the deterministic forward."""
+    the attention weights); None for the deterministic forward.
+    precision: the products of every linear and conv and row 1's mode
+    (`ops/precision.py`, `ops/attention.py`); None: the ambient torch
+    flags. LayerNorm, masks and residuals stay float32."""
     valid = None
     if key_padding_mask is not None:
         valid = (~key_padding_mask)[:, :, None].to(x.dtype)
@@ -117,17 +120,19 @@ def apply_fft_block(block: FFTBlock, x: torch.Tensor, *,
     a = block.attention
     h = layer_norm(x, block.attn_norm.weight, block.attn_norm.bias)
     if a.qkv is not None:
-        q, k, v = F.linear(h, a.qkv.weight).chunk(3, dim=-1)
+        q, k, v = prec.linear(h, a.qkv.weight, mode=precision).chunk(3, dim=-1)
         y = multi_head_attention(q, k, v, a.mha.in_proj_weight,
                                  a.mha.out_proj.weight, block.n_head,
                                  key_padding_mask=key_padding_mask,
-                                 dropout_p=dropout_p, seed=seed)
-        y = F.linear(y, a.wo.weight)
+                                 dropout_p=dropout_p, seed=seed,
+                                 precision=precision)
+        y = prec.linear(y, a.wo.weight, mode=precision)
     else:
         y = multi_head_attention(h, h, h, a.mha.in_proj_weight,
                                  a.mha.out_proj.weight, block.n_head,
                                  key_padding_mask=key_padding_mask,
-                                 dropout_p=dropout_p, seed=seed)
+                                 dropout_p=dropout_p, seed=seed,
+                                 precision=precision)
     h = x + y
 
     c = layer_norm(h, block.conv_norm.weight, block.conv_norm.bias)
@@ -135,13 +140,13 @@ def apply_fft_block(block: FFTBlock, x: torch.Tensor, *,
         c = c * valid
     ks1, ks2 = block.kernel_sizes
     cl = block.convlayer
-    c = conv_ops.conv1d(c, cl.conv1.weight, cl.conv1.bias,
-                        padding=(ks1 - 1) // 2)
+    c = prec.conv1d(c, cl.conv1.weight, cl.conv1.bias, precision,
+                    padding=(ks1 - 1) // 2)
     c = torch.relu(c)
     if valid is not None:
         c = c * valid
-    c = conv_ops.conv1d(c, cl.conv2.weight, cl.conv2.bias,
-                        padding=(ks2 - 1) // 2)
+    c = prec.conv1d(c, cl.conv2.weight, cl.conv2.bias, precision,
+                    padding=(ks2 - 1) // 2)
     out = h + c
     if valid is not None:
         out = out * valid

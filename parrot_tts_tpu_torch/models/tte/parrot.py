@@ -13,14 +13,26 @@ batch's `tgt_mask`, and, given a `(run seed, micro-step)` pair, attention
 and duration-predictor dropout whose streams derive from that pair and the
 site alone (`dropout_seed`), so a step is reproducible from its inputs.
 
-Precision: `exact=True` (the default) runs every matmul and convolution in
-IEEE float32 — TF32 off for matmul and cuDNN alike — because a TF32 pass
-perturbs the logits enough to flip argmax near-ties and rounded durations.
-Attention on the card is the exception under either setting: its kernel
-multiplies in 3xTF32 (ops/flash_attention.py), within 1e-5 of IEEE
-float32. `exact=False` allows TF32. The JAX package's "selective", "selective-high"
-and "hybrid" modes mix precisions by section; they are not ported until
-they are gated unit-exact on the card, and raise NotImplementedError.
+Precision (`exact`, the JAX package's modes, `parrot.py:173-344` there),
+by section: the "encoder" section is the encoder stack, the duration
+predictor and the 1000-way head, whose outputs pass through the rounding
+of durations and the argmax; the "decoder" section is the decoder stack.
+`SECTIONS` gives each mode's `ops/precision.py` mode per section:
+
+- True (the exact decode): IEEE float32 throughout; attention on the card
+  is row 1's 3xTF32 mode (ops/flash_attention.py), within 1e-5 of IEEE;
+- "selective-high" (ParrotTTS's default, as in the JAX package, whose
+  decoder runs 3-pass bf16 on the TPU): on the card the same as True, IEEE
+  float32 in both sections, since a 3xTF32 decoder through cuBLAS / cuDNN
+  was slower than IEEE and less exact (`ops/precision.py`);
+- "selective": the encoder section IEEE, the decoder in 1-pass TF32 (the
+  TPU's default precision) with row 1's 1-pass mode;
+- False: 1-pass TF32 everywhere, attention included (row 1's 1-pass mode,
+  as the JAX package's flash attention at default precision).
+
+"hybrid" (`infer/tte_infer.py::decode_buckets` and ParrotTTS only) decodes
+in "selective", reads each sample's top-2 logit margin (`code_margin`),
+and decodes the samples below a threshold again in "selective-high".
 """
 
 from __future__ import annotations
@@ -32,17 +44,26 @@ from torch import nn
 from parrot_tts_tpu_torch.core.config import TTEModelConfig
 from parrot_tts_tpu_torch.core.device import exact_numerics, resolve_device
 from parrot_tts_tpu_torch.models.tte import fft
-from parrot_tts_tpu_torch.ops import conv as conv_ops
 from parrot_tts_tpu_torch.ops import init as init_ops
 from parrot_tts_tpu_torch.ops import length_regulator as lr_ops
+from parrot_tts_tpu_torch.ops import precision as prec
+
+# (encoder section, decoder section) precision of each decode mode
+SECTIONS = {True: ("ieee", "ieee"), False: ("tf32", "tf32"),
+            "selective": ("ieee", "tf32"),
+            "selective-high": ("ieee", "ieee")}
 
 
-def check_exact(exact) -> None:
-    if exact is True or exact is False:
+def check_exact(exact, *, hybrid: bool = False) -> None:
+    """Raise ValueError unless `exact` is a decode mode: True, False,
+    "selective", "selective-high", and "hybrid" where `hybrid` allows it
+    (a bucketed decode; one infer_codes call cannot re-decode)."""
+    if exact is True or exact is False or exact in (
+            "selective", "selective-high") or (hybrid and exact == "hybrid"):
         return
-    raise NotImplementedError(
-        f"exact={exact!r}: the mixed-precision decode modes of the JAX "
-        "package are not ported; use exact=True (IEEE float32) or False (TF32)")
+    modes = "True, False, 'selective', 'selective-high'" + (
+        ", 'hybrid'" if hybrid else "")
+    raise ValueError(f"exact={exact!r}: not a decode mode ({modes})")
 
 
 class _ConvModule(nn.Module):
@@ -95,26 +116,29 @@ def _dropout(h: torch.Tensor, p: float, seed: int) -> torch.Tensor:
 
 def apply_duration_predictor(dp: DurationPredictor, x: torch.Tensor,
                              pad_mask: torch.Tensor, cfg: TTEModelConfig, *,
-                             seed: int | None = None) -> torch.Tensor:
+                             seed: int | None = None,
+                             precision: str | None = None) -> torch.Tensor:
     """Log-duration prediction; pad_mask True = PAD, padded outputs 0.
     Reference quirk (duration.py:34): conv2 hardcodes padding=1 whatever
     the kernel size (under cfg.reference_compat). seed: dropout after each
-    LayerNorm (training, `cfg.dur_dropout_p`); None for no dropout."""
+    LayerNorm (training, `cfg.dur_dropout_p`); None for no dropout.
+    precision: the products' `ops/precision.py` mode."""
     ks = dp.kernel_size
     p = cfg.dur_dropout_p if seed is not None else 0.0
     valid = (~pad_mask)[:, :, None].to(x.dtype)
     c1, ln1, c2, ln2 = (dp.layers[0].conv, dp.layers[2], dp.layers[4].conv,
                         dp.layers[6])
-    h = conv_ops.conv1d(x * valid, c1.weight, c1.bias, padding=(ks - 1) // 2)
+    h = prec.conv1d(x * valid, c1.weight, c1.bias, precision,
+                    padding=(ks - 1) // 2)
     h = fft.layer_norm(torch.relu(h), ln1.weight, ln1.bias)
     if p > 0:
         h = _dropout(h, p, dropout_seed(seed, 1))
     pad2 = 1 if cfg.reference_compat else (ks - 1) // 2
-    h = conv_ops.conv1d(h * valid, c2.weight, c2.bias, padding=pad2)
+    h = prec.conv1d(h * valid, c2.weight, c2.bias, precision, padding=pad2)
     h = fft.layer_norm(torch.relu(h), ln2.weight, ln2.bias)
     if p > 0:
         h = _dropout(h, p, dropout_seed(seed, 2))
-    out = torch.nn.functional.linear(h, dp.proj.weight, dp.proj.bias)[..., 0]
+    out = prec.linear(h, dp.proj.weight, dp.proj.bias, precision)[..., 0]
     return torch.where(pad_mask, 0.0, out)
 
 
@@ -204,15 +228,18 @@ def init_parrot(cfg: TTEModelConfig, gen: torch.Generator) -> dict:
 
 
 def _run_stack(layers, x: torch.Tensor, pad_mask: torch.Tensor,
-               dropout_p: float, seed: int | None) -> torch.Tensor:
+               dropout_p: float, seed: int | None,
+               precision: str | None = None) -> torch.Tensor:
     for i, blk in enumerate(layers):
         x = fft.apply_fft_block(
             blk, x, key_padding_mask=pad_mask, dropout_p=dropout_p,
-            seed=None if seed is None else dropout_seed(seed, i))
+            seed=None if seed is None else dropout_seed(seed, i),
+            precision=precision)
     return x
 
 
-def _encode(model: Parrot, batch: dict, seed: int | None):
+def _encode(model: Parrot, batch: dict, seed: int | None,
+            precision: str | None = None):
     """Embedding, encoder stack, speaker embedding and duration predictor:
     (encoder states (B, S, D), log_dur_pred (B, S))."""
     cfg = model.cfg
@@ -223,43 +250,57 @@ def _encode(model: Parrot, batch: dict, seed: int | None):
                         reference_compat=cfg.reference_compat)
     x = x * src_mask[:, :, None].to(x.dtype)   # pads stay batch-invariant
     x = _run_stack(model.encoder_layers, x, src_pad, cfg.encoder.dropout_p,
-                   None if seed is None else dropout_seed(seed, ENCODER_SITE))
+                   None if seed is None else dropout_seed(seed, ENCODER_SITE),
+                   precision)
     if cfg.n_speaker > 1:
         x = x + model.speaker_emb.weight[batch["speaker"]][:, None, :]
         x = x * src_mask[:, :, None].to(x.dtype)
     log_dur_pred = apply_duration_predictor(
         model.duration_predictor, x, src_pad, cfg,
-        seed=None if seed is None else dropout_seed(seed, PREDICTOR_SITE))
+        seed=None if seed is None else dropout_seed(seed, PREDICTOR_SITE),
+        precision=precision)
     return x, log_dur_pred
 
 
 def _decode(model: Parrot, x: torch.Tensor, tgt_mask: torch.Tensor,
-            pe_rows: torch.Tensor, seed: int | None) -> torch.Tensor:
-    """Positional row, decoder stack and head over regulated states."""
+            pe_rows: torch.Tensor, seed: int | None,
+            precision: str | None = None) -> torch.Tensor:
+    """Positional row and decoder stack over regulated states."""
     cfg = model.cfg
     x = fft.add_pos_emb(x, model.pe, pe_rows.clamp(0, cfg.max_len - 1),
                         reference_compat=cfg.reference_compat)
     x = x * tgt_mask[:, :, None].to(x.dtype)
-    x = _run_stack(model.decoder_layers, x, ~tgt_mask, cfg.decoder.dropout_p,
-                   None if seed is None else dropout_seed(seed, DECODER_SITE))
-    return torch.nn.functional.linear(x, model.head.weight, model.head.bias)
+    return _run_stack(model.decoder_layers, x, ~tgt_mask,
+                      cfg.decoder.dropout_p,
+                      None if seed is None else dropout_seed(seed, DECODER_SITE),
+                      precision)
 
 
-def apply_parrot(model: Parrot, batch: dict, *, out_len: int):
+def _head(model: Parrot, x: torch.Tensor, precision: str | None = None
+          ) -> torch.Tensor:
+    """The 1000-way linear head: (B, T, D) -> logits (B, T, n_codes)."""
+    return prec.linear(x, model.head.weight, model.head.bias, precision)
+
+
+def apply_parrot(model: Parrot, batch: dict, *, out_len: int,
+                 exact: bool | str = True):
     """Inference forward (reference parrot.py:90-120 with predicted
     durations). batch: phones (B, S) int, src_mask (B, S) bool True=valid,
     speaker (B,) int, all on the model's device. out_len: decoder length
-    (bucket >= total duration). Returns (logits (B, out_len, n_codes),
+    (bucket >= total duration). exact: the decode mode, whose `SECTIONS`
+    set each section's precision. Returns (logits (B, out_len, n_codes),
     tgt_mask (B, out_len) True=valid, log_dur_pred (B, S))."""
+    check_exact(exact)
+    enc, dec = SECTIONS[exact]
     src_mask = batch["src_mask"]
-    x, log_dur_pred = _encode(model, batch, None)
+    x, log_dur_pred = _encode(model, batch, None, enc)
     durations = torch.where(src_mask,
                             lr_ops.durations_from_log_pred(log_dur_pred), 0)
     # exclusive mask: the decode covers exactly sum(dur) frames (the
     # reference's canonical batch-1 decode)
     x, tgt_mask = lr_ops.length_regulator(x, durations, out_len)
-    logits = _decode(model, x, tgt_mask, durations.sum(dim=1), None)
-    return logits, tgt_mask, log_dur_pred
+    x = _decode(model, x, tgt_mask, durations.sum(dim=1), None, dec)
+    return _head(model, x, enc), tgt_mask, log_dur_pred
 
 
 def apply_parrot_train(model: Parrot, batch: dict, *, out_len: int,
@@ -277,8 +318,8 @@ def apply_parrot_train(model: Parrot, batch: dict, *, out_len: int,
     tgt_mask = batch["tgt_mask"]
     x, log_dur_pred = _encode(model, batch, seed)
     x, _ = lr_ops.length_regulator(x, batch["duration"], out_len)
-    logits = _decode(model, x, tgt_mask, tgt_mask.sum(dim=1), seed)
-    return logits, tgt_mask, log_dur_pred
+    x = _decode(model, x, tgt_mask, tgt_mask.sum(dim=1), seed)
+    return _head(model, x), tgt_mask, log_dur_pred
 
 
 def to_batch(batch: dict, device: torch.device) -> dict:
@@ -289,19 +330,36 @@ def to_batch(batch: dict, device: torch.device) -> dict:
             for k, dt in dtypes.items()}
 
 
+def code_margin(logits: torch.Tensor, tgt_mask: torch.Tensor) -> torch.Tensor:
+    """(B,) min over valid frames of the top-1 minus top-2 logit gap, inf
+    for a sample with no valid frame (JAX `_code_margin`): how close the
+    greedy decode came to an argmax tie. A frame whose gap exceeds twice a
+    faster mode's worst logit perturbation cannot flip under it; the hybrid
+    decode re-runs the samples below a threshold."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    gap = torch.where(tgt_mask, top2[..., 0] - top2[..., 1], torch.inf)
+    return gap.amin(dim=1)
+
+
 def infer_codes(model: Parrot, batch: dict, *, out_len: int,
-                exact: bool = True, device=None):
+                exact: bool | str = True, with_margin: bool = False,
+                device=None):
     """Greedy decode (reference parrot.py:112-120). Returns (codes
-    (B, out_len), mask True=valid, total (B,) = sum of predicted durations)
-    on `device` (default: the CUDA card; raises without one unless
-    device="cpu"). `total > out_len` means the bucket overflowed and the
-    caller re-decodes in a larger one (infer/tte_infer.py does)."""
+    (B, out_len), mask True=valid, total (B,) = sum of predicted durations),
+    and with_margin=True the (B,) `code_margin` after them, on `device`
+    (default: the CUDA card; raises without one unless device="cpu").
+    `total > out_len` means the bucket overflowed and the caller re-decodes
+    in a larger one (infer/tte_infer.py does). exact: True, False,
+    "selective" or "selective-high" (module docstring); the durations are
+    rounded from the encoder section's IEEE outputs in all but False."""
     check_exact(exact)
     device = resolve_device(device)
     model = model.to(device)
     batch = to_batch(batch, device)
-    with torch.no_grad(), exact_numerics(exact):
-        logits, tgt_mask, log_dur = apply_parrot(model, batch, out_len=out_len)
+    with torch.no_grad(), exact_numerics(exact is not False):
+        logits, tgt_mask, log_dur = apply_parrot(model, batch, out_len=out_len,
+                                                 exact=exact)
         durations = torch.where(batch["src_mask"],
                                 lr_ops.durations_from_log_pred(log_dur), 0)
-    return logits.argmax(dim=-1), tgt_mask, durations.sum(dim=1)
+        out = (logits.argmax(dim=-1), tgt_mask, durations.sum(dim=1))
+        return out + (code_margin(logits, tgt_mask),) if with_margin else out

@@ -17,6 +17,11 @@ Two paths, the JAX package's split at `attention.py:93-97`:
 Both run their CUDA kernels on the card at any T (the TPU needed T >= 512
 and a multiple of 128 for its Pallas paths) and the plain versions on the
 CPU.
+
+`precision` (serving; `ops/precision.py`) sets the projections' products
+and row 1's mode: "tf32" takes its 1-pass TF32 mode, "ieee" its 3xTF32
+mode (the closest the kernel comes to IEEE float32), None its 3xTF32 mode
+with the projections under the ambient torch flags.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
+from parrot_tts_tpu_torch.ops import precision as prec
 from parrot_tts_tpu_torch.ops.flash_attention import flash_attention
 from parrot_tts_tpu_torch.ops.flash_dropout import (flash_attention_dropout,
                                                     padding_bias)
@@ -35,11 +40,12 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          in_proj_weight: torch.Tensor,
                          out_proj_weight: torch.Tensor, n_head: int, *,
                          key_padding_mask: torch.Tensor | None = None,
-                         dropout_p: float = 0.0, seed: int | None = None
-                         ) -> torch.Tensor:
+                         dropout_p: float = 0.0, seed: int | None = None,
+                         precision: str | None = None) -> torch.Tensor:
     """q, k, v: (B, T, D); key_padding_mask: (B, T) bool, True = IGNORE
     that key (torch convention). seed: this call's 64-bit dropout stream;
-    None for the deterministic forward. Returns (B, T, D)."""
+    None for the deterministic forward. precision: the deterministic
+    forward's mode (module docstring). Returns (B, T, D)."""
     b, t, d = q.shape
     if d % n_head:
         raise ValueError(f"d_model {d} % n_head {n_head} != 0")
@@ -47,16 +53,18 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
 
     def heads(x, w):
-        return (F.linear(x, w).reshape(b, -1, n_head, d_head)
+        return (prec.linear(x, w, mode=precision).reshape(b, -1, n_head, d_head)
                 .transpose(1, 2).contiguous())          # (B, H, T, dh)
 
     qh, kh, vh = heads(q, wq), heads(k, wk), heads(v, wv)
     scale = 1.0 / math.sqrt(d_head)
-    if seed is None:
+    if seed is None and precision == "tf32":
+        out = flash_attention(qh, kh, vh, key_padding_mask, scale, passes=1)
+    elif seed is None:
         out = flash_attention(qh, kh, vh, key_padding_mask, scale)
     else:
         bias = padding_bias(key_padding_mask, b, t, q.device)
         out = flash_attention_dropout(qh, kh, vh, bias, seed, dropout_p,
                                       scale)
     out = out.transpose(1, 2).reshape(b, t, d)
-    return F.linear(out, out_proj_weight)
+    return prec.linear(out, out_proj_weight, mode=precision)

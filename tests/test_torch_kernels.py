@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from parrot_tts_tpu_torch.core.device import exact_numerics
 from parrot_tts_tpu_torch.ops import flash_attention as fa
 from parrot_tts_tpu_torch.ops import flash_dropout as fd
@@ -73,6 +74,77 @@ def test_cpu_tensors_take_the_plain_version(rng):
         fa.flash_attention(q, k, v, mask, 0.25),
         fa.flash_attention_reference(q, k, v, mask, 0.25), rtol=0, atol=0)
     assert fa.FLASH_FWD.launches == before
+
+
+def test_one_pass_on_cpu_is_its_plain_version(rng):
+    q, k, v, mask = _inputs(rng, 2, 2, 40, 64, all_masked_row=1)
+    before = fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass
+    got = fa.flash_attention(q, k, v, mask, 0.125, passes=1)
+    torch.testing.assert_close(
+        got, fa.flash_attention_reference(q, k, v, mask, 0.125, passes=1),
+        rtol=0, atol=0)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    assert (fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass) == before
+    for passes in (0, 2):
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, k, v, mask, 0.125, passes=passes)
+
+
+def test_one_pass_gate_tells_rounding_apart(rng, monkeypatch):
+    """chip_smoke.py's 1-pass gate passes the plain version with its
+    scores summed in another order (d permuted), as the kernel sums them,
+    and fails one that truncates where it should round and the IEEE
+    version (the 3xTF32 mode's result)."""
+    q, k, v, mask = _inputs(rng, 4, 2, 500, 128, all_masked_row=2)
+    scale = 128 ** -0.5
+    keep = torch.arange(4) != 2
+    want = fa.flash_attention_reference(q, k, v, mask, scale, passes=1)
+    ieee = fa.flash_attention_reference(q, k, v, mask, scale)
+    perm = torch.from_numpy(rng.permutation(128))
+    reordered = fa.flash_attention_reference(q[..., perm], k[..., perm], v,
+                                             mask, scale, passes=1)
+    monkeypatch.setattr(fa, "round_tf32", lambda x: (
+        x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32))
+    truncated = fa.flash_attention_reference(q, k, v, mask, scale, passes=1)
+
+    def gate(got):
+        err, rms, from_ieee, tol, rms_tol = chip_smoke.one_pass_gate(
+            got[keep], want[keep], ieee[keep], v)
+        return err <= tol, rms <= rms_tol, from_ieee > 1e-5
+
+    assert not torch.equal(reordered, want)
+    assert gate(reordered) == (True, True, True)
+    assert gate(truncated)[1:] == (False, True)
+    assert gate(ieee)[1:] == (False, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(777, 128), (2048, 128), (130, 64)])
+def test_one_pass_kernel_matches_its_plain_version_on_card(cuda_device, t, d):
+    """Row 1's 1-pass TF32 mode against its plain version, which rounds
+    q, k, P (tile by tile, against the running row max) and v to TF32 where
+    the kernel does: both take exact products of the same TF32 values, so
+    they differ by float32 sums in another order and the rare weight this
+    sends to the neighbouring TF32 value; chip_smoke.py phase 3's gate
+    (`one_pass_gate`: max and RMS) holds, and the kernel rounds (> 1e-5
+    from IEEE)."""
+    rng = np.random.default_rng(t + d)
+    q, k, v, mask = _inputs(rng, 4, 2, t, d, cuda_device, all_masked_row=2)
+    scale = 1.0 / math.sqrt(d)
+    before = fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass
+    got = fa.flash_attention(q, k, v, mask, scale, passes=1)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass) == (
+        before[0] + 1, before[1] + 1)
+    with exact_numerics(True):
+        want = fa.flash_attention_reference(q, k, v, mask, scale, passes=1)
+        ieee = fa.flash_attention_reference(q, k, v, mask, scale)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    keep = torch.arange(4, device=cuda_device) != 2
+    err, rms, from_ieee, tol, rms_tol = chip_smoke.one_pass_gate(
+        got[keep], want[keep], ieee[keep], v)
+    assert err <= tol and rms <= rms_tol, (err, tol, rms, rms_tol)
+    assert from_ieee > 1e-5                            # it does round
 
 
 @pytest.mark.cuda

@@ -193,11 +193,14 @@ def test_infer_codes_exact_matches_jax(rng, out_len):
                                   np.asarray(j_codes)[clear])
 
 
-def test_mixed_precision_modes_not_ported():
+@pytest.mark.parametrize("mode", ["hybrid", "high", "selective_high", 1, None])
+def test_infer_codes_refuses_what_is_not_its_mode(mode):
+    """infer_codes takes True, False, "selective" and "selective-high";
+    "hybrid" only a bucketed decode can run (decode_buckets, ParrotTTS),
+    and anything else is an error."""
     _, tcfg = configs()
     batch = {"phones": np.ones((1, 4), np.int32),
              "src_mask": np.ones((1, 4), bool), "speaker": np.zeros(1)}
-    for mode in ("selective", "selective-high", "hybrid"):
-        with pytest.raises(NotImplementedError):
-            parrot.infer_codes(parrot.Parrot(tcfg), batch, out_len=64,
-                               exact=mode, device="cpu")
+    with pytest.raises(ValueError, match="not a decode mode"):
+        parrot.infer_codes(parrot.Parrot(tcfg), batch, out_len=64,
+                           exact=mode, device="cpu")
