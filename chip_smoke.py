@@ -196,7 +196,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    best-path margin is <= 1e-4, such items counted);
    build_tte_manifests over phase 15's units (every line's durations sum
    to its units); and `python -m parrot_tts_tpu_torch.cli
-   run-aligner-pipeline` on three short wavs per speaker, exit 0.
+   run-aligner-pipeline` on three short wavs per speaker, exit 0;
+18. the mesh (core/mesh.py, parallel/tensor.py). NCCL refuses two ranks
+   on one GPU, so NCCL runs at world size 1 in this process: phase 4's
+   serve with mesh= bit-equal to it without, and one TTE optimizer step
+   at (128, 1024) under the group bit-equal to the step without it. Then
+   2 gloo processes on the one card (`mesh_worker`, joined within
+   MESH_DEADLINE_S or killed), full width: sharded serving of phase 4's
+   requests and of 64 rows of the (128 -> 2048) bucket (units equal to
+   one process's exact=True decode; waveforms bit-equal to each shard's
+   rows served solo and within 1e-5 of the unsharded serve); 2 TTE
+   optimizer steps at (128, 1024), 6 rows per rank, at dropout 0 (IEEE)
+   and 0.1 (TF32) against one process on the 12 rows (losses within
+   1e-5; at 0 the first summed gradient within 1e-5 |dg|/|g| of one
+   process's sum over the same shards, and within phase 11's 1e-3 / 1e-2
+   of the 12-row gradient; at 0.1 the dQ kernel's keep bits gathered
+   over the ranks equal to one process's; parameters bit-equal across
+   the ranks); 2 V1
+   GAN steps, 8 rows per rank, against one process on 16 (phase 14's
+   tolerances; parameters and spectral-norm vectors bit-equal across the
+   ranks); the TP=2 decode (one head, half the filters and codes per
+   rank) against the replicated decode; every rank launching rows 1-4;
+   then `synthesize --mesh` through the CLI, its files equal to those
+   without --mesh; readings: ms per 2-rank micro-step and GAN step, the
+   gloo all-reduce's ms and share of the micro-step.
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -578,8 +601,9 @@ def phase_kernel(fa, exact_numerics, registers: dict) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
-def make_tts(tcfg, vcfg, device=None):
-    """ParrotTTS on weights made from SEED: every call gives the same."""
+def make_tts(tcfg, vcfg, device=None, **kw):
+    """ParrotTTS on weights made from SEED: every call gives the same.
+    kw go to ParrotTTS (exact, mesh)."""
     from parrot_tts_tpu_torch.infer.serving import ParrotTTS
     from parrot_tts_tpu_torch.models.tte import parrot
     from parrot_tts_tpu_torch.models.vocoder import generator
@@ -594,7 +618,7 @@ def make_tts(tcfg, vcfg, device=None):
     tte_state["duration_predictor.proj.bias"].fill_(math.log(6.0))
     tok = DFATokenizer([" "] + list("abcdefghijklmnopqrstuvwxyz,.?"))
     return ParrotTTS(tte_state, tcfg, voc_state, vcfg, tok, english_cleaners,
-                     device=device)
+                     device=device, **kw)
 
 
 def vocoder_batches(units) -> list[tuple[int, int]]:
@@ -1455,6 +1479,12 @@ def phase_flash_dropout(fd, registers: dict) -> dict:
         if not torch.equal(mask, fd.keep_mask_reference(b, h, t, seed, FD_P,
                                                         dev)):
             raise AssertionError(f"keep mask B={b} T={t}: not bit-identical")
+        # a data-parallel shard's rows: bh counted from its first global row
+        off = fd.keep_mask(b - 1, h, t, seed, FD_P, dev, bh_offset=h)
+        if not torch.equal(off, mask[1:]):
+            raise AssertionError(f"keep mask B={b} T={t}: bh_offset {h} does "
+                                 "not give rows 1.. of the whole mask")
+        del off
         rate = float(mask.double().mean())
         sigma = math.sqrt(FD_P * (1 - FD_P) / mask.numel())
         if not abs(rate - (1 - FD_P)) <= 5 * sigma:
@@ -1821,14 +1851,14 @@ def phase_train(fd, fa, tcfg, train_cfg, pairs, checked: set,
             return float(total.detach()), torch.autograd.grad(total,
                                                               params)
 
-    def plain_fwd(*args, operands):
-        return fd.flash_attention_dropout_reference(*args)
+    def plain_fwd(*args, operands, bh_offset):
+        return fd.flash_attention_dropout_reference(*args, bh_offset)
 
-    def plain_dq(*args, operands):
-        return (*fd.flash_dropout_dq_reference(*args), None)
+    def plain_dq(*args, operands, bh_offset):
+        return (*fd.flash_dropout_dq_reference(*args, bh_offset), None)
 
-    def plain_dkv(*args, bits, operands):
-        return fd.flash_dropout_dkv_reference(*args)
+    def plain_dkv(*args, bits, operands, bh_offset):
+        return fd.flash_dropout_dkv_reference(*args, bh_offset)
 
     before = fd.FWD.launches
     loss_k, grads_k = loss_and_grads()
@@ -3213,6 +3243,658 @@ def cli_outputs_equal(a, b) -> bool:
                     for f in files))
 
 
+
+# phase 18: the mesh on the card (core/mesh.py, parallel/tensor.py). One
+# card: NCCL refuses two ranks on one GPU, so the NCCL path runs at world
+# size 1, in this process, and the multi-rank paths as MESH_WORLD gloo
+# processes that share the card (gloo all-reduces and broadcasts CUDA
+# tensors; its gathers take host copies)
+MESH_WORLD = 2
+MESH_DEADLINE_S = 480        # the spawn is joined or killed by then
+MESH_PAIR = (128, 1024)      # the data-parallel TTE steps' bucket pair
+MESH_ROWS = 64               # rows of the full (128 -> 2048) decode batch
+MESH_TTE_RTOL = 1e-5         # 2 ranks against 1 process: each micro-step's
+                             # loss; and the first micro-step's gradient
+                             # against one process's sum over the same
+                             # shards (the shapes the ranks run), |dg|/|g|.
+                             # Against the global batch's gradient the
+                             # GEMMs' shapes differ (6 against 12 rows),
+                             # their last bits too, and the attention
+                             # kernels' bf16 rounding of q, k, v turns
+                             # some into 2^-9 steps: 2.3e-5 (TF32) and
+                             # 5.2e-5 (IEEE) on the card, gated there at
+                             # phase 11's TRAIN_GRAD_RTOL / _MAX
+MESH_WAV_ATOL = 1e-5         # sharded waveforms against the unsharded serve
+MESH_GAN_STEPS = 2
+MESH_AR_REPS = 5             # timed all-reduces of the TTE's gradient
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def synthetic_tte_batch(rng, b: int, s: int, t: int, tcfg) -> dict:
+    """A training batch at bucket pair (s, t): b rows of token and code
+    counts in the pair's upper half, durations >= 1 summing to the code
+    count, the last row a filler (weight 0), so the ranks' halves hold
+    unequal numbers of valid codes."""
+    phones = np.zeros((b, s), np.int64)
+    dur = np.zeros((b, s), np.int64)
+    codes = np.full((b, t), tcfg.hubert_codes, np.int64)
+    src_mask = np.zeros((b, s), bool)
+    tgt_mask = np.zeros((b, t), bool)
+    for i in range(b):
+        n_tok = int(rng.integers(s // 2 + 1, s + 1))
+        n_code = int(rng.integers(max(t // 2 + 1, n_tok), t + 1))
+        dur[i, :n_tok] = rng.multinomial(n_code - n_tok,
+                                         np.full(n_tok, 1.0 / n_tok)) + 1
+        phones[i, :n_tok] = rng.integers(2, tcfg.vocab_size, n_tok)
+        codes[i, :n_code] = rng.integers(0, tcfg.hubert_codes, n_code)
+        src_mask[i, :n_tok] = True
+        tgt_mask[i, :n_code] = True
+    weight = np.ones((b,), np.float32)
+    weight[-1] = 0.0
+    return {"phones": phones, "duration": dur, "codes": codes,
+            "src_mask": src_mask, "tgt_mask": tgt_mask,
+            "speaker": rng.integers(0, tcfg.n_speaker, b),
+            "sample_weight": weight}
+
+
+def shard_solo_wavs(synth, codes, spk, world: int) -> list:
+    """Each request's waveform served solo among its shard's rows: its
+    vocoder bucket padded to a multiple of `world` with repeats of the
+    bucket's first row and cut in `world` shards, as a sharded serve cuts
+    it."""
+    from parrot_tts_tpu_torch.data.tte_data import pick_bucket
+    from parrot_tts_tpu_torch.infer.synthesize import CODE_BUCKETS
+
+    by: dict = {}
+    for i, c in enumerate(codes):
+        by.setdefault(pick_bucket(CODE_BUCKETS, len(c)), []).append(i)
+    out: list = [None] * len(codes)
+    for idx in by.values():
+        pad = idx + [idx[0]] * (-len(idx) % world)
+        n = len(pad) // world
+        for r in range(world):
+            rows = pad[r * n:(r + 1) * n]
+            for gi, w in zip(rows, synth.synthesize([codes[i] for i in rows],
+                                                    [spk[i] for i in rows])):
+                if out[gi] is None:
+                    out[gi] = w
+    return out
+
+
+def check_wavs(label: str, got, solo, whole) -> None:
+    """Sharded waveforms: bit-equal to the shard's solo serve, within
+    MESH_WAV_ATOL of the unsharded serve."""
+    worst = 0.0
+    for i, (g, s, w) in enumerate(zip(got, solo, whole)):
+        if not np.array_equal(g, s):
+            raise AssertionError(f"{label} request {i}: not the bits of its "
+                                 "shard served solo")
+        if len(g):
+            worst = max(worst, float(np.abs(g - w).max()))
+    if not worst <= MESH_WAV_ATOL:
+        raise AssertionError(f"{label}: max |diff| {worst} against the "
+                             "unsharded serve")
+    print(f"{label}: {len(got)} waveforms bit-equal to their shards served "
+          f"solo; max |diff| {worst:.3e} against the unsharded serve")
+
+
+def same_on_every_rank(meshlib, tensors) -> bool:
+    """Whether every rank holds these tensors' bits (a SHA-256 of them,
+    gathered)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    d = torch.tensor(list(h.digest()), dtype=torch.uint8)[None]
+    rows = meshlib.fetch(d)
+    return bool((rows == rows[0]).all())
+
+
+def mesh_launches(fa, fd) -> dict:
+    return {"flash_attn_fwd": fa.FLASH_FWD.launches, "fwd": fd.FWD.launches,
+            "dq": fd.DQ.launches, "dkv": fd.DKV.launches}
+
+
+def grad_rel(got, want) -> float:
+    num = sum(float((a.double() - b.double()).pow(2).sum())
+              for a, b in zip(got, want))
+    den = sum(float(b.double().pow(2).sum()) for b in want)
+    return math.sqrt(num / den)
+
+
+def mesh_serve(spec, mesh, rank: int, dev) -> None:
+    """Sharded serving of phase 4's requests and of the MESH_ROWS-row
+    decode batch; rank 0 holds them to one process's serve."""
+    from parrot_tts_tpu_torch.infer.tte_infer import decode_buckets
+
+    tcfg, vcfg = spec["tcfg"], spec["vcfg"]
+    tts = make_tts(tcfg, vcfg, device=dev, exact=True, mesh=mesh)
+    speakers = [i % tcfg.n_speaker for i in range(len(TEXTS))]
+    tokens = [tts.tokenize(t) for t in TEXTS]
+    units = tts.predict_units(tokens, speakers)
+    wavs = tts.tts(TEXTS, speakers=speakers)
+    samples = [(s, speakers[i]) for i, s in enumerate(tokens)]
+    plan = tts.plan(tokens)     # phase 4's full batch: the 2048 bucket's
+    s_len, out_len, idxs = next((p for p in plan if p[1] == 2048),
+                                max(plan, key=lambda p: p[1]))
+    rows = [samples[idxs[j % len(idxs)]] for j in range(spec["rows"])]
+    full = [(s_len, out_len, list(range(len(rows))))]
+    units64 = decode_buckets(tts.replicas, rows, full, batch_size=len(rows),
+                             exact=True, device=dev, mesh=mesh)
+    spk64 = [r[1] for r in rows]
+    wavs64 = tts.vocoder.synthesize(units64, spk64)
+    if rank:
+        return
+    solo = make_tts(tcfg, vcfg, device=dev, exact=True)
+    want = solo.predict_units(tokens, speakers)
+    want64 = decode_buckets(solo.tte, rows, full, batch_size=len(rows),
+                            exact=True, device=dev)
+    for label, a, b in (("requests", units, want),
+                        (f"{len(rows)} x ({s_len} -> {out_len})", units64,
+                         want64)):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"sharded decode of the {label}: units "
+                                 "differ from one process's exact=True")
+        print(f"sharded decode of the {label}: {len(a)} unit sequences "
+              "equal to one process's exact=True decode")
+    check_wavs("sharded ParrotTTS serve", wavs,
+               shard_solo_wavs(solo.vocoder, want, speakers, mesh.n_data),
+               solo.tts(TEXTS, speakers=speakers))
+    check_wavs(f"sharded vocoder, {len(rows)} rows", wavs64,
+               shard_solo_wavs(solo.vocoder, want64, spk64, mesh.n_data),
+               solo.vocoder.synthesize(want64, spk64))
+    print(f"sharded serve: {tts.last_stats['audio_seconds']:.3f} global "
+          "audio-s counted on rank 0")
+
+
+def mesh_tte_steps(spec, mesh, meshlib, rank: int, dev, fd) -> dict:
+    """Two TTE optimizer steps at the spec's bucket pair, at dropout 0
+    and 0.1, over the ranks (each its rows of the global batch) against
+    one process on the global batch: losses within MESH_TTE_RTOL, the
+    first micro-step's gradient too at dropout 0, at 0.1 the dQ kernel's
+    keep bits gathered over the ranks equal to one process's, and the
+    parameters bit-equal across the ranks. At dropout 0, in IEEE float32,
+    the ranks' summed gradient is also held to one process's sum over
+    the same shards (`shard_sum_grad`) within MESH_TTE_RTOL, and to the
+    global batch's within TRAIN_GRAD_RTOL / TRAIN_GRAD_MAX (MESH_TTE_RTOL
+    says why). Dropout 0.1 runs in TF32, as training runs; its times are
+    the readings."""
+    from parrot_tts_tpu_torch.train import tte as tte_train
+
+    tcfg, train_cfg = spec["tcfg"], spec["train_cfg"]
+    s, t = spec["pair"]
+    rng = np.random.default_rng(SEED + 18)
+    micro = [synthetic_tte_batch(rng, mesh.n_data * train_cfg.batch_size, s,
+                                 t, tcfg)
+             for _ in range(2 * train_cfg.grad_acc_steps)]
+    real_dq = fd.flash_dropout_dq
+    readings = {}
+
+    def run(cfg, dp: bool, exact: bool):
+        state = tte_train.init_state(SEED, cfg, dev)
+        n = len(micro[0]["codes"])
+        sl = meshlib.local_rows(n) if dp else slice(0, n)
+        losses, ms, bits = [], [], []
+
+        def dq_spy(*args, **kwargs):
+            out = real_dq(*args, **kwargs)
+            if state.step == 0 and out[2] is not None:
+                bits.append(out[2].cpu())
+            return out
+
+        grad0 = None
+        with mock.patch.object(fd, "flash_dropout_dq", dq_spy), \
+                deterministic_algorithms():
+            for i, mb in enumerate(micro):
+                batch = tte_train.to_batch({k: v[sl] for k, v in mb.items()},
+                                           dev)
+                sync(dev)
+                t0 = time.perf_counter()
+                m = tte_train.train_step(state, batch, SEED, cfg, train_cfg,
+                                         t, mesh if dp else None,
+                                         exact=exact)
+                losses.append(float(m["total_loss"]))
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    grad0 = [a.clone() for a in state.acc.values()]
+        return state, losses, grad0, bits, ms
+
+    for p in (0.0, 0.1):
+        cfg = dataclasses.replace(
+            tcfg, encoder=dataclasses.replace(tcfg.encoder, dropout_p=p),
+            decoder=dataclasses.replace(tcfg.decoder, dropout_p=p),
+            dur_dropout_p=p)
+        exact = p == 0.0
+        state, losses, grad0, bits, ms = run(cfg, True, exact)
+        if not same_on_every_rank(meshlib, state.model.parameters()):
+            raise AssertionError(f"TTE p={p}: parameters differ across "
+                                 "ranks")
+        gathered = [meshlib.fetch(b) for b in bits]
+        if not exact:
+            readings["tte_micro_ms"] = float(np.mean(ms[1:]))
+            grads = [torch.empty_like(a) for a in grad0]
+            ar = []
+            for _ in range(MESH_AR_REPS):
+                sync(dev)
+                t0 = time.perf_counter()
+                meshlib.all_reduce_sum(grads)
+                sync(dev)
+                ar.append((time.perf_counter() - t0) * 1e3)
+            readings["allreduce_ms"] = float(np.mean(ar))
+            readings["grad_mib"] = sum(a.numel() for a in grads) * 4 / 2**20
+        if rank:
+            continue
+        _, want, want_grad0, want_bits, one_ms = run(cfg, False, exact)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        print(f"TTE over {mesh.n_data} ranks at {spec['pair']}, p={p} "
+              f"({'IEEE' if exact else 'TF32'}): losses {losses} against one "
+              f"process {want}, max rel {max(rel):.2e}")
+        if not max(rel) <= MESH_TTE_RTOL:
+            raise AssertionError(f"TTE p={p}: losses differ")
+        if p == 0.0:
+            shards = shard_sum_grad(cfg, micro[0], mesh.n_data, t, dev)
+            ds, same = grad_rel(grad0, shards), all(
+                torch.equal(a, b) for a, b in zip(grad0, shards))
+            dg = grad_rel(grad0, want_grad0)
+            worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                        for a, b in zip(grad0, want_grad0))
+            print(f"TTE p=0: |dg|/|g| {ds:.2e} against one process's sum "
+                  f"over the same {mesh.n_data} shards (bit-equal {same}); "
+                  f"{dg:.2e} against the global batch's gradient (worst "
+                  f"tensor max|dg|/max|g| {worst:.2e}), "
+                  f"{grad_rel(shards, want_grad0):.2e} between those two in "
+                  "one process")
+            if not (ds <= MESH_TTE_RTOL and dg <= TRAIN_GRAD_RTOL
+                    and worst <= TRAIN_GRAD_MAX):
+                raise AssertionError(f"TTE p=0: |dg|/|g| {ds} (shards), "
+                                     f"{dg} / {worst} (global batch)")
+            continue
+        readings["tte_one_process_micro_ms"] = float(np.mean(one_ms[1:]))
+        if dev.type == "cuda":
+            if not (len(gathered) == len(want_bits) > 0 and all(
+                    torch.equal(torch.from_numpy(g), w)
+                    for g, w in zip(gathered, want_bits))):
+                raise AssertionError("TTE p=0.1: the ranks' keep bits are not "
+                                     "one process's rows")
+            print(f"TTE p=0.1: the keep bits of {len(want_bits)} dQ launches "
+                  "of the first micro-step, gathered over the ranks, equal "
+                  "one process's row for row")
+    return readings
+
+
+def shard_sum_grad(cfg, mb: dict, n_shards: int, out_len: int, dev) -> list:
+    """In one process, the gradient a first data-parallel micro-step
+    forms: each shard's, from the seeded state, with the global batch's
+    loss denominators and the shard's global rows for the masks, summed
+    over the shards (IEEE float32, deterministic algorithms)."""
+    from parrot_tts_tpu_torch.core.device import exact_numerics
+    from parrot_tts_tpu_torch.models.tte import parrot
+    from parrot_tts_tpu_torch.models.tte.loss import tte_loss
+    from parrot_tts_tpu_torch.train import tte as tte_train
+
+    model = tte_train.init_state(SEED, cfg, dev).model
+    params = list(model.parameters())
+    full = tte_train.to_batch(mb, dev)
+    w = full["sample_weight"][:, None]
+    denom = torch.stack([((full["codes"] != cfg.hubert_codes) * w).sum(),
+                         (full["src_mask"] * w).sum()])
+    b = len(mb["codes"])
+    loc = b // n_shards
+    total = None
+    with exact_numerics(True), deterministic_algorithms():
+        for r in range(n_shards):
+            part = tte_train.to_batch(
+                {k: v[r * loc:(r + 1) * loc] for k, v in mb.items()}, dev)
+            logits, _, log_dur = parrot.apply_parrot_train(
+                model, part, out_len=out_len, dropout=(SEED, 0),
+                rows=(r * loc, b))
+            loss = tte_loss(logits, log_dur, part["codes"], part["duration"],
+                            part["src_mask"], num_codes=cfg.hubert_codes,
+                            sample_weight=part["sample_weight"],
+                            reduce=lambda d: d.copy_(denom))[0]
+            g = torch.autograd.grad(loss, params)
+            total = list(g) if total is None else [
+                a + x for a, x in zip(total, g)]
+    return total
+
+
+def mesh_gan_steps(spec, mesh, meshlib, rank: int, dev) -> dict:
+    """MESH_GAN_STEPS V1 GAN steps over the ranks (each its half of the
+    batch) against one process on the whole batch, at phase 14's
+    tolerances; every parameter and spectral-norm vector bit-equal across
+    the ranks."""
+    from parrot_tts_tpu_torch.train import vocoder as voc_train
+
+    mcfg, tcfg, mel_cfg = spec["gan"]
+    rng = np.random.default_rng(SEED + 19)
+    b, seg = tcfg.batch_size, tcfg.segment_size
+    batch_np = {"audio": (rng.standard_normal((b, seg)) * 0.2).astype(
+                    np.float32),
+                "code": rng.integers(0, mcfg.num_embeddings,
+                                     (b, seg // tcfg.code_hop_size)),
+                "spkr": np.arange(b) % mcfg.num_speakers}
+
+    def run(dp: bool):
+        state = voc_train.init_state(tcfg.seed, mcfg, dev)
+        sl = meshlib.local_rows(b) if dp else slice(0, b)
+        batch = voc_train.to_batch({k: v[sl] for k, v in batch_np.items()},
+                                   dev)
+        metrics, ms, g = [], [], None
+        with deterministic_algorithms():
+            for i in range(MESH_GAN_STEPS):
+                sync(dev)
+                t0 = time.perf_counter()
+                m = voc_train.train_step(state, batch, mcfg, tcfg, mel_cfg,
+                                         10, exact=True,
+                                         mesh=mesh if dp else None)
+                metrics.append({k: float(v) for k, v in m.items()})
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0 and not rank:
+                    g = gan_grads(state)
+        return state, metrics, g, ms
+
+    state, metrics, g, ms = run(True)
+    nets = [t for m in (state.gen, state.mpd, state.msd)
+            for t in m.state_dict().values()]
+    if not same_on_every_rank(meshlib, nets):
+        raise AssertionError("GAN: parameters or spectral-norm vectors "
+                             "differ across ranks")
+    readings = {"gan_step_ms": float(np.mean(ms))}
+    if rank:
+        return readings
+    del state, nets
+    _, want, g1, one_ms = run(False)
+    readings["gan_one_process_step_ms"] = float(np.mean(one_ms))
+    for step, (a, w) in enumerate(zip(metrics, want)):
+        for k in w:
+            rel = abs(a[k] - w[k]) / abs(w[k])
+            if not rel <= GAN_LOSS_RTOL:
+                raise AssertionError(f"GAN step {step} {k}: rel {rel}")
+    for net in g1:
+        keys = list(g1[net])
+        rel = grad_rel([g[net][k] for k in keys], [g1[net][k] for k in keys])
+        worst = max(float((g[net][k] - g1[net][k]).abs().max())
+                    / max(float(g1[net][k].abs().max()), 1e-30)
+                    for k in keys)
+        print(f"GAN over {mesh.n_data} ranks, {net} gradients of step 1: "
+              f"|dg|/|g| {rel:.2e}, worst tensor {worst:.2e}")
+        if not (rel <= GAN_GRAD_RTOL and worst <= GAN_GRAD_MAX):
+            raise AssertionError(f"GAN {net}: gradients differ")
+    print(f"GAN over {mesh.n_data} ranks: {MESH_GAN_STEPS} steps' losses "
+          f"within {GAN_LOSS_RTOL} of one process; parameters and "
+          "spectral-norm vectors bit-equal across the ranks")
+    return readings
+
+
+def mesh_tensor_parallel(spec, meshlib, rank: int, dev) -> None:
+    """The TTE decode with the model axis over the ranks (each its heads,
+    filters and codes) against the replicated decode."""
+    from parrot_tts_tpu_torch.core.device import exact_numerics
+    from parrot_tts_tpu_torch.infer.tte_infer import make_batch
+    from parrot_tts_tpu_torch.models.tte import parrot
+    from parrot_tts_tpu_torch.parallel import tensor as tp
+
+    tcfg, vcfg = spec["tcfg"], spec["vcfg"]
+    mesh = meshlib.create_mesh([dev], model_parallel_size=meshlib
+                               .process_count())
+    tts = make_tts(tcfg, vcfg, device=dev, exact=True)
+    local = tp.shard_parrot_tp(mesh, tts.tte)
+    speakers = [i % tcfg.n_speaker for i in range(len(TEXTS))]
+    tokens = [tts.tokenize(t) for t in TEXTS]
+    samples = [(s, speakers[i]) for i, s in enumerate(tokens)]
+    for s_len, out_len, idxs in tts.plan(tokens):
+        raw = make_batch(samples, idxs, s_len)
+        batch = parrot.to_batch(raw, dev)
+        codes, mask, total = parrot.infer_codes(local, raw, out_len=out_len,
+                                                device=dev, mesh=mesh)
+        with torch.no_grad(), exact_numerics(True):
+            logits = parrot.apply_parrot(local, batch, out_len=out_len,
+                                         mesh=mesh)[0]
+            if rank:
+                continue
+            want, want_mask, _ = parrot.apply_parrot(tts.tte, batch,
+                                                     out_len=out_len)
+        if not torch.equal(mask, want_mask):
+            raise AssertionError(f"TP bucket {out_len}: durations differ")
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = mask & (top2[..., 0] - top2[..., 1] > 2 * DLOGIT_TOL)
+        dlogit = float((logits - want)[mask].abs().max())
+        if not (dlogit <= DLOGIT_TOL and torch.equal(
+                codes[clear], want.argmax(-1)[clear])):
+            raise AssertionError(f"TP bucket {out_len}: max |dlogit| "
+                                 f"{dlogit}, or codes differ off ties")
+        print(f"TP={mesh.n_model} decode, bucket ({s_len}, {out_len}) x "
+              f"{len(idxs)}: durations equal, max |dlogit| {dlogit:.3e} "
+              "against the replicated decode, codes equal off ties")
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_worker(spec_path: str, rank: int, world: int, store: str) -> int:
+    """One rank of phase 18's gloo group (run by phase_mesh in a process
+    of its own): sharded serving, the data-parallel TTE and GAN steps and
+    the tensor-parallel decode. Writes its launches and readings to
+    <spec_path>.<rank>."""
+    from parrot_tts_tpu_torch.core import mesh as meshlib
+    from parrot_tts_tpu_torch.ops import flash_attention as fa
+    from parrot_tts_tpu_torch.ops import flash_dropout as fd
+
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device(spec["device"])
+    meshlib.initialize_distributed("gloo", init_method=store,
+                                   world_size=world, rank=rank,
+                                   timeout_s=MESH_DEADLINE_S)
+    mesh = meshlib.create_mesh([dev])
+    for k in (fa.FLASH_FWD, fd.FWD, fd.DQ, fd.DKV):
+        k.launches = 0
+    t0 = time.perf_counter()
+    mesh_serve(spec, mesh, rank, dev)
+    serve = mesh_launches(fa, fd)
+    t1 = time.perf_counter()
+    readings = mesh_tte_steps(spec, mesh, meshlib, rank, dev, fd)
+    t2 = time.perf_counter()
+    readings.update(mesh_gan_steps(spec, mesh, meshlib, rank, dev))
+    t3 = time.perf_counter()
+    mesh_tensor_parallel(spec, meshlib, rank, dev)
+    print(f"rank {rank} seconds: serving {t1 - t0:.1f}, TTE steps "
+          f"{t2 - t1:.1f}, GAN steps {t3 - t2:.1f}, TP decode "
+          f"{time.perf_counter() - t3:.1f}")
+    with open(f"{spec_path}.{rank}", "w") as f:
+        json.dump({"rank": rank, "serve_launches": serve,
+                   "launches": mesh_launches(fa, fd),
+                   "readings": readings}, f)
+    meshlib.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mesh(fa, fd, base: dict, tcfg, vcfg, smi: str, *, train_cfg,
+               gan: tuple, rows: int = MESH_ROWS, device=None) -> dict:
+    """Phase 18. NCCL (gloo on the CPU) at world size 1 in this process:
+    the serve with mesh= bit-equal to phase 4's without, and one TTE
+    optimizer step under the group bit-equal to the step without it.
+    Then MESH_WORLD gloo ranks on the one card (`mesh_worker`), joined
+    within MESH_DEADLINE_S or killed; then `synthesize --mesh` through
+    the CLI against the files without --mesh. Returns the kernel launches
+    of the phase (this process's and the ranks')."""
+    import tempfile
+
+    from parrot_tts_tpu_torch import cli
+    from parrot_tts_tpu_torch.core import mesh as meshlib
+    from parrot_tts_tpu_torch.core.checkpoint import (CheckpointManager,
+                                                      save_config_json)
+    from parrot_tts_tpu_torch.core.config import to_json
+    from parrot_tts_tpu_torch.data.audio_io import read_wav
+    from parrot_tts_tpu_torch.data.manifest import write_manifest
+    from parrot_tts_tpu_torch.train import tte as tte_train
+
+    dev = torch.device(device or "cuda:0")
+    for k in (fa.FLASH_FWD, fd.FWD, fd.DQ, fd.DKV):
+        k.launches = 0
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    meshlib.initialize_distributed(
+        backend, init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0)
+    try:
+        mesh = meshlib.create_mesh(None if dev.type == "cuda" else [dev])
+        tts = make_tts(tcfg, vcfg, device=device, mesh=mesh)
+        speakers = base["speakers"]
+        wavs = tts.tts(TEXTS, speakers=speakers)
+        units = tts.predict_units([tts.tokenize(t) for t in TEXTS], speakers)
+        if not (all(np.array_equal(a, b) for a, b in zip(units,
+                                                         base["units"]))
+                and all(np.array_equal(a, b) for a, b in zip(wavs,
+                                                             base["wavs"]))):
+            raise AssertionError(f"{backend} world 1: the mesh serve differs "
+                                 "from phase 4's")
+        print(f"{backend} world 1, mesh {mesh.shape}: units and waveforms "
+              "bit-equal to phase 4's serve without a mesh")
+        # fetch gathers host copies; at world 1 it skips the collective, so
+        # run it here: a group with no CPU backend fails on this call
+        host = torch.arange(6, dtype=torch.float32).reshape(3, 2)
+        if not torch.equal(meshlib.all_gather_rows(host), host):
+            raise AssertionError(f"{backend} world 1: the host gather "
+                                 "differs from its input")
+        print(f"{backend} world 1: fetch's gather of a host tensor runs on "
+              f"the group ({torch.distributed.get_backend()})")
+        s, t = MESH_PAIR if dev.type == "cuda" else spec_pair(train_cfg)
+        batch = synthetic_tte_batch(np.random.default_rng(SEED + 17),
+                                    train_cfg.batch_size, s, t, tcfg)
+        one = dataclasses.replace(train_cfg, grad_acc_steps=1)
+        params = []
+        for m in (mesh, None):
+            state = tte_train.init_state(SEED, tcfg, dev)
+            with deterministic_algorithms():
+                tte_train.train_step(state, tte_train.to_batch(batch, dev),
+                                     SEED, tcfg, one, t, m)
+            params.append([p.detach().clone()
+                           for p in state.model.parameters()])
+        if not all(torch.equal(a, b) for a, b in zip(*params)):
+            raise AssertionError(f"{backend} world 1: the TTE step under the "
+                                 "group differs from the step without it")
+        print(f"{backend} world 1: one TTE optimizer step at ({s}, {t}) "
+              "under the group bit-equal to the step without it")
+        del tts, params, state
+    finally:
+        torch.distributed.destroy_process_group()
+    launches = mesh_launches(fa, fd)
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="parrot_mesh_") as tmp:
+        spec = {"device": str(dev), "tcfg": tcfg, "vcfg": vcfg,
+                "train_cfg": train_cfg, "gan": gan, "rows": rows,
+                "pair": MESH_PAIR if dev.type == "cuda"
+                else spec_pair(train_cfg)}
+        path = f"{tmp}/spec.pt"
+        torch.save(spec, path)
+        store = f"file://{tmp}/store"
+        code = ("import sys, chip_smoke; sys.exit(chip_smoke.mesh_worker("
+                f"{path!r}, {{}}, {MESH_WORLD}, {store!r}))")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        logs = [open(f"{tmp}/rank{r}.log", "w+") for r in range(MESH_WORLD)]
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code.format(r)],
+                                  cwd=here, env=env, stdout=logs[r],
+                                  stderr=subprocess.STDOUT)
+                 for r in range(MESH_WORLD)]
+        deadline = time.monotonic() + MESH_DEADLINE_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, f in enumerate(logs):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            print(f"--- mesh rank {r} (exit {procs[r].returncode}) ---")
+            print(text[-6000:].rstrip())
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"phase 18: a gloo rank failed or passed "
+                                 f"the {MESH_DEADLINE_S} s deadline")
+        outs = [json.load(open(f"{path}.{r}")) for r in range(MESH_WORLD)]
+        print(f"{MESH_WORLD} gloo ranks on {dev}: {time.perf_counter() - t0:.1f}"
+              " s from spawn to join")
+    for o in outs:
+        for k, n in o["launches"].items():
+            launches[k] += n
+        if dev.type == "cuda" and not (o["serve_launches"]["flash_attn_fwd"]
+                                       and all(o["launches"].values())):
+            raise AssertionError(f"rank {o['rank']}: a kernel of the mesh "
+                                 f"path was not launched: {o['launches']}")
+    rd = outs[0]["readings"]
+    print(f"rank launches (row 1, rows 2-4): "
+          + "; ".join(f"rank {o['rank']} {o['launches']}" for o in outs))
+    print(f"phase 18 readings, {MESH_WORLD} gloo ranks sharing one card, "
+          f"{smi}: TTE micro-step at {spec['pair']} x "
+          f"{train_cfg.batch_size} rows per rank {rd['tte_micro_ms']:.3f} ms "
+          f"(one process, {MESH_WORLD * train_cfg.batch_size} rows: "
+          f"{rd['tte_one_process_micro_ms']:.3f} ms); gloo all-reduce of the "
+          f"{rd['grad_mib']:.1f} MiB gradient {rd['allreduce_ms']:.3f} ms "
+          f"({rd['allreduce_ms'] / rd['tte_micro_ms']:.3f} of the "
+          f"micro-step); V1 GAN step at {gan[1].batch_size // MESH_WORLD} "
+          f"rows per rank {rd['gan_step_ms']:.3f} ms (one process, "
+          f"{gan[1].batch_size} rows: {rd['gan_one_process_step_ms']:.3f} ms)")
+
+    # synthesize --mesh through the CLI, on this process's devices
+    with tempfile.TemporaryDirectory(prefix="parrot_mesh_cli_") as tmp:
+        from pathlib import Path
+
+        from parrot_tts_tpu_torch.models.vocoder import generator
+
+        tmp = Path(tmp)
+        gen_state = generator.init_code_generator(
+            vcfg, torch.Generator().manual_seed(SEED))
+        CheckpointManager(tmp / "ckpt").save(1, {"gen": gen_state})
+        save_config_json(tmp / "ckpt", to_json(vcfg))
+        write_manifest(tmp / "hubert.txt", [
+            {"audio": f"/corpus/spk{i % 2}_{i:03d}.wav",
+             "hubert": " ".join(map(str, u.tolist()))}
+            for i, u in enumerate(base["units"]) if len(u)])
+        argv = ["synthesize", "--manifest", str(tmp / "hubert.txt"),
+                "--ckpt-dir", str(tmp / "ckpt")]
+        dev_arg = [] if dev.type == "cuda" else ["--device", str(dev)]
+        cli.main(argv + ["--out-dir", str(tmp / "plain")] + dev_arg)
+        cli.main(argv + ["--out-dir", str(tmp / "mesh"), "--mesh"] + dev_arg)
+        files = sorted(p.name for p in (tmp / "plain").glob("*.wav"))
+        if not files or files != sorted(p.name for p in
+                                        (tmp / "mesh").glob("*.wav")) or \
+                not all(np.array_equal(read_wav(tmp / "plain" / f)[0],
+                                       read_wav(tmp / "mesh" / f)[0])
+                        for f in files):
+            raise AssertionError("synthesize --mesh: its files differ from "
+                                 "those without --mesh")
+        print(f"synthesize --mesh through the CLI: {len(files)} files equal "
+              "to those without --mesh")
+    return launches
+
+
+def spec_pair(train_cfg) -> tuple[int, int]:
+    """The smallest bucket pair of a (rehearsal) training config."""
+    return train_cfg.src_buckets[0], train_cfg.tgt_buckets[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3285,6 +3967,10 @@ def main() -> int:
              MelConfig(), dict(n_train=32, n_val=4, seconds=(1.0, 1.6)),
              base["units"], base["speakers"], hubert["wavs"])
     phase_aligner(hubert, AlignerTrainConfig())
+    mesh = phase_mesh(
+        fa, fd, base, tcfg, vcfg, smi,
+        train_cfg=TTETrainConfig(warmup_steps=0, grad_acc_steps=2),
+        gan=(vcfg, VocoderTrainConfig(), MelConfig()))
     rep = kern["report"]
     one = rep["one_pass"]
     print(f"row 1 at {REPORT_SHAPE} (B, T, d), H=2: 3xTF32 {rep['ms']:.4f} ms "
@@ -3294,10 +3980,12 @@ def main() -> int:
           f"{one['ieee_err']:.3e} from IEEE), sdpa float32 "
           f"{rep['library_ms']:.4f} ms, sdpa TF32 {one['library_ms']:.4f} ms; "
           f"{smi}")
+    row1_launches += mesh["flash_attn_fwd"]
     print(f"row 1 launches: {row1_launches} (the default serve "
           f"{base['launches']}, 3xTF32; the decode modes " + ", ".join(
               f"{m!r} {n[3]} 3xTF32 + {n[1]} 1-pass"
-              for m, n in modes["launches"].items()) + ")")
+              for m, n in modes["launches"].items())
+          + f"; phase 18 {mesh['flash_attn_fwd']})")
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -3343,7 +4031,7 @@ def main() -> int:
         "route": "cuda",
         "source": "parrot_tts_tpu_torch/csrc/flash_dropout.cu",
         "replaces": f"parrot_tts_tpu/ops/flash_dropout.py:{line}",
-        "launches": tr["launches"][key],
+        "launches": tr["launches"][key] + mesh.get(key, 0),
         "max_abs_err": fdk["max_abs_err"].get(key, 0.0),
         **fdk["report"][key],
     } for name, key, line in (("flash_dropout_fwd", "fwd", 87),

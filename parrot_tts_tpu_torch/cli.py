@@ -8,8 +8,10 @@ their arguments, defaults and the JSON line each prints are the JAX CLI's.
 Every subcommand also takes `--device` (default: the CUDA card, which is
 required unless `--device cpu` is given); `main` pins cuBLAS's workspace
 (CUBLAS_WORKSPACE_CONFIG=:4096:8 unless set) before any subcommand runs.
-`synthesize --mesh` raises:
-sharded serving over several GPUs is not in the port.
+`synthesize --mesh` shards each batch over every visible CUDA device (or
+over `--device` alone when one is given). Data-parallel training:
+`torchrun --nproc_per_node=N -m parrot_tts_tpu_torch.cli train-tte ...`
+(or `train-vocoder`).
 
 Usage: python -m parrot_tts_tpu_torch.cli <subcommand> [args]
 """
@@ -130,8 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serial one-utterance-at-a-time synthesis "
                         "(reference inference.py:237-251)")
     s.add_argument("--mesh", action="store_true",
-                   help="shard each batch over several devices (not in "
-                        "the port: raises)")
+                   help="shard each batch over every visible CUDA device "
+                        "(core/mesh.py::create_mesh)")
     s.add_argument("-n", "--limit", type=int, default=None,
                    help="stop after N utterances (reference -n)")
     s.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
@@ -339,14 +341,10 @@ def _synthesize(args):
     from parrot_tts_tpu_torch.data.audio_io import read_wav, write_wav
     from parrot_tts_tpu_torch.data.manifest import (parse_speaker,
                                                     read_manifest)
+    from parrot_tts_tpu_torch.core.mesh import create_mesh
     from parrot_tts_tpu_torch.infer.synthesize import (VocoderSynthesizer,
                                                        peak_normalize)
 
-    if getattr(args, "mesh", False):
-        raise NotImplementedError(
-            "synthesize --mesh: sharded serving over several GPUs "
-            "(torch.distributed) is not in the port yet; serve on one "
-            "device without --mesh")
     if getattr(args, "dtype", None) == "bfloat16":
         raise NotImplementedError(
             "synthesize --dtype bfloat16: the port's vocoder serves float32 "
@@ -359,7 +357,11 @@ def _synthesize(args):
     state = CheckpointManager(args.ckpt_dir).restore()
     # a vocoder training checkpoint holds the generator under "gen"
     gen_state = state["gen"] if "gen" in state else state
-    synth = VocoderSynthesizer(gen_state, vcfg, device=args.device)
+    mesh = None
+    if getattr(args, "mesh", False):
+        mesh = create_mesh(None if args.device is None else [args.device])
+    synth = VocoderSynthesizer(gen_state, vcfg, device=args.device,
+                               mesh=mesh)
 
     entries = read_manifest(args.manifest)
     if getattr(args, "limit", None):

@@ -1,13 +1,15 @@
 """Configurations for the port: copies of `TransformerStackConfig`,
 `TTEModelConfig`, `TTETrainConfig`, `VocoderModelConfig`, `MelConfig`,
-`VocoderTrainConfig`, `HubertConfig` and `Aligner{Audio,Model,Train}Config`
-from `parrot_tts_tpu/core/config.py` (defaults are the reference's
-full-width models and recipe), the fields of `PipelineConfig` that TTE and
-vocoder training read, `to_json`, `vocoder_config_from_json` and the
-aligner's `aligner_configs_to_json` / `aligner_configs_from_json`.
+`VocoderTrainConfig`, `HubertConfig`, `Aligner{Audio,Model,Train}Config`
+and `MeshConfig` from `parrot_tts_tpu/core/config.py` (defaults are the
+reference's full-width models and recipe), the fields of `PipelineConfig`
+that TTE and vocoder training read, `to_json`, `vocoder_config_from_json`
+and the aligner's `aligner_configs_to_json` / `aligner_configs_from_json`.
 
-Not copied: the reference-file loaders, `MeshConfig` (multi-GPU is a later
-slice), and the TPU-only fields. `dtype` and `fold_tail` select TPU layouts. `remat` /
+Not copied: the reference-file loaders, the TPU-only fields and, for now,
+`dtype`. `fold_tail` selects a TPU layout. `dtype` is a bf16 compute
+precision with a fidelity budget, not a layout: the port has no bf16
+compute mode yet (ROADMAP queue 1 item 12). `remat` /
 `remat_min_len` rematerialised FFT blocks in the backward pass so the XLA
 attention's saved (B, H, T, T) weights fit in memory; the port's training
 attention (`ops/flash_dropout.py`) never stores (B, H, T, T) scores, so
@@ -162,10 +164,21 @@ class VocoderTrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (`core/mesh.py`): a `data` axis, and a `model`
+    axis for the tensor-parallel rules of `parallel/tensor.py`. The
+    reference's parallelism is data-parallel only."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel_size: int = 1
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     """The fields of the JAX package's `PipelineConfig` that TTE and
     vocoder training read: the corpus and aligner directories, the TTE
-    configs, the loss mel and the vocoder configs."""
+    configs, the loss mel, the vocoder configs and the mesh."""
 
     root_path: str = "runs/TTE"
     alignment_path: str = "runs/aligner"
@@ -176,6 +189,7 @@ class PipelineConfig:
         default_factory=VocoderModelConfig)
     vocoder_train: VocoderTrainConfig = field(
         default_factory=VocoderTrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 @dataclass(frozen=True)

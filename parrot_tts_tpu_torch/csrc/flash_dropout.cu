@@ -17,8 +17,10 @@
 // JAX package's `_dot` does.
 //
 // Keep mask: element (bh, i, j) keeps iff word j%4 of Philox4x32-10, key
-// (seed lo, seed hi), counter (j/4, i, bh, 0), is >= threshold. It depends
-// on (seed, bh, i, j) alone, so the forward and dQ kernels draw the same
+// (seed lo, seed hi), counter (j/4, i, bh + bh_offset, 0), is >= threshold
+// (bh_offset: a data-parallel shard's first global row times H, so shards
+// draw rows of one batch-wide mask). It depends on (seed, global bh, i, j)
+// alone, so the forward and dQ kernels draw the same
 // mask under their tilings, and so do the keep-mask kernel and the plain
 // torch version (ops/flash_dropout.py::keep_mask_reference). One Philox call
 // gives the words of four neighbouring keys; the two lanes of an m16n8
@@ -98,7 +100,8 @@
 // Interface (plain C, loaded with ctypes; every function returns the CUDA
 // error of its launch, 0 on success; tensors contiguous):
 //   flash_dropout_fwd(q16, k16, v16, bias, o (out), lse (out), B, H, T, D,
-//                     scale, threshold, keep_scale, seed_lo, seed_hi, stream)
+//                     scale, threshold, keep_scale, seed_lo, seed_hi,
+//                     bh_offset, stream)
 //   flash_dropout_dq(q16, k16, v16, do16, bias, do, o, lse, delta (out),
 //                    dq (out), bits (out), B, H, T, D, ...)
 //   flash_dropout_dkv(q16, k16, v16, do16, bias, lse, delta, bits,
@@ -110,7 +113,7 @@
 //       bits (B*H, T, ceil(T/32)) uint32, written by dQ and read by dK/dV
 //       when threshold != 0 (else unused, may be null).
 //   flash_dropout_keep_mask(out (BH, T, T) int32, BH, T, threshold,
-//                           seed_lo, seed_hi, stream)
+//                           seed_lo, seed_hi, bh_offset, stream)
 // threshold 0 skips the mask (p = 0).
 
 #include <cuda.h>
@@ -127,6 +130,7 @@ struct Seed {
   uint32_t threshold;
   float keep_scale;
   uint32_t lo, hi;
+  uint32_t bh0;  // global (batch, head) row of this launch's first
 };
 
 __device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
@@ -159,7 +163,7 @@ __device__ __forceinline__ void keep_rows_q(uint32_t out[4], const Seed& sd,
   const bool even = (t & 1) == 0;
   const uint32_t j4 = static_cast<uint32_t>(col0 / 4 + (t >> 1));
   const uint32_t i = static_cast<uint32_t>(row0 + g + (even ? 0 : 8));
-  const uint4 w = philox(j4, i, bh, 0u, sd.lo, sd.hi);
+  const uint4 w = philox(j4, i, bh + sd.bh0, 0u, sd.lo, sd.hi);
   const uint32_t s0 = even ? w.z : w.x, s1 = even ? w.w : w.y;
   const uint32_t r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
   const uint32_t r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
@@ -1063,14 +1067,14 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
 
 __global__ void __launch_bounds__(256)
 keep_mask_kernel(int* __restrict__ out, int T, uint32_t threshold,
-                 uint32_t lo, uint32_t hi) {
+                 uint32_t lo, uint32_t hi, uint32_t bh0) {
   const int n4 = (T + 3) / 4;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<long long>(T) * n4) return;
   const int i = static_cast<int>(idx / n4), j4 = static_cast<int>(idx % n4);
   const uint32_t bh = blockIdx.y;
   const uint4 w = philox(static_cast<uint32_t>(j4), static_cast<uint32_t>(i),
-                         bh, 0u, lo, hi);
+                         bh + bh0, 0u, lo, hi);
   int* row = out + (static_cast<size_t>(bh) * T + i) * T;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -1090,12 +1094,14 @@ int launch(Kernel kernel, size_t bytes, dim3 grid, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
-Seed make_seed(unsigned threshold, float keep_scale, unsigned lo, unsigned hi) {
+Seed make_seed(unsigned threshold, float keep_scale, unsigned lo, unsigned hi,
+               unsigned bh0) {
   Seed s;
   s.threshold = threshold;
   s.keep_scale = keep_scale;
   s.lo = lo;
   s.hi = hi;
+  s.bh0 = bh0;
   return s;
 }
 
@@ -1158,9 +1164,9 @@ extern "C" int flash_dropout_fwd(const void* q, const void* k, const void* v,
                                  int B, int H, int T, int D, float scale,
                                  unsigned threshold, float keep_scale,
                                  unsigned seed_lo, unsigned seed_hi,
-                                 void* stream) {
+                                 unsigned bh_offset, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Seed sd = make_seed(threshold, keep_scale, seed_lo, seed_hi);
+  const Seed sd = make_seed(threshold, keep_scale, seed_lo, seed_hi, bh_offset);
   Maps m;
   if ((D != 64 && D != 128) ||
       !make_maps(&m, q, k, v, nullptr, B * H, T, D))
@@ -1180,9 +1186,10 @@ extern "C" int flash_dropout_dq(const void* q, const void* k, const void* v,
                                 unsigned* bits, int B, int H, int T, int D,
                                 float scale, unsigned threshold,
                                 float keep_scale, unsigned seed_lo,
-                                unsigned seed_hi, void* stream) {
+                                unsigned seed_hi, unsigned bh_offset,
+                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Seed sd = make_seed(threshold, keep_scale, seed_lo, seed_hi);
+  const Seed sd = make_seed(threshold, keep_scale, seed_lo, seed_hi, bh_offset);
   Maps m;
   if ((D != 64 && D != 128) || !make_maps(&m, q, k, v, dout16, B * H, T, D))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1203,9 +1210,9 @@ extern "C" int flash_dropout_dkv(const void* q, const void* k, const void* v,
                                  int B, int H, int T, int D, float scale,
                                  unsigned threshold, float keep_scale,
                                  unsigned seed_lo, unsigned seed_hi,
-                                 void* stream) {
+                                 unsigned bh_offset, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Seed sd = make_seed(threshold, keep_scale, seed_lo, seed_hi);
+  const Seed sd = make_seed(threshold, keep_scale, seed_lo, seed_hi, bh_offset);
   Maps m;
   if ((D != 64 && D != 128) || !make_maps(&m, q, k, v, dout16, B * H, T, D))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1220,12 +1227,13 @@ extern "C" int flash_dropout_dkv(const void* q, const void* k, const void* v,
 
 extern "C" int flash_dropout_keep_mask(int* out, int BH, int T,
                                        unsigned threshold, unsigned seed_lo,
-                                       unsigned seed_hi, void* stream) {
+                                       unsigned seed_hi, unsigned bh_offset,
+                                       void* stream) {
   const long long blocks_x =
       (static_cast<long long>(T) * ((T + 3) / 4) + 255) / 256;
   if (blocks_x > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks_x), BH);
   keep_mask_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, T, threshold, seed_lo, seed_hi);
+      out, T, threshold, seed_lo, seed_hi, bh_offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,15 @@
 """TTE data: manifests -> length-bucketed, fixed-shape numpy batches.
 
-Copies of `TTESample`, `TTEDataset`, `pick_bucket`, `collate` and
-`BucketedLoader` from `parrot_tts_tpu/data/tte_data.py`: for the same seed
-they yield the same batches, bit for bit. Samples are padded to (src, tgt)
-bucket pairs with the reference collate's values (phones with pad_idx,
-codes with the pad code = CE ignore_index, durations with 0; masks True =
-valid). The port trains on one device, so the loader's per-host slicing
-(`process_index` / `process_count`) is not copied, and it always pads a
-short last batch (the JAX loader's `drop_last=False`, the only setting
-training uses).
+Copies of `TTESample`, `TTEDataset`, `pick_bucket`, `collate`,
+`BucketedLoader` and `shard_for_host` from
+`parrot_tts_tpu/data/tte_data.py`: for the same seed they yield the same
+batches, bit for bit, and each process of a data-parallel run
+(`process_index` / `process_count`) takes its contiguous slice of every
+global batch. Samples are padded to (src, tgt) bucket pairs with the
+reference collate's values (phones with pad_idx, codes with the pad code =
+CE ignore_index, durations with 0; masks True = valid). The loader always
+pads a short last batch (the JAX loader's `drop_last=False`, the only
+setting training uses).
 """
 
 from __future__ import annotations
@@ -112,11 +113,24 @@ def collate(samples: list[TTESample], src_len: int, tgt_len: int,
 
 class BucketedLoader:
     """Length-bucketed batching with per-epoch deterministic shuffling
-    (numpy `default_rng(seed + epoch)`, the JAX package's schedule)."""
+    (numpy `default_rng(seed + epoch)`, the JAX package's schedule).
+
+    `batch_size` is the GLOBAL batch: every process derives the same
+    schedule from the shared seed and takes its contiguous
+    `batch_size / process_count` slice of each global batch, filler rows
+    (weight 0) included."""
 
     def __init__(self, dataset: TTEDataset, batch_size: int,
                  src_buckets: tuple[int, ...], tgt_buckets: tuple[int, ...],
-                 seed: int = 42, shuffle: bool = True):
+                 seed: int = 42, shuffle: bool = True,
+                 process_index: int = 0, process_count: int = 1):
+        if batch_size % process_count != 0:
+            raise ValueError(
+                f"global batch_size={batch_size} must be divisible by "
+                f"process_count={process_count} (each process takes an "
+                f"equal slice of every global batch)")
+        self.process_index = process_index
+        self.process_count = process_count
         self.ds = dataset
         self.batch_size = batch_size
         self.src_buckets = src_buckets
@@ -143,6 +157,9 @@ class BucketedLoader:
         if self.shuffle:
             rng.shuffle(all_batches)
 
+        local = self.batch_size // self.process_count
+        mine = slice(self.process_index * local,
+                     (self.process_index + 1) * local)
         for src_len, tgt_len, chunk in all_batches:
             idxs = list(chunk)
             # static shapes: pad short batches by repeating sample 0 with
@@ -151,6 +168,14 @@ class BucketedLoader:
             while len(idxs) < self.batch_size:
                 idxs.append(idxs[0])
                 weights.append(0.0)
+            idxs, weights = idxs[mine], weights[mine]
             yield collate([self.ds.samples[i] for i in idxs], src_len,
                           tgt_len, self.ds.src_pad_idx, self.ds.code_pad_idx,
                           sample_weight=weights)
+
+
+def shard_for_host(indices: np.ndarray, process_index: int,
+                   process_count: int) -> np.ndarray:
+    """Per-process manifest shard, strided (the analog of
+    DistributedSampler, reference utils/vocoder/train.py:97-100)."""
+    return indices[process_index::process_count]

@@ -1,7 +1,9 @@
 """Joint TTE + vocoder serving: batched text -> 16 kHz waveforms.
 
-Port of `parrot_tts_tpu/infer/serving.py::ParrotTTS` on one CUDA device.
-Both stages use folded (inference) parameters. The default decode is
+Port of `parrot_tts_tpu/infer/serving.py::ParrotTTS`, on one CUDA device
+or, with `mesh=`, sharded over a mesh's data axis in both stages (the TTE
+decode and the vocoder; `core/mesh.py`). Both stages use folded
+(inference) parameters. The default decode is
 "selective-high", as in the JAX class, which the card runs as IEEE
 float32 throughout (`models/tte/parrot.py` lists the modes). A string
 mode sets the TTE decode only: the vocoder then runs as under exact=True
@@ -17,6 +19,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from parrot_tts_tpu_torch.core import mesh as meshlib
 from parrot_tts_tpu_torch.core.config import TTEModelConfig, VocoderModelConfig
 from parrot_tts_tpu_torch.core.device import resolve_device
 from parrot_tts_tpu_torch.data.tte_data import pick_bucket
@@ -36,16 +39,22 @@ class ParrotTTS:
     dicts (convert.py carries JAX trees across). exact: the TTE decode
     mode, "selective-high" by default (module docstring), or "hybrid"
     (`infer/tte_infer.py::decode_buckets`, threshold 0.5). device: default
-    the CUDA card, raising without one; pass "cpu" to run on the host."""
+    the CUDA card, raising without one, or the mesh's first device; pass
+    "cpu" to run on the host. mesh: shard both stages' batches over the
+    mesh's data axis (each replica on its device, outputs fetched
+    globally, so `last_stats` counts the global audio)."""
 
     def __init__(self, tte_state: dict, tte_cfg: TTEModelConfig,
                  vocoder_state: dict, vocoder_cfg: VocoderModelConfig,
                  tokenizer: DFATokenizer, cleaner: Callable[[str], str], *,
                  src_buckets: tuple[int, ...] = SRC_BUCKETS,
                  out_len_per_token: int = 16, batch_size: int = 64,
-                 exact: bool | str = "selective-high", device=None):
+                 exact: bool | str = "selective-high", device=None,
+                 mesh: meshlib.Mesh | None = None):
         parrot.check_exact(exact, hybrid=True)
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            mesh.local_data[0] if device is None and mesh else device)
+        self.mesh = mesh
         self.tte_cfg = tte_cfg
         self.tokenizer = tokenizer
         self.cleaner = cleaner
@@ -56,9 +65,11 @@ class ParrotTTS:
         self.tte = parrot.Parrot(tte_cfg, folded=True)
         self.tte.load_state_dict(fold_tte_params(tte_state), strict=True)
         self.tte.to(self.device).eval()
+        self.replicas = (None if mesh is None
+                         else meshlib.replicated(mesh, self.tte))
         self.vocoder = VocoderSynthesizer(
             vocoder_state, vocoder_cfg, exact=exact is not False,
-            device=self.device)
+            device=self.device, mesh=mesh)
         self.last_stats: dict = {}
 
     def tokenize(self, text: str) -> np.ndarray:
@@ -86,9 +97,11 @@ class ParrotTTS:
                       speakers: Sequence[int],
                       stats: dict | None = None) -> list[np.ndarray]:
         samples = [(seq, speakers[i]) for i, seq in enumerate(token_seqs)]
-        return decode_buckets(self.tte, samples, self.plan(token_seqs),
+        return decode_buckets(self.replicas or self.tte, samples,
+                              self.plan(token_seqs),
                               batch_size=self.batch_size, exact=self.exact,
-                              device=self.device, stats=stats)
+                              device=self.device, stats=stats,
+                              mesh=self.mesh)
 
     def tts(self, texts: Sequence[str],
             speakers: Sequence[int] | None = None,

@@ -2,7 +2,7 @@
 waveform for one request.
 
 Port of `parrot_tts_tpu/infer/synthesize.py::{VocoderSynthesizer,
-peak_normalize, synthesize_text}`, single device: the float generator
+peak_normalize, synthesize_text}`: the float generator
 (with the fused MRF kernel under `fused_mrf=True`), the dynamic int8
 generator (`quant="int8"` or `"int8-tail"`: per-row activation scales
 taken on every call, nothing to calibrate) and the int8-static generator
@@ -13,6 +13,14 @@ the largest bucket, as in the JAX package), short rows are repeat-padded
 with their own codes, and each waveform is trimmed to len(units) * hop.
 An f0-conditioned vocoder (`cfg.f0`) takes a code-rate pitch track per
 utterance, padded as its codes are; int8-static serving refuses it.
+
+With a mesh (`core/mesh.py`, model axis 1) each bucket's batch is padded
+to a multiple of the data axis with repeats of row 0, every process takes
+its rows (`local_rows`), each of its devices runs its shard on its own
+replica, and the waveforms are fetched globally and trimmed: the
+replacement for the reference's 8-GPU inference pool
+(`utils/vocoder/inference.py:201-261`). A shard's rows give the same bits
+as a solo serve of those rows.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from parrot_tts_tpu_torch.core import mesh as meshlib
 from parrot_tts_tpu_torch.core.config import VocoderModelConfig
 from parrot_tts_tpu_torch.core.device import resolve_device
 from parrot_tts_tpu_torch.data.audio_io import write_wav
@@ -49,16 +58,19 @@ class VocoderSynthesizer:
     state: a `CodeGenerator` state dict (weight-norm form, or already
     folded); weight norm is collapsed once here. exact=True runs the
     float convs in IEEE float32. device: default the CUDA card (raises
-    without one); pass "cpu" to run on the host. calib_margin scales the
-    int8-static activation scales (quant="int8-static" only); `staticq`
-    holds the int8-static state once calibrated. Under fused_mrf=True each
-    fused stage's weights are packed once, here, and under quant="int8" /
-    "int8-tail" every MRF conv's and upsample's int8 weight."""
+    without one), or the mesh's first device; pass "cpu" to run on the
+    host. mesh: shard each batch over the mesh's data axis (module
+    docstring); `replicas` holds one model per data-axis device of this
+    process. calib_margin scales the int8-static activation scales
+    (quant="int8-static" only); `staticq` holds the int8-static state
+    once calibrated (of the first replica; `staticqs` of each). Under fused_mrf=True each fused stage's
+    weights are packed once, here, and under quant="int8" / "int8-tail"
+    every MRF conv's and upsample's int8 weight."""
 
     def __init__(self, state: dict, cfg: VocoderModelConfig, *,
                  sample_rate: int = 16_000,
                  exact: bool = True, device=None,
-                 calib_margin: float = 1.0):
+                 calib_margin: float = 1.0, mesh=None):
         if cfg.f0 and cfg.quant == "int8-static":
             raise ValueError(
                 "int8-static serving does not support f0 conditioning: the "
@@ -68,44 +80,80 @@ class VocoderSynthesizer:
         self.cfg = cfg
         self.sample_rate = sample_rate
         self.exact = exact
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.local_data[0] if device is None and mesh else device)
         if any(k.endswith(".weight_g") for k in state):
             with torch.no_grad():
                 state = gen.fold_params(state)
         self.model = gen.CodeGenerator(cfg, weight_norm=False)
         self.model.load_state_dict(state, strict=True)
         self.model.to(self.device).eval()
-        self.model.pack_fused_mrf()
-        self.model.pack_int8()
+        self.replicas = ([self.model] if mesh is None
+                         else meshlib.replicated(mesh, self.model))
+        for m in {id(m): m for m in self.replicas}.values():
+            m.pack_fused_mrf()
+            m.pack_int8()
         self.calib_margin = calib_margin
         self.staticq: sq.StaticQ | None = None
+        self.staticqs: list[sq.StaticQ] = []
         self.last_rtf: float | None = None
 
     def calibrate(self, codes, speakers) -> None:
         """Static int8 activation scales from a representative batch of
         equal-length code sequences (quant="int8-static" only). Called on
-        the first served batch if not done explicitly. Quantizes every
-        conv's weight for these scales."""
+        the first served batch (under a mesh the whole padded global
+        batch) if not done explicitly. The scales are calibrated once
+        (rank 0's under a process group) and every replica's convs are
+        quantized for them."""
         code = np.stack([np.asarray(c, np.int64) for c in codes])
         spk = np.asarray(speakers, np.int64)
         qscales = sq.calibrate_qscales(
             self.model, code, spk, margin=self.calib_margin,
             exact=self.exact, device=self.device)
-        self.staticq = sq.quantize_generator(self.model, qscales,
-                                             device=self.device)
+        meshlib.broadcast(qscales)
+        devices = self.mesh.local_data if self.mesh else [self.device]
+        per_copy: dict = {}           # devices that repeat share a copy
+        for m, d in zip(self.replicas, devices):
+            if id(m) not in per_copy:
+                per_copy[id(m)] = sq.quantize_generator(m, qscales, device=d)
+        self.staticqs = [per_copy[id(m)] for m in self.replicas]
+        self.staticq = self.staticqs[0]
 
     def _launch(self, code_pad: np.ndarray, spk: np.ndarray,
-                f0_pad: np.ndarray | None) -> torch.Tensor:
+                f0_pad: np.ndarray | None, shard: int = 0) -> torch.Tensor:
+        model = self.replicas[shard]
+        device = self.mesh.local_data[shard] if self.mesh else self.device
         if self.cfg.quant == "int8-static":
-            if self.staticq is None:
-                self.calibrate(code_pad, spk)
             return sq.apply_code_generator_staticq(
-                self.model, code_pad, spk, self.staticq, exact=self.exact,
-                device=self.device)
+                model, code_pad, spk, self.staticqs[shard], exact=self.exact,
+                device=device)
         return gen.apply_code_generator(
-            self.model, code_pad, spk,
+            model, code_pad, spk,
             extra_feats=None if f0_pad is None else {"f0": f0_pad},
-            exact=self.exact, device=self.device)
+            exact=self.exact, device=device)
+
+    def _serve(self, code_pad: np.ndarray, spk: np.ndarray,
+               f0_pad: np.ndarray | None) -> np.ndarray:
+        """(B, T * hop) waveforms of one padded bucket; under a mesh its
+        rows are padded with repeats of row 0, sharded and fetched."""
+        if self.cfg.quant == "int8-static" and self.staticq is None:
+            self.calibrate(code_pad, spk)
+        if self.mesh is None:
+            return self._launch(code_pad, spk, f0_pad)[:, :, 0].cpu().numpy()
+        b = len(code_pad)
+        b_pad = meshlib.pad_rows_to_multiple(b, self.mesh.n_data)
+        rows = {"code": code_pad, "spk": spk, "f0": f0_pad}
+        rows = {k: None if v is None else np.concatenate(
+            [v, np.repeat(v[:1], b_pad - b, axis=0)])[
+                meshlib.local_rows(b_pad)] for k, v in rows.items()}
+        n = len(self.replicas)
+        loc = len(rows["code"]) // n
+        part = [{k: None if v is None else v[i * loc: (i + 1) * loc]
+                 for k, v in rows.items()} for i in range(n)]
+        outs = [self._launch(p["code"], p["spk"], p["f0"], i)[:, :, 0]
+                for i, p in enumerate(part)]
+        return meshlib.fetch(outs)[:b]
 
     def synthesize(self, codes: list[np.ndarray], speakers: list[int],
                    f0: list[np.ndarray] | None = None) -> list[np.ndarray]:
@@ -138,7 +186,7 @@ class VocoderSynthesizer:
             f0_pad = None if f0 is None else _repeat_pad(
                 [np.asarray(f0[gi], np.float32).reshape(-1) for gi in idxs],
                 t_len)[:, None, :]
-            y = self._launch(code_pad, spk, f0_pad)[:, :, 0].cpu().numpy()
+            y = self._serve(code_pad, spk, f0_pad)
             for j, gi in enumerate(idxs):
                 n = min(len(codes[gi]), t_len) * hop
                 results[gi] = y[j, :n]

@@ -3,10 +3,11 @@ their manifest entry point, which writes them as predictions.txt.
 
 Port of `parrot_tts_tpu/infer/tte_infer.py::{max_decode_len,
 decode_buckets, predict_units, write_predictions}` (reference
-`inference.py`), single device (no mesh). Samples are decoded batched in
-static (s_len, out_len) buckets; a sample whose predicted total duration
-overflows its bucket is re-decoded in a larger one (the reference's
-dynamic shapes never truncate).
+`inference.py`). Samples are decoded batched in static (s_len, out_len)
+buckets; a sample whose predicted total duration overflows its bucket is
+re-decoded in a larger one (the reference's dynamic shapes never
+truncate). `decode_buckets(mesh=)` shards each batch over a mesh's data
+axis.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from parrot_tts_tpu_torch.core import mesh as meshlib
 from parrot_tts_tpu_torch.core.config import TTEModelConfig
 from parrot_tts_tpu_torch.data.audio_io import duration_seconds
 from parrot_tts_tpu_torch.data.tte_data import TTEDataset, pick_bucket
@@ -45,12 +47,34 @@ def make_batch(samples: list[tuple[np.ndarray, int]], chunk: list[int],
     return {"phones": phones, "src_mask": src_mask, "speaker": speaker}
 
 
-def decode_buckets(model: parrot.Parrot, samples: list[tuple[np.ndarray, int]],
+def _infer_sharded(replicas: list, mesh: meshlib.Mesh, batch: dict, *,
+                   out_len: int, exact, with_margin: bool) -> list:
+    """infer_codes over a mesh: rows padded to a multiple of the data
+    axis with repeats of row 0, this process's rows (`local_rows`) split
+    over its devices, each shard decoded on its device's replica, and the
+    outputs fetched globally (numpy, padding rows dropped)."""
+    b = len(batch["phones"])
+    b_pad = meshlib.pad_rows_to_multiple(b, mesh.n_data)
+    mine = meshlib.local_rows(b_pad)
+    rows = {k: np.concatenate([v, np.repeat(v[:1], b_pad - b, axis=0)])[mine]
+            for k, v in batch.items()}
+    devs = mesh.local_data
+    loc = len(rows["phones"]) // len(devs)
+    outs = [parrot.infer_codes(
+        rep, {k: v[i * loc: (i + 1) * loc] for k, v in rows.items()},
+        out_len=out_len, exact=exact, with_margin=with_margin, device=dev)
+        for i, (rep, dev) in enumerate(zip(replicas, devs))]
+    return [meshlib.fetch([o[j] for o in outs])[:b]
+            for j in range(len(outs[0]))]
+
+
+def decode_buckets(model, samples: list[tuple[np.ndarray, int]],
                    plan: list[tuple[int, int, list[int]]], *,
                    batch_size: int, exact: bool | str = True,
                    margin_threshold: float = 0.5,
                    device: torch.device | str | None = None,
-                   stats: dict | None = None) -> list[np.ndarray]:
+                   stats: dict | None = None,
+                   mesh: meshlib.Mesh | None = None) -> list[np.ndarray]:
     """Greedy decode over a (s_len, out_len, indices) bucket plan; returns
     one int32 unit array per sample. exact: a mode of `parrot.infer_codes`,
     or "hybrid": decode in "selective" (IEEE lengths, a 1-pass TF32
@@ -59,12 +83,21 @@ def decode_buckets(model: parrot.Parrot, samples: list[tuple[np.ndarray, int]],
     could flip) again in "selective-high", through the same bucket and
     overflow plan, and keep those units. When a dict is given,
     `stats["decode_batches"]` counts the infer_codes calls made, and
-    `stats["hybrid_flagged"]` the samples a hybrid decode re-decoded."""
+    `stats["hybrid_flagged"]` the samples a hybrid decode re-decoded.
+
+    mesh: shard every batch over the mesh's data axis (`_infer_sharded`);
+    model is then a `Parrot` (replicated here) or the list of replicas
+    `core/mesh.py::replicated` made for the mesh. Every process gets the
+    global outputs, so the overflow retries and the hybrid's re-decode
+    are planned alike on every rank."""
     parrot.check_exact(exact, hybrid=True)
+    if mesh is not None and not isinstance(model, list):
+        model = meshlib.replicated(mesh, model)
+    cfg = (model[0] if mesh is not None else model).cfg
     hybrid = exact == "hybrid"
     fast_exact = "selective" if hybrid else exact
     flagged: dict[tuple[int, int], list[int]] = {}
-    cap = max_decode_len(model.cfg)
+    cap = max_decode_len(cfg)
     results: list[np.ndarray | None] = [None] * len(samples)
     pending = list(plan)
     while pending:
@@ -72,13 +105,18 @@ def decode_buckets(model: parrot.Parrot, samples: list[tuple[np.ndarray, int]],
         retry: dict[tuple[int, int], list[int]] = {}
         for off in range(0, len(idxs), batch_size):
             chunk = idxs[off : off + batch_size]
-            out = parrot.infer_codes(
-                model, make_batch(samples, chunk, s_len), out_len=out_len,
-                exact=fast_exact, with_margin=hybrid, device=device)
+            batch = make_batch(samples, chunk, s_len)
+            if mesh is None:
+                out = [x.cpu().numpy() for x in parrot.infer_codes(
+                    model, batch, out_len=out_len, exact=fast_exact,
+                    with_margin=hybrid, device=device)]
+            else:
+                out = _infer_sharded(model, mesh, batch, out_len=out_len,
+                                     exact=fast_exact, with_margin=hybrid)
             if stats is not None:
                 stats["decode_batches"] = stats.get("decode_batches", 0) + 1
-            codes, mask, total = (x.cpu().numpy() for x in out[:3])
-            margin = out[3].cpu().numpy() if hybrid else None
+            codes, mask, total = out[:3]
+            margin = out[3] if hybrid else None
             for j, gi in enumerate(chunk):
                 if total[j] > out_len and out_len < cap:
                     need = min(-(-int(total[j]) // 128) * 128, cap)
@@ -105,7 +143,7 @@ def decode_buckets(model: parrot.Parrot, samples: list[tuple[np.ndarray, int]],
                 model, samples, [(s, t, i) for (s, t), i in
                                  sorted(flagged.items())],
                 batch_size=batch_size, exact="selective-high", device=device,
-                stats=stats)
+                stats=stats, mesh=mesh)
             for idxs in flagged.values():
                 for gi in idxs:
                     results[gi] = again[gi]

@@ -14,6 +14,11 @@ residuals. Two reference quirks are kept:
 Padding discipline: padded positions are zeroed at every conv input and at
 the block output, so outputs do not depend on the bucket size.
 
+Tensor parallelism (`parallel/tensor.py`, forward only): given a mesh
+whose model axis shards the block's weights, qkv's output features are
+gathered, attention runs on this rank's heads, and the out-projection,
+wo and conv2 are summed over the axis, each bias added once.
+
 Parameter names are the reference's `state_dict` keys
 (`attention.qkv.weight`, `attention.mha.in_proj_weight`, ...).
 """
@@ -27,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from parrot_tts_tpu_torch.core.mesh import (Mesh, gather_last, model_part,
+                                            model_sum, once)
 from parrot_tts_tpu_torch.ops import precision as prec
 from parrot_tts_tpu_torch.ops.attention import multi_head_attention
 
@@ -103,16 +110,31 @@ class FFTBlock(nn.Module):
         return apply_fft_block(self, x, key_padding_mask=key_padding_mask)
 
 
+def _gather_packed(y: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """A column-parallel packed [q; k; v] output gathered from the model
+    axis's shards (each rank's [q_r; k_r; v_r]) into [q; k; v] order."""
+    full = gather_last(y, mesh)
+    if full is y:
+        return y
+    *lead, w = full.shape
+    return (full.reshape(*lead, mesh.n_model, 3, w // (3 * mesh.n_model))
+            .transpose(-3, -2).reshape(*lead, w))
+
+
 def apply_fft_block(block: FFTBlock, x: torch.Tensor, *,
                     key_padding_mask: torch.Tensor | None = None,
                     dropout_p: float = 0.0, seed: int | None = None,
-                    precision: str | None = None) -> torch.Tensor:
+                    row0: int = 0,
+                    precision: str | None = None,
+                    mesh: Mesh | None = None) -> torch.Tensor:
     """One FFT block on x (B, T, D); key_padding_mask (B, T) True = IGNORE.
     seed: the attention's dropout stream (training, with `dropout_p` on
-    the attention weights); None for the deterministic forward.
+    the attention weights); None for the deterministic forward. row0: the
+    global batch row of x's first (`multi_head_attention`).
     precision: the products of every linear and conv and row 1's mode
     (`ops/precision.py`, `ops/attention.py`); None: the ambient torch
-    flags. LayerNorm, masks and residuals stay float32."""
+    flags. LayerNorm, masks and residuals stay float32. mesh: a model
+    axis the block's weights are sharded over (module docstring)."""
     valid = None
     if key_padding_mask is not None:
         valid = (~key_padding_mask)[:, :, None].to(x.dtype)
@@ -120,19 +142,21 @@ def apply_fft_block(block: FFTBlock, x: torch.Tensor, *,
     a = block.attention
     h = layer_norm(x, block.attn_norm.weight, block.attn_norm.bias)
     if a.qkv is not None:
-        q, k, v = prec.linear(h, a.qkv.weight, mode=precision).chunk(3, dim=-1)
+        q, k, v = _gather_packed(prec.linear(h, a.qkv.weight, mode=precision),
+                                 mesh).chunk(3, dim=-1)
         y = multi_head_attention(q, k, v, a.mha.in_proj_weight,
                                  a.mha.out_proj.weight, block.n_head,
                                  key_padding_mask=key_padding_mask,
-                                 dropout_p=dropout_p, seed=seed,
-                                 precision=precision)
-        y = prec.linear(y, a.wo.weight, mode=precision)
+                                 dropout_p=dropout_p, seed=seed, row0=row0,
+                                 precision=precision, mesh=mesh)
+        y = model_sum(prec.linear(model_part(y, mesh), a.wo.weight,
+                                  mode=precision), mesh)
     else:
         y = multi_head_attention(h, h, h, a.mha.in_proj_weight,
                                  a.mha.out_proj.weight, block.n_head,
                                  key_padding_mask=key_padding_mask,
-                                 dropout_p=dropout_p, seed=seed,
-                                 precision=precision)
+                                 dropout_p=dropout_p, seed=seed, row0=row0,
+                                 precision=precision, mesh=mesh)
     h = x + y
 
     c = layer_norm(h, block.conv_norm.weight, block.conv_norm.bias)
@@ -145,8 +169,8 @@ def apply_fft_block(block: FFTBlock, x: torch.Tensor, *,
     c = torch.relu(c)
     if valid is not None:
         c = c * valid
-    c = prec.conv1d(c, cl.conv2.weight, cl.conv2.bias, precision,
-                    padding=(ks2 - 1) // 2)
+    c = model_sum(prec.conv1d(c, cl.conv2.weight, once(cl.conv2.bias, mesh),
+                              precision, padding=(ks2 - 1) // 2), mesh)
     out = h + c
     if valid is not None:
         out = out * valid

@@ -12,6 +12,10 @@ True = IGNORE key-padding masks internally.
 batch's `tgt_mask`, and, given a `(run seed, micro-step)` pair, attention
 and duration-predictor dropout whose streams derive from that pair and the
 site alone (`dropout_seed`), so a step is reproducible from its inputs.
+Each element's draw is a function of its GLOBAL batch row: a data-parallel
+shard passes `rows=(first row, global rows)` and draws the rows of the
+whole batch's masks, so a step over the shards equals the step over the
+global batch.
 
 Precision (`exact`, the JAX package's modes, `parrot.py:173-344` there),
 by section: the "encoder" section is the encoder stack, the duration
@@ -33,6 +37,12 @@ of durations and the argmax; the "decoder" section is the decoder stack.
 "hybrid" (`infer/tte_infer.py::decode_buckets` and ParrotTTS only) decodes
 in "selective", reads each sample's top-2 logit margin (`code_margin`),
 and decodes the samples below a threshold again in "selective-high".
+
+Tensor parallelism (`parallel/tensor.py::shard_parrot_tp`, the forward
+and decode only): the forward functions take a `mesh` whose model axis
+shards the FFT blocks and the head (`fft.py`); the head's vocabulary
+shards are gathered into every rank's logits. The embeddings and the
+duration predictor replicate.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from torch import nn
 
 from parrot_tts_tpu_torch.core.config import TTEModelConfig
 from parrot_tts_tpu_torch.core.device import exact_numerics, resolve_device
+from parrot_tts_tpu_torch.core.mesh import Mesh, gather_last
 from parrot_tts_tpu_torch.models.tte import fft
 from parrot_tts_tpu_torch.ops import init as init_ops
 from parrot_tts_tpu_torch.ops import length_regulator as lr_ops
@@ -106,23 +117,29 @@ def dropout_seed(*values: int) -> int:
     return h
 
 
-def _dropout(h: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+def _dropout(h: torch.Tensor, p: float, seed: int,
+             rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Elementwise dropout drawn from a torch.Generator seeded with `seed`
-    (F.dropout takes no generator): keep with probability 1 - p."""
+    (F.dropout takes no generator): keep with probability 1 - p. rows:
+    (first row, global rows) of a data-parallel shard h: the draw covers
+    the global batch and h takes its rows of it."""
     gen = torch.Generator(device=h.device).manual_seed(seed)
-    keep = torch.rand(h.shape, generator=gen, device=h.device) < 1.0 - p
+    r0, n = rows or (0, h.shape[0])
+    u = torch.rand((n,) + h.shape[1:], generator=gen, device=h.device)
+    keep = u[r0: r0 + h.shape[0]] < 1.0 - p
     return torch.where(keep, h / (1.0 - p), 0.0)
 
 
 def apply_duration_predictor(dp: DurationPredictor, x: torch.Tensor,
                              pad_mask: torch.Tensor, cfg: TTEModelConfig, *,
                              seed: int | None = None,
+                             rows: tuple[int, int] | None = None,
                              precision: str | None = None) -> torch.Tensor:
     """Log-duration prediction; pad_mask True = PAD, padded outputs 0.
     Reference quirk (duration.py:34): conv2 hardcodes padding=1 whatever
     the kernel size (under cfg.reference_compat). seed: dropout after each
-    LayerNorm (training, `cfg.dur_dropout_p`); None for no dropout.
-    precision: the products' `ops/precision.py` mode."""
+    LayerNorm (training, `cfg.dur_dropout_p`); None for no dropout. rows:
+    `_dropout`'s. precision: the products' `ops/precision.py` mode."""
     ks = dp.kernel_size
     p = cfg.dur_dropout_p if seed is not None else 0.0
     valid = (~pad_mask)[:, :, None].to(x.dtype)
@@ -132,12 +149,12 @@ def apply_duration_predictor(dp: DurationPredictor, x: torch.Tensor,
                     padding=(ks - 1) // 2)
     h = fft.layer_norm(torch.relu(h), ln1.weight, ln1.bias)
     if p > 0:
-        h = _dropout(h, p, dropout_seed(seed, 1))
+        h = _dropout(h, p, dropout_seed(seed, 1), rows)
     pad2 = 1 if cfg.reference_compat else (ks - 1) // 2
     h = prec.conv1d(h * valid, c2.weight, c2.bias, precision, padding=pad2)
     h = fft.layer_norm(torch.relu(h), ln2.weight, ln2.bias)
     if p > 0:
-        h = _dropout(h, p, dropout_seed(seed, 2))
+        h = _dropout(h, p, dropout_seed(seed, 2), rows)
     out = prec.linear(h, dp.proj.weight, dp.proj.bias, precision)[..., 0]
     return torch.where(pad_mask, 0.0, out)
 
@@ -229,17 +246,19 @@ def init_parrot(cfg: TTEModelConfig, gen: torch.Generator) -> dict:
 
 def _run_stack(layers, x: torch.Tensor, pad_mask: torch.Tensor,
                dropout_p: float, seed: int | None,
-               precision: str | None = None) -> torch.Tensor:
+               precision: str | None = None, row0: int = 0,
+               mesh: Mesh | None = None) -> torch.Tensor:
     for i, blk in enumerate(layers):
         x = fft.apply_fft_block(
             blk, x, key_padding_mask=pad_mask, dropout_p=dropout_p,
-            seed=None if seed is None else dropout_seed(seed, i),
-            precision=precision)
+            seed=None if seed is None else dropout_seed(seed, i), row0=row0,
+            precision=precision, mesh=mesh)
     return x
 
 
 def _encode(model: Parrot, batch: dict, seed: int | None,
-            precision: str | None = None):
+            precision: str | None = None,
+            rows: tuple[int, int] | None = None, mesh: Mesh | None = None):
     """Embedding, encoder stack, speaker embedding and duration predictor:
     (encoder states (B, S, D), log_dur_pred (B, S))."""
     cfg = model.cfg
@@ -251,20 +270,21 @@ def _encode(model: Parrot, batch: dict, seed: int | None,
     x = x * src_mask[:, :, None].to(x.dtype)   # pads stay batch-invariant
     x = _run_stack(model.encoder_layers, x, src_pad, cfg.encoder.dropout_p,
                    None if seed is None else dropout_seed(seed, ENCODER_SITE),
-                   precision)
+                   precision, rows[0] if rows else 0, mesh)
     if cfg.n_speaker > 1:
         x = x + model.speaker_emb.weight[batch["speaker"]][:, None, :]
         x = x * src_mask[:, :, None].to(x.dtype)
     log_dur_pred = apply_duration_predictor(
         model.duration_predictor, x, src_pad, cfg,
         seed=None if seed is None else dropout_seed(seed, PREDICTOR_SITE),
-        precision=precision)
+        rows=rows, precision=precision)
     return x, log_dur_pred
 
 
 def _decode(model: Parrot, x: torch.Tensor, tgt_mask: torch.Tensor,
             pe_rows: torch.Tensor, seed: int | None,
-            precision: str | None = None) -> torch.Tensor:
+            precision: str | None = None, row0: int = 0,
+            mesh: Mesh | None = None) -> torch.Tensor:
     """Positional row and decoder stack over regulated states."""
     cfg = model.cfg
     x = fft.add_pos_emb(x, model.pe, pe_rows.clamp(0, cfg.max_len - 1),
@@ -273,38 +293,44 @@ def _decode(model: Parrot, x: torch.Tensor, tgt_mask: torch.Tensor,
     return _run_stack(model.decoder_layers, x, ~tgt_mask,
                       cfg.decoder.dropout_p,
                       None if seed is None else dropout_seed(seed, DECODER_SITE),
-                      precision)
+                      precision, row0, mesh)
 
 
-def _head(model: Parrot, x: torch.Tensor, precision: str | None = None
-          ) -> torch.Tensor:
-    """The 1000-way linear head: (B, T, D) -> logits (B, T, n_codes)."""
-    return prec.linear(x, model.head.weight, model.head.bias, precision)
+def _head(model: Parrot, x: torch.Tensor, precision: str | None = None,
+          mesh: Mesh | None = None) -> torch.Tensor:
+    """The 1000-way linear head: (B, T, D) -> logits (B, T, n_codes),
+    its vocabulary shards gathered under a model axis."""
+    return gather_last(prec.linear(x, model.head.weight, model.head.bias,
+                                   precision), mesh)
 
 
 def apply_parrot(model: Parrot, batch: dict, *, out_len: int,
-                 exact: bool | str = True):
+                 exact: bool | str = True, mesh: Mesh | None = None):
     """Inference forward (reference parrot.py:90-120 with predicted
     durations). batch: phones (B, S) int, src_mask (B, S) bool True=valid,
     speaker (B,) int, all on the model's device. out_len: decoder length
     (bucket >= total duration). exact: the decode mode, whose `SECTIONS`
-    set each section's precision. Returns (logits (B, out_len, n_codes),
-    tgt_mask (B, out_len) True=valid, log_dur_pred (B, S))."""
+    set each section's precision. mesh: a model axis the weights are
+    sharded over (module docstring). Returns (logits (B, out_len,
+    n_codes), tgt_mask (B, out_len) True=valid, log_dur_pred (B, S))."""
     check_exact(exact)
     enc, dec = SECTIONS[exact]
     src_mask = batch["src_mask"]
-    x, log_dur_pred = _encode(model, batch, None, enc)
+    x, log_dur_pred = _encode(model, batch, None, enc, mesh=mesh)
     durations = torch.where(src_mask,
                             lr_ops.durations_from_log_pred(log_dur_pred), 0)
     # exclusive mask: the decode covers exactly sum(dur) frames (the
     # reference's canonical batch-1 decode)
     x, tgt_mask = lr_ops.length_regulator(x, durations, out_len)
-    x = _decode(model, x, tgt_mask, durations.sum(dim=1), None, dec)
-    return _head(model, x, enc), tgt_mask, log_dur_pred
+    x = _decode(model, x, tgt_mask, durations.sum(dim=1), None, dec,
+                mesh=mesh)
+    return _head(model, x, enc, mesh), tgt_mask, log_dur_pred
 
 
 def apply_parrot_train(model: Parrot, batch: dict, *, out_len: int,
-                       dropout: tuple[int, int] | None = None):
+                       dropout: tuple[int, int] | None = None,
+                       rows: tuple[int, int] | None = None,
+                       mesh: Mesh | None = None):
     """Training forward (JAX `apply_parrot(..., inference=False)`,
     `parrot.py:257-261`): ground-truth `duration` (B, S) and the batch's
     `tgt_mask` (B, out_len) True=valid, besides the inference keys.
@@ -312,14 +338,18 @@ def apply_parrot_train(model: Parrot, batch: dict, *, out_len: int,
     attention through `ops/flash_dropout.py`, rows 2-4, even at p = 0) and
     duration-predictor dropout, each site's stream from dropout_seed(run
     seed, micro-step, site[, layer]); None is the deterministic forward of
-    `eval_step` (attention through row 1). Returns (logits, tgt_mask,
+    `eval_step` (attention through row 1). rows: (first row, global rows)
+    of a data-parallel shard, for the dropout masks (module docstring).
+    mesh: a model axis the weights are sharded over, for the
+    deterministic forward alone. Returns (logits, tgt_mask,
     log_dur_pred)."""
     seed = None if dropout is None else dropout_seed(*dropout)
     tgt_mask = batch["tgt_mask"]
-    x, log_dur_pred = _encode(model, batch, seed)
+    x, log_dur_pred = _encode(model, batch, seed, rows=rows, mesh=mesh)
     x, _ = lr_ops.length_regulator(x, batch["duration"], out_len)
-    x = _decode(model, x, tgt_mask, tgt_mask.sum(dim=1), seed)
-    return _head(model, x), tgt_mask, log_dur_pred
+    x = _decode(model, x, tgt_mask, tgt_mask.sum(dim=1), seed,
+                row0=rows[0] if rows else 0, mesh=mesh)
+    return _head(model, x, mesh=mesh), tgt_mask, log_dur_pred
 
 
 def to_batch(batch: dict, device: torch.device) -> dict:
@@ -343,7 +373,7 @@ def code_margin(logits: torch.Tensor, tgt_mask: torch.Tensor) -> torch.Tensor:
 
 def infer_codes(model: Parrot, batch: dict, *, out_len: int,
                 exact: bool | str = True, with_margin: bool = False,
-                device=None):
+                device=None, mesh: Mesh | None = None):
     """Greedy decode (reference parrot.py:112-120). Returns (codes
     (B, out_len), mask True=valid, total (B,) = sum of predicted durations),
     and with_margin=True the (B,) `code_margin` after them, on `device`
@@ -351,14 +381,16 @@ def infer_codes(model: Parrot, batch: dict, *, out_len: int,
     `total > out_len` means the bucket overflowed and the caller re-decodes
     in a larger one (infer/tte_infer.py does). exact: True, False,
     "selective" or "selective-high" (module docstring); the durations are
-    rounded from the encoder section's IEEE outputs in all but False."""
+    rounded from the encoder section's IEEE outputs in all but False.
+    mesh: a model axis the weights are sharded over (`apply_parrot`);
+    every rank of it gets the same result."""
     check_exact(exact)
     device = resolve_device(device)
     model = model.to(device)
     batch = to_batch(batch, device)
     with torch.no_grad(), exact_numerics(exact is not False):
         logits, tgt_mask, log_dur = apply_parrot(model, batch, out_len=out_len,
-                                                 exact=exact)
+                                                 exact=exact, mesh=mesh)
         durations = torch.where(batch["src_mask"],
                                 lr_ops.durations_from_log_pred(log_dur), 0)
         out = (logits.argmax(dim=-1), tgt_mask, durations.sum(dim=1))

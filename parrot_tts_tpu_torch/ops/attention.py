@@ -22,6 +22,11 @@ CPU.
 and row 1's mode: "tf32" takes its 1-pass TF32 mode, "ieee" its 3xTF32
 mode (the closest the kernel comes to IEEE float32), None its 3xTF32 mode
 with the projections under the ambient torch flags.
+
+`mesh` (tensor parallelism, `parallel/tensor.py`, forward only): the
+weights are this model rank's shards, in_proj_weight its heads' rows and
+out_proj_weight their columns; attention runs on those heads and the
+out-projection's partial sums are summed over the model axis.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import math
 
 import torch
 
+from parrot_tts_tpu_torch.core.mesh import Mesh, model_sum
 from parrot_tts_tpu_torch.ops import precision as prec
 from parrot_tts_tpu_torch.ops.flash_attention import flash_attention
 from parrot_tts_tpu_torch.ops.flash_dropout import (flash_attention_dropout,
@@ -41,20 +47,27 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out_proj_weight: torch.Tensor, n_head: int, *,
                          key_padding_mask: torch.Tensor | None = None,
                          dropout_p: float = 0.0, seed: int | None = None,
-                         precision: str | None = None) -> torch.Tensor:
+                         row0: int = 0,
+                         precision: str | None = None,
+                         mesh: Mesh | None = None) -> torch.Tensor:
     """q, k, v: (B, T, D); key_padding_mask: (B, T) bool, True = IGNORE
     that key (torch convention). seed: this call's 64-bit dropout stream;
-    None for the deterministic forward. precision: the deterministic
-    forward's mode (module docstring). Returns (B, T, D)."""
+    None for the deterministic forward. row0: the global batch row of q's
+    first (a data-parallel shard's), where the dropout mask's rows start.
+    precision: the deterministic forward's mode; mesh: a model axis the
+    weights are sharded over (module docstring). Returns (B, T, D)."""
     b, t, d = q.shape
     if d % n_head:
         raise ValueError(f"d_model {d} % n_head {n_head} != 0")
     d_head = d // n_head
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
+    h = wq.shape[0] // d_head                   # this model rank's heads
+    if h != n_head and seed is not None:
+        raise ValueError("tensor-parallel attention is forward only")
 
     def heads(x, w):
-        return (prec.linear(x, w, mode=precision).reshape(b, -1, n_head, d_head)
-                .transpose(1, 2).contiguous())          # (B, H, T, dh)
+        return (prec.linear(x, w, mode=precision).reshape(b, -1, h, d_head)
+                .transpose(1, 2).contiguous())          # (B, h, T, dh)
 
     qh, kh, vh = heads(q, wq), heads(k, wk), heads(v, wv)
     scale = 1.0 / math.sqrt(d_head)
@@ -65,6 +78,6 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         bias = padding_bias(key_padding_mask, b, t, q.device)
         out = flash_attention_dropout(qh, kh, vh, bias, seed, dropout_p,
-                                      scale)
-    out = out.transpose(1, 2).reshape(b, t, d)
-    return prec.linear(out, out_proj_weight, mode=precision)
+                                      scale, row0 * n_head)
+    out = out.transpose(1, 2).reshape(b, t, h * d_head)
+    return model_sum(prec.linear(out, out_proj_weight, mode=precision), mesh)

@@ -25,10 +25,13 @@ same products with TF32 on or off.
 The keep mask is the port's own: the TPU's `prng_random_bits` cannot be
 reproduced off the TPU. Element (bh, i, j) of a call with 64-bit `seed`
 reads word j mod 4 of Philox4x32-10 with key (seed lo, seed hi) at counter
-(j // 4, i, bh, 0), and is dropped iff that word < `threshold(p)`. So the
-mask is a function of (seed, bh, i, j) alone: the forward, dQ and dK/dV
-kernels regenerate it under any tiling, and so does `keep_mask_reference`
-in torch integer ops on any device.
+(j // 4, i, bh + bh_offset, 0), and is dropped iff that word <
+`threshold(p)`. So the mask is a function of (seed, global bh, i, j)
+alone: the forward, dQ and dK/dV kernels regenerate it under any tiling,
+and so does `keep_mask_reference` in torch integer ops on any device.
+`bh_offset` is a data-parallel shard's first global row times H, so the
+shards of a batch draw the rows of the whole batch's mask, not one mask
+each.
 
 On the card the autograd function casts Q, K and V to bf16 once in the
 forward (`to_bf16`, round to nearest even, as the kernels round), hands
@@ -110,11 +113,12 @@ def philox4x32(seed: int, c0, c1, c2, c3) -> list[torch.Tensor]:
 
 
 def keep_mask_reference(b: int, h: int, t: int, seed: int, dropout_p: float,
-                        device=None) -> torch.Tensor:
+                        device=None, bh_offset: int = 0) -> torch.Tensor:
     """The (B, H, T, T) int32 keep mask (1 = keep) that the kernels
     regenerate; JAX `dump_keep_mask` with the port's generator. Computed one
     counter per 4 keys, so each Philox block is drawn once."""
-    bh = torch.arange(b * h, device=device)[:, None, None]
+    bh = torch.arange(bh_offset, bh_offset + b * h,
+                      device=device)[:, None, None]
     i = torch.arange(t, device=device)[None, :, None]
     j4 = torch.arange(-(-t // 4), device=device)[None, None, :]
     words = philox4x32(seed, j4, i, bh, 0)
@@ -151,51 +155,58 @@ def _scores(q, k, bias, scale):
     return s + bias[:, None, None, :]
 
 
-def _dropped(x: torch.Tensor, seed: int, dropout_p: float) -> torch.Tensor:
+def _dropped(x: torch.Tensor, seed: int, dropout_p: float,
+             bh_offset: int = 0) -> torch.Tensor:
     """where(keep, x, 0) * c, the JAX kernels' order of operations."""
     if dropout_p == 0.0:
         return x
     b, h, t, _ = x.shape
-    keep = keep_mask_reference(b, h, t, seed, dropout_p, x.device).bool()
+    keep = keep_mask_reference(b, h, t, seed, dropout_p, x.device,
+                               bh_offset).bool()
     return torch.where(keep, x, 0.0) * _keep_scale(dropout_p)
 
 
 def flash_attention_dropout_reference(q, k, v, bias, seed: int,
-                                      dropout_p: float, scale: float):
+                                      dropout_p: float, scale: float,
+                                      bh_offset: int = 0):
     """Plain forward: (O, lse (B, H, T)). The JAX kernel's math, with P
     taken against the final row max."""
     s = _scores(q, k, bias, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(_bf16(_dropped(p, seed, dropout_p)), _bf16(v)) / l
+    o = torch.matmul(_bf16(_dropped(p, seed, dropout_p, bh_offset)),
+                     _bf16(v)) / l
     return o, (m + torch.log(l))[..., 0]
 
 
-def _backward_common(q, k, v, bias, seed, delta, lse, do, dropout_p, scale):
+def _backward_common(q, k, v, bias, seed, delta, lse, do, dropout_p, scale,
+                     bh_offset):
     p = torch.exp(_scores(q, k, bias, scale) - lse[..., None])
     dpd = _dropped(torch.matmul(_bf16(do), _bf16(v).transpose(-1, -2)), seed,
-                   dropout_p)
+                   dropout_p, bh_offset)
     return p, p * (dpd - delta[..., None])
 
 
 def flash_dropout_dq_reference(q, k, v, bias, seed: int, o, lse, do,
-                               dropout_p: float, scale: float):
+                               dropout_p: float, scale: float,
+                               bh_offset: int = 0):
     """Plain (dQ, D = rowsum(dO . O) (B, H, T)) (JAX `_dq_kernel`,
     `flash_dropout.py:173-204`)."""
     delta = (do * o).sum(dim=-1)
     _, ds = _backward_common(q, k, v, bias, seed, delta, lse, do, dropout_p,
-                             scale)
+                             scale, bh_offset)
     return torch.matmul(_bf16(ds), _bf16(k)) * scale, delta
 
 
 def flash_dropout_dkv_reference(q, k, v, bias, seed: int, delta, lse, do,
-                                dropout_p: float, scale: float):
+                                dropout_p: float, scale: float,
+                                bh_offset: int = 0):
     """Plain (dK, dV) (JAX `_dkv_kernel`, `flash_dropout.py:207-246`), with
     D = rowsum(dO . O) as the dQ version returns it."""
     p, ds = _backward_common(q, k, v, bias, seed, delta, lse, do, dropout_p,
-                             scale)
-    pd = _dropped(p, seed, dropout_p)
+                             scale, bh_offset)
+    pd = _dropped(p, seed, dropout_p, bh_offset)
     dv = torch.matmul(_bf16(pd).transpose(-1, -2), _bf16(do))
     dk = torch.matmul(_bf16(ds).transpose(-1, -2), _bf16(q)) * scale
     return dk, dv
@@ -206,7 +217,8 @@ def flash_dropout_dkv_reference(q, k, v, bias, seed: int, delta, lse, do,
 # ---------------------------------------------------------------------------
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-_SEED_ARGS = [_U, _F, _U, _U]          # threshold, keep scale, seed lo, hi
+# threshold, keep scale, seed lo, seed hi, bh offset
+_SEED_ARGS = [_U, _F, _U, _U, _U]
 
 
 class _Kernel:
@@ -241,14 +253,17 @@ DQ = _Kernel("flash_dropout_dq", [_P] * 11 + [_I] * 4 + [_F] + _SEED_ARGS
 # scale; seed args; stream
 DKV = _Kernel("flash_dropout_dkv", [_P] * 10 + [_I] * 4 + [_F] + _SEED_ARGS
               + [_P])
-# out; BH, T; threshold; seed lo, hi; stream
-KEEP_MASK = _Kernel("flash_dropout_keep_mask", [_P, _I, _I, _U, _U, _U, _P])
+# out; BH, T; threshold; seed lo, hi; bh offset; stream
+KEEP_MASK = _Kernel("flash_dropout_keep_mask",
+                    [_P, _I, _I, _U, _U, _U, _U, _P])
 
 
-def _seed_args(seed: int, dropout_p: float) -> tuple:
+def _seed_args(seed: int, dropout_p: float, bh_offset: int) -> tuple:
     seed &= _SEED_MASK
+    if not 0 <= bh_offset < 2**32:
+        raise ValueError(f"flash_dropout: bh_offset {bh_offset} out of range")
     return (threshold(dropout_p), _keep_scale(dropout_p), seed & _U32,
-            seed >> 32)
+            seed >> 32, bh_offset)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -299,14 +314,15 @@ def _check(q, k, v, bias, dropout_p, *more) -> None:
 
 
 def flash_dropout_fwd(q, k, v, bias, seed: int, dropout_p: float,
-                      scale: float, *, operands=None):
+                      scale: float, *, operands=None, bh_offset: int = 0):
     """(O, lse), both float32. On CUDA tensors row 2, which reads
     `operands` (q, k, v as `to_bf16` rounds them; required there) and
     not the float32 q, k, v. On CPU tensors the plain forward, which does
-    not read `operands`."""
+    not read `operands`. bh_offset: the global index of this call's first
+    (batch, head) row in the keep mask (module docstring)."""
     if not _on_card("flash_dropout_fwd", q):
         return flash_attention_dropout_reference(q, k, v, bias, seed,
-                                                 dropout_p, scale)
+                                                 dropout_p, scale, bh_offset)
     ops = _check_operands(operands, q, ("q", "k", "v"))
     _check(*ops, bias, dropout_p)
     b, h, t, d = q.shape
@@ -316,8 +332,8 @@ def flash_dropout_fwd(q, k, v, bias, seed: int, dropout_p: float,
         return o, lse
     with torch.cuda.device(q.device):
         FWD(*(x.data_ptr() for x in ops), bias.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, t, d, scale, *_seed_args(seed, dropout_p),
-            _stream(q))
+            lse.data_ptr(), b, h, t, d, scale,
+            *_seed_args(seed, dropout_p, bh_offset), _stream(q))
     return o, lse
 
 
@@ -378,17 +394,20 @@ def _check_operands(ops, q, names=("q", "k", "v", "do")) -> tuple:
 
 
 def flash_dropout_dq(q, k, v, bias, seed: int, o, lse, do,
-                     dropout_p: float, scale: float, *, operands):
+                     dropout_p: float, scale: float, *, operands,
+                     bh_offset: int = 0):
     """(dQ, D = rowsum(dO . O) (B, H, T), keep bits or None). On CUDA
     tensors row 3, which reads `operands` (q, k, v, do as `to_bf16` rounds
     them; required) and not q, k, v themselves (which may be those bf16
     copies), and computes D and, under dropout, the keep bits
     (`pack_keep_bits`' layout) with dQ for `flash_dropout_dkv`. On CPU
     tensors the plain formulas, with no bits: the plain dK/dV draws the
-    mask from the seed, and `operands` is not read."""
+    mask from the seed, and `operands` is not read. bh_offset: as
+    `flash_dropout_fwd`'s."""
     if not _on_card("flash_dropout_dq", q):
         return (*flash_dropout_dq_reference(q, k, v, bias, seed, o, lse, do,
-                                            dropout_p, scale), None)
+                                            dropout_p, scale, bh_offset),
+                None)
     ops = _check_operands(operands, q)
     _check_bwd(ops, bias, dropout_p, do, {"lse": lse}, ("o", o))
     b, h, t, d = q.shape
@@ -401,21 +420,22 @@ def flash_dropout_dq(q, k, v, bias, seed: int, o, lse, do,
             DQ(*(x.data_ptr() for x in ops), bias.data_ptr(), do.data_ptr(),
                o.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                None if bits is None else bits.data_ptr(), b, h, t, d, scale,
-               *_seed_args(seed, dropout_p), _stream(q))
+               *_seed_args(seed, dropout_p, bh_offset), _stream(q))
     return dq, delta, bits
 
 
 def flash_dropout_dkv(q, k, v, bias, seed: int, delta, lse, do,
-                      dropout_p: float, scale: float, *, bits, operands):
+                      dropout_p: float, scale: float, *, bits, operands,
+                      bh_offset: int = 0):
     """(dK, dV) from D = rowsum(dO . O), the keep bits and the bf16
     operands, each as `flash_dropout_dq` returns or reads them. On CUDA
     tensors row 4, which reads no float32 q, k, v; under dropout a missing
     bits tensor raises (the mask is not drawn again). On CPU tensors the
     plain formulas, which draw the mask from the seed and read neither
-    `bits` nor `operands`."""
+    `bits` nor `operands`. bh_offset: as `flash_dropout_fwd`'s."""
     if not _on_card("flash_dropout_dkv", q):
         return flash_dropout_dkv_reference(q, k, v, bias, seed, delta, lse,
-                                           do, dropout_p, scale)
+                                           do, dropout_p, scale, bh_offset)
     _check_bits(bits, q, dropout_p)
     ops = _check_operands(operands, q)
     _check_bwd(ops, bias, dropout_p, do, {"lse": lse, "delta": delta})
@@ -428,42 +448,45 @@ def flash_dropout_dkv(q, k, v, bias, seed: int, delta, lse, do,
                 lse.data_ptr(), delta.data_ptr(),
                 bits.data_ptr() if threshold(dropout_p) else None,
                 dk.data_ptr(), dv.data_ptr(), b, h, t, d, scale,
-                *_seed_args(seed, dropout_p), _stream(q))
+                *_seed_args(seed, dropout_p, bh_offset), _stream(q))
     return dk, dv
 
 
 def keep_mask(b: int, h: int, t: int, seed: int, dropout_p: float,
-              device) -> torch.Tensor:
+              device, bh_offset: int = 0) -> torch.Tensor:
     """The (B, H, T, T) int32 keep mask: row 5 on a CUDA device, the plain
     version on the CPU. The test oracle of rows 2-4; training never calls
     it."""
     device = torch.device(device)
     if device.type == "cpu":
-        return keep_mask_reference(b, h, t, seed, dropout_p, device)
+        return keep_mask_reference(b, h, t, seed, dropout_p, device,
+                                   bh_offset)
     if device.type != "cuda":
         raise ValueError(f"keep_mask: unsupported device {device}")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"keep_mask: B*H = {b * h} > {_MAX_GRID_Y}")
     out = torch.empty((b, h, t, t), dtype=torch.int32, device=device)
     if out.numel():
-        thr, _, lo, hi = _seed_args(seed, dropout_p)
+        thr, _, lo, hi, off = _seed_args(seed, dropout_p, bh_offset)
         with torch.cuda.device(device):
-            KEEP_MASK(out.data_ptr(), b * h, t, thr, lo, hi, _stream(out))
+            KEEP_MASK(out.data_ptr(), b * h, t, thr, lo, hi, off,
+                      _stream(out))
     return out
 
 
 class _FlashDropout(torch.autograd.Function):
     """JAX `custom_vjp` of `flash_attention_dropout` (`:330-359`): saves q,
     k, v (on the card their bf16 copies, which every kernel reads), bias, o
-    and lse (and the seed); bias and seed get no gradient."""
+    and lse (and the seed and bh offset); bias and seed get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, dropout_p, scale):
+    def forward(ctx, q, k, v, bias, seed, dropout_p, scale, bh_offset):
         ops = to_bf16(q, k, v) if _on_card("flash_dropout", q) else None
         o, lse = flash_dropout_fwd(q, k, v, bias, seed, dropout_p, scale,
-                                   operands=ops)
+                                   operands=ops, bh_offset=bh_offset)
         ctx.save_for_backward(*(ops or (q, k, v)), bias, o, lse)
         ctx.seed, ctx.dropout_p, ctx.scale = seed, dropout_p, scale
+        ctx.bh_offset = bh_offset
         return o
 
     @staticmethod
@@ -475,19 +498,23 @@ class _FlashDropout(torch.autograd.Function):
                else None)
         common = (q, k, v, bias, ctx.seed)
         rest = (lse, do, ctx.dropout_p, ctx.scale)
-        dq, delta, bits = flash_dropout_dq(*common, o, *rest, operands=ops)
+        dq, delta, bits = flash_dropout_dq(*common, o, *rest, operands=ops,
+                                           bh_offset=ctx.bh_offset)
         dk, dv = flash_dropout_dkv(*common, delta, *rest, bits=bits,
-                                   operands=ops)
-        return dq, dk, dv, None, None, None, None
+                                   operands=ops, bh_offset=ctx.bh_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             bias: torch.Tensor, seed: int, dropout_p: float,
-                            scale: float) -> torch.Tensor:
+                            scale: float, bh_offset: int = 0) -> torch.Tensor:
     """Flash attention with attention-weight dropout, differentiable in q, k
     and v. q, k, v: (B, H, T, dh) float32 contiguous; bias: (B, T) float32
-    (0 valid / NEG_BIAS masked); seed: this call's 64-bit dropout stream."""
-    return _FlashDropout.apply(q, k, v, bias, seed, dropout_p, scale)
+    (0 valid / NEG_BIAS masked); seed: this call's 64-bit dropout stream;
+    bh_offset: the global (batch, head) row of q's first, for a
+    data-parallel shard (module docstring)."""
+    return _FlashDropout.apply(q, k, v, bias, seed, dropout_p, scale,
+                               bh_offset)
 
 
 def padding_bias(key_padding_mask: torch.Tensor | None, b: int, t: int,

@@ -2,10 +2,18 @@
 checkpoints / logs.
 
 Port of `parrot_tts_tpu/pipeline/train_vocoder.py` (the runnable
-counterpart of the reference's `utils/vocoder/train.py:244-291`) on one
-device; data parallelism is a later slice. Unlike the reference, startup
-never wipes the checkpoint directory, and a run resumes from its latest
-checkpoint by default.
+counterpart of the reference's `torch.distributed.run
+utils/vocoder/train.py`, `:244-291`). Unlike the reference, startup never
+wipes the checkpoint directory, and a run resumes from its latest
+checkpoint by default. Batches are read in a background thread and copied
+to the device one step ahead (`data/prefetch.py`).
+
+Data parallelism: under torchrun every rank trains on its device and takes
+its slice of each global batch of max(1, batch_size // N) * N rows (the
+JAX package's rounding, which differs from the TTE's batch_size * N; the
+reference divides its global batch across workers, train.py:279). Rank 0
+alone validates and writes logs and checkpoints; the ranks meet at a
+barrier after each save.
 """
 
 from __future__ import annotations
@@ -16,9 +24,11 @@ import numpy as np
 import torch
 
 from parrot_tts_tpu_torch.core import checkpoint as ckptlib
+from parrot_tts_tpu_torch.core import mesh as meshlib
 from parrot_tts_tpu_torch.core.config import PipelineConfig, to_json
-from parrot_tts_tpu_torch.core.device import resolve_device
 from parrot_tts_tpu_torch.core.metrics import MetricsWriter, Throughput
+from parrot_tts_tpu_torch.data.prefetch import (device_prefetch,
+                                                threaded_loader)
 from parrot_tts_tpu_torch.data.vocoder_data import (VocoderDataset,
                                                     VocoderLoader,
                                                     code_rate_f0)
@@ -36,9 +46,12 @@ def run(cfg: PipelineConfig, *, data_dir: str | Path,
     discriminators with their spectral-norm vectors, both optimizers'
     moments, the step), logs to <run_dir>/logs. resume=True carries on from
     the latest checkpoint there. device: default the CUDA card (raises
-    without one unless "cpu"). crash_at_step: recovery-drill hook; raise at
-    that step WITHOUT the final checkpoint. Returns {"steps", "epochs"}."""
-    device = resolve_device(device)
+    without one unless "cpu"), under torchrun the rank's card.
+    crash_at_step: recovery-drill hook; raise at that step WITHOUT the
+    final checkpoint. Returns {"steps", "epochs"}."""
+    mesh = meshlib.training_mesh(device, cfg.mesh)
+    device = mesh.devices[0]
+    main = meshlib.is_main()
     run_dir = Path(run_dir)
     mcfg, tcfg, mel_cfg = cfg.vocoder_model, cfg.vocoder_train, cfg.mel
 
@@ -49,20 +62,31 @@ def run(cfg: PipelineConfig, *, data_dir: str | Path,
         Path(data_dir) / "val.txt", segment_size=tcfg.segment_size,
         code_hop_size=tcfg.code_hop_size, multispkr=mcfg.multispkr,
         speaker_ids=train_ds.spkr_to_id)
-    loader = VocoderLoader(train_ds, tcfg.batch_size, seed=tcfg.seed,
+    global_batch = max(1, tcfg.batch_size // mesh.n_data) * mesh.n_data
+    loader = VocoderLoader(train_ds, global_batch, seed=tcfg.seed,
+                           process_index=mesh.process_index,
+                           process_count=mesh.process_count,
                            with_f0=mcfg.f0, device=device)
-    steps_per_epoch = max(1, len(train_ds) // tcfg.batch_size)
+    steps_per_epoch = max(1, len(train_ds) // global_batch)
 
     state = voc_train.init_state(tcfg.seed, mcfg, device)
+    for net in (state.gen, state.mpd, state.msd):
+        meshlib.broadcast_state(net)
     mgr = ckptlib.CheckpointManager(run_dir / "ckpt")
-    ckptlib.save_config_json(run_dir / "ckpt", to_json(mcfg))
+    if main:
+        ckptlib.save_config_json(run_dir / "ckpt", to_json(mcfg))
     if resume and mgr.latest_step() is not None:
         state.load_state_dict(mgr.restore())
 
-    writer = MetricsWriter(run_dir / "logs")
+    writer = MetricsWriter(run_dir / "logs") if main else None
     thr = Throughput()
-    audio_s_per_batch = (tcfg.batch_size * tcfg.segment_size
+    audio_s_per_batch = (global_batch * tcfg.segment_size
                          / mel_cfg.sampling_rate)
+
+    def save() -> None:
+        if main:
+            mgr.save(steps, state.state_dict())
+        meshlib.barrier()
 
     steps = state.step
     total = max_steps if max_steps is not None else (
@@ -71,27 +95,28 @@ def run(cfg: PipelineConfig, *, data_dir: str | Path,
     done = False
     while not done:
         made_progress = False
-        for batch in loader.batches(epoch):
-            metrics = voc_train.train_step(
-                state, voc_train.to_batch(batch, device), mcfg, tcfg,
-                mel_cfg, steps_per_epoch)
+        batches = threaded_loader(lambda e=epoch: loader.batches(e))
+        for batch in device_prefetch(batches, dtypes=voc_train.BATCH_DTYPES,
+                                     device=device):
+            metrics = voc_train.train_step(state, batch, mcfg, tcfg, mel_cfg,
+                                           steps_per_epoch, mesh=mesh)
             made_progress = True
             steps += 1
             thr.tick(audio_s_per_batch)
 
-            if steps % tcfg.summary_interval == 0:
+            if steps % tcfg.summary_interval == 0 and main:
                 writer.scalars(steps, **{k: float(v)
                                          for k, v in metrics.items()})
                 writer.scalar("train_audio_seconds_per_second",
                               thr.report()["audio_seconds_per_second"], steps)
                 thr.reset()
-            if steps % tcfg.validation_interval == 0:
+            if steps % tcfg.validation_interval == 0 and main:
                 writer.scalar("validation/mel_spec_error",
                               validate(state.gen, val_ds, mcfg, mel_cfg,
                                        writer, steps, device,
                                        f0_kwargs=loader.f0_kwargs), steps)
             if steps % tcfg.checkpoint_interval == 0:
-                mgr.save(steps, state.state_dict())
+                save()
             if crash_at_step is not None and steps >= crash_at_step:
                 raise RuntimeError(
                     f"simulated crash at step {steps} (recovery drill)")
@@ -102,8 +127,9 @@ def run(cfg: PipelineConfig, *, data_dir: str | Path,
             raise RuntimeError("loader yielded no batches this epoch")
         epoch += 1
 
-    mgr.save(steps, state.state_dict(), wait=True)
-    writer.close()
+    save()
+    if main:
+        writer.close()
     return {"steps": steps, "epochs": epoch}
 
 

@@ -19,11 +19,24 @@ chain out, matching optax's arithmetic:
 - learning rate: the schedule is read at the count of updates made so
   far, before this one (optax), so under warmup the first update has lr 0.
 
+Data parallelism (`mesh=` under a process group, one device per rank):
+a step over the ranks' shards equals the step of one process over the
+global batch. The loss's two denominators are summed over the ranks
+before the division (`models/tte/loss.py`), so each rank's loss is its
+share of the global loss and the SUM of the ranks' gradients is its
+gradient: one all-reduce of the flat gradient per micro-step, before the
+running mean, as the gradient GSPMD forms in the JAX step. The dropout
+masks are drawn by global row. Clipping and AdamW then run on identical
+numbers on every rank. The reference's DDP averages per-rank means,
+which is wrong whenever ranks hold different numbers of valid codes.
+
 Dropout of micro-step n draws from (run seed, n) alone
 (`models/tte/parrot.py::dropout_seed`). Steps run under
-`exact_numerics(False)`: TF32 matmuls and convolutions, the counterpart of
-the TPU's default-precision training; the attention kernels round their
-operands to bf16 whatever the flag. The state is updated in place (the JAX
+`exact_numerics(exact)`: by default (exact=False) TF32 matmuls and
+convolutions, the counterpart of the TPU's default-precision training;
+exact=True runs them in IEEE float32, for parity checks whose shapes
+differ (TF32's error depends on the GEMM's shape). The attention kernels
+round their operands to bf16 whatever the flag. The state is updated in place (the JAX
 step returns a new one and donates the old): parameters, moments and the
 accumulator are each held once.
 """
@@ -34,6 +47,7 @@ from dataclasses import dataclass
 
 import torch
 
+from parrot_tts_tpu_torch.core import mesh as meshlib
 from parrot_tts_tpu_torch.core.config import TTEModelConfig, TTETrainConfig
 from parrot_tts_tpu_torch.core.device import batch_to_device, exact_numerics
 from parrot_tts_tpu_torch.models.tte import parrot
@@ -102,15 +116,25 @@ def to_batch(batch: dict, device) -> dict:
 
 
 def loss_fn(model: parrot.Parrot, batch: dict, model_cfg: TTEModelConfig,
-            out_len: int, dropout: tuple[int, int] | None):
+            out_len: int, dropout: tuple[int, int] | None, mesh=None):
+    """(total, metrics). Under a process group (`mesh`), batch is this
+    rank's shard: the loss is its share of the global loss (summed over
+    the ranks, the global loss), and the metrics are the global losses."""
+    dp = meshlib.data_parallel(mesh)
+    b = batch["codes"].shape[0]
+    rows = (mesh.process_index * b, mesh.process_count * b) if dp else None
     logits, _, log_dur = parrot.apply_parrot_train(
-        model, batch, out_len=out_len, dropout=dropout)
+        model, batch, out_len=out_len, dropout=dropout, rows=rows)
+    reduce = (lambda x: meshlib.all_reduce_sum([x])) if dp else None
     total, code, dur = tte_loss(
         logits, log_dur, batch["codes"], batch["duration"],
         batch["src_mask"], num_codes=model_cfg.hubert_codes,
-        sample_weight=batch.get("sample_weight"))
-    return total, {"total_loss": total.detach(), "code_loss": code.detach(),
-                   "dur_loss": dur.detach()}
+        sample_weight=batch.get("sample_weight"), reduce=reduce)
+    metrics = torch.stack([total.detach(), code.detach(), dur.detach()])
+    if dp:
+        reduce(metrics)
+    return total, dict(zip(("total_loss", "code_loss", "dur_loss"),
+                           metrics.unbind()))
 
 
 def _apply_update(state: TTETrainState, train_cfg: TTETrainConfig) -> None:
@@ -137,15 +161,18 @@ def _apply_update(state: TTETrainState, train_cfg: TTETrainConfig) -> None:
 
 def _micro_step(state: TTETrainState, batch: dict, run_seed: int,
                 model_cfg: TTEModelConfig, train_cfg: TTETrainConfig,
-                out_len: int) -> dict:
-    """The one code path of a micro-batch: gradient, running mean, and the
-    update on every grad_acc_steps-th call."""
+                out_len: int, mesh=None) -> dict:
+    """The one code path of a micro-batch: gradient (summed over the
+    ranks under a process group), running mean, and the update on every
+    grad_acc_steps-th call."""
     model = state.model
     names = [n for n, _ in model.named_parameters()]
     total, metrics = loss_fn(model, batch, model_cfg, out_len,
-                             (run_seed, state.step))
+                             (run_seed, state.step), mesh)
     grads = torch.autograd.grad(total, [p for _, p in
                                         model.named_parameters()])
+    if meshlib.data_parallel(mesh):
+        meshlib.all_reduce_sum(list(grads))
     n = state.mini_step
     with torch.no_grad():
         for name, g in zip(names, grads):
@@ -163,33 +190,36 @@ def _micro_step(state: TTETrainState, batch: dict, run_seed: int,
 
 def train_step(state: TTETrainState, batch: dict, run_seed: int,
                model_cfg: TTEModelConfig, train_cfg: TTETrainConfig,
-               out_len: int) -> dict:
-    """One micro-batch step (batch: tensors on the model's device); the
+               out_len: int, mesh=None, *, exact: bool = False) -> dict:
+    """One micro-batch step (batch: tensors on the model's device; under
+    a process group `mesh`, this rank's shard of the global batch); the
     optimizer applies every grad_acc_steps calls. Returns the metrics."""
-    with exact_numerics(False):
+    with exact_numerics(exact):
         return _micro_step(state, batch, run_seed, model_cfg, train_cfg,
-                           out_len)
+                           out_len, mesh)
 
 
 def train_step_k(state: TTETrainState, batches: dict, run_seed: int,
                  model_cfg: TTEModelConfig, train_cfg: TTETrainConfig,
-                 out_len: int) -> dict:
+                 out_len: int, mesh=None, *, exact: bool = False) -> dict:
     """K micro-steps over a batch dict with a leading micro-step axis
     (K, B, ...): the same numbers as K train_step calls. Returns the last
     micro-step's metrics."""
     k = next(iter(batches.values())).shape[0]
     metrics = {}
-    with exact_numerics(False):
+    with exact_numerics(exact):
         for i in range(k):
             metrics = _micro_step(state, {key: x[i] for key, x in
                                           batches.items()},
-                                  run_seed, model_cfg, train_cfg, out_len)
+                                  run_seed, model_cfg, train_cfg, out_len,
+                                  mesh)
     return metrics
 
 
 def eval_step(model: parrot.Parrot, batch: dict, model_cfg: TTEModelConfig,
-              out_len: int) -> dict:
+              out_len: int, mesh=None) -> dict:
     """Losses of the deterministic training forward (no dropout; attention
-    through row 1, `ops/flash_attention.py`)."""
+    through row 1, `ops/flash_attention.py`); under a process group the
+    global batch's, from this rank's shard."""
     with torch.no_grad(), exact_numerics(False):
-        return loss_fn(model, batch, model_cfg, out_len, None)[1]
+        return loss_fn(model, batch, model_cfg, out_len, None, mesh)[1]

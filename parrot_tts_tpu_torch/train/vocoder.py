@@ -25,6 +25,13 @@ adversarial + feature-matching + mel-L1 x45 losses. As in the JAX step:
   zero gradients; the port keeps them as buffers outside the optimizer,
   and the next power iteration normalises that scale away in either case.
 
+Data parallelism (`mesh=` under a process group, one device per rank):
+every loss is a mean over its batch and the ranks hold equal shards, so
+the mean over the ranks of their gradients is the global batch's
+gradient: one all-reduce of each optimizer's flat gradient, scaled by
+1 / world, before its update. The spectral-norm power iteration reads the
+weights alone, so its vectors advance identically on every rank.
+
 Weight norm stays live (`WNConv.kernel()`), never folded. The step runs
 under `exact_numerics(exact)`: by default TF32 convolutions and matmuls
 on the card, IEEE float32 with `exact=True`. The state is updated in
@@ -38,6 +45,7 @@ from dataclasses import dataclass
 
 import torch
 
+from parrot_tts_tpu_torch.core import mesh as meshlib
 from parrot_tts_tpu_torch.core.config import (MelConfig, VocoderModelConfig,
                                               VocoderTrainConfig)
 from parrot_tts_tpu_torch.core.device import batch_to_device, exact_numerics
@@ -205,11 +213,15 @@ def _frozen(*modules):
             p.requires_grad_(True)
 
 
-def _apply(opt: torch.optim.AdamW, loss: torch.Tensor) -> None:
+def _apply(opt: torch.optim.AdamW, loss: torch.Tensor, mesh=None) -> None:
     """One AdamW update of opt's parameters from loss's gradients with
-    respect to them alone."""
+    respect to them alone, averaged over the ranks under a process group
+    (`mesh`)."""
     params = opt.param_groups[0]["params"]
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+    grads = list(torch.autograd.grad(loss, params))
+    if meshlib.data_parallel(mesh):
+        meshlib.all_reduce_sum(grads, scale=1.0 / mesh.n_data)
+    for p, g in zip(params, grads):
         p.grad = g
     opt.step()
     opt.zero_grad(set_to_none=True)
@@ -228,11 +240,13 @@ def extra_feats(batch: dict) -> dict | None:
 def train_step(state: VocoderTrainState, batch: dict,
                model_cfg: VocoderModelConfig, train_cfg: VocoderTrainConfig,
                mel_cfg: MelConfig, steps_per_epoch: int, *,
-               exact: bool = False) -> dict:
+               exact: bool = False, mesh=None) -> dict:
     """One GAN step on batch (tensors on the state's device: audio (B, T),
     code (B, Tc), spkr (B,), optionally the ground-truth loss mel and the
-    code-rate f0 (B, 1, Tc) of an f0-conditioned generator). Updates
-    state in place; returns the metrics as 0-d tensors (no host sync)."""
+    code-rate f0 (B, 1, Tc) of an f0-conditioned generator; under a process
+    group `mesh`, this rank's equal shard of the global batch). Updates
+    state in place; returns the metrics as 0-d tensors (no host sync), under
+    a process group their means over the ranks."""
     _check_trainable(model_cfg)
     set_hyperparameters((state.opt_g, state.opt_d), train_cfg,
                         steps_per_epoch, state.step)
@@ -251,7 +265,7 @@ def train_step(state: VocoderTrainState, batch: dict,
                                           stacked=True)
         loss_disc_all = (losses.discriminator_loss(f_rs, f_gs)[0]
                          + losses.discriminator_loss(s_rs, s_gs)[0])
-        _apply(state.opt_d, loss_disc_all)
+        _apply(state.opt_d, loss_disc_all, mesh)
 
         # generator step (reference train.py:153-168) on the updated
         # discriminators, held constant
@@ -272,11 +286,16 @@ def train_step(state: VocoderTrainState, batch: dict,
                             + losses.feature_loss(_detached(fmap_f_r),
                                                   fmap_f_g)
                             + mel_l1)
-        _apply(state.opt_g, loss_gen_all)
+        _apply(state.opt_g, loss_gen_all, mesh)
     state.step += 1
-    return {"loss_disc_all": loss_disc_all.detach(),
-            "loss_gen_all": loss_gen_all.detach(),
-            "mel_error": mel_l1.detach() / 45.0}
+    metrics = {"loss_disc_all": loss_disc_all.detach(),
+               "loss_gen_all": loss_gen_all.detach(),
+               "mel_error": mel_l1.detach() / 45.0}
+    if meshlib.data_parallel(mesh):
+        vals = torch.stack(list(metrics.values()))
+        meshlib.all_reduce_sum([vals], scale=1.0 / mesh.n_data)
+        metrics = dict(zip(metrics, vals.unbind()))
+    return metrics
 
 
 def val_step(generator: gen.CodeGenerator, batch: dict,

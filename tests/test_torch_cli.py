@@ -179,10 +179,15 @@ def test_pipeline_end_to_end_on_the_cpu(tmp_path, capsys, tiny):
         assert len(wav) == len(e["hubert"].split()) * VOC.total_upsample
         assert (gen_dir / f"{stem}_gt.wav").exists()
 
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        cli.main(["synthesize", "--manifest", str(hubert), "--ckpt-dir",
-                  str(ckpt), "--out-dir", str(gen_dir), "--mesh",
-                  "--device", "cpu"])
+    # --mesh over the one given device writes the same waveforms
+    mesh_dir = runs / "gen_mesh"
+    out = _run(capsys, "synthesize", "--manifest", hubert, "--ckpt-dir", ckpt,
+               "--out-dir", mesh_dir, "-n", 3, "--mesh", "--device", "cpu")
+    assert out["wavs"] == 3
+    for e in entries:
+        stem = e["audio"].rsplit("/", 1)[1][:-4]
+        np.testing.assert_array_equal(read_wav(mesh_dir / f"{stem}_gen.wav")[0],
+                                      read_wav(gen_dir / f"{stem}_gen.wav")[0])
     with pytest.raises(NotImplementedError, match="bfloat16"):
         cli.main(["synthesize", "--manifest", str(hubert), "--ckpt-dir",
                   str(ckpt), "--out-dir", str(gen_dir), "--dtype",

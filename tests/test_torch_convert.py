@@ -83,13 +83,14 @@ def test_seeded_init_loads_and_repeats():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, the lazily loaded ones, the training
-    slices', the aligner pipeline's and the CLI included, and chip_smoke."""
+    slices', the aligner pipeline's, the mesh layer's, the checkpoint
+    loaders and the CLI included, and chip_smoke."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import parrot_tts_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
-        "for name in mods + ['chip_smoke']:\n"
+        "for name in mods + ['chip_smoke', 'tests.torch_dist_worker']:\n"
         "    importlib.import_module(name)\n"
         "assert len(mods) > 25, mods\n"
         "assert 'parrot_tts_tpu_torch.models.vocoder.generator_staticq' in mods\n"
@@ -102,7 +103,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'data.aligner_data', 'ops.monotonic_align',\n"
         "             'pipeline.aligner_preprocess', 'pipeline.train_aligner',\n"
         "             'pipeline.extract_durations', 'pipeline.prepare_tte',\n"
-        "             'cli'):\n"
+        "             'core.mesh', 'data.prefetch', 'parallel.tensor',\n"
+        "             'compat', 'cli'):\n"
         "    assert 'parrot_tts_tpu_torch.' + name in mods, name\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'parrot_tts_tpu' or m.startswith('parrot_tts_tpu.')]\n"
