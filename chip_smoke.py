@@ -219,7 +219,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    rank) against the replicated decode; every rank launching rows 1-4;
    then `synthesize --mesh` through the CLI, its files equal to those
    without --mesh; readings: ms per 2-rank micro-step and GAN step, the
-   gloo all-reduce's ms and share of the micro-step.
+   gloo all-reduce's ms and share of the micro-step;
+19. the bf16 compute modes, full V1 width, phase 4's requests and weights:
+   row 6's bf16 mode (bf16 wgmma) against its bf16 plain version at every
+   (B, T, C) of the bf16 fused serve (max |diff| <= 2^-6 max |plain|,
+   mismatched elements counted; no spill in its instantiations; kernel,
+   plain, bound and the unfused cuDNN bf16 composition's ms); row 7 with
+   a bf16 output against its plain version, bit for bit, at every site of
+   the bf16 "int8" and "int8-tail" serves (the bf16 int8-static serve's
+   int8 convs write float32, phase 6's sites), with the cuDNN bf16 conv
+   of each site as a yardstick; ParrotTTS with the bf16 vocoder in every
+   mode (float, fused, int8-static, "int8", "int8-tail"), each served
+   twice, bit-equal, every fused and int8 launch at a shape checked here
+   or in phase 6: the float and fused serves within 2e-3 max |dev| and
+   33 dB SNR of phase 4's float32 waveforms (scripts/tpu_parity_check.py's
+   budgets; its log-mel L1 < 0.3 printed beside the float32 waveforms'
+   own bf16 rounding, BF16_MEL_L1's comment), the int8 modes >= 15 dB over
+   all requests and for the worst, the fused against the unfused within
+   4e-3 / 33 dB; batch invariance in bf16 (the dynamic int8 conv and a
+   float serve's row alone and in a batch; readings); profiles of the
+   bf16 float, int8-static and "int8" serves; readings at
+   tpu_parity_check.py's fidelity setup (2 x 96 codes, int8-static
+   calibrated on 4 x 120 at margins 1.0 and 1.25) and at bench.py's batch
+   (64 x 250 codes, float32 and bf16 in every mode: ms per batch, median
+   and spread of 5, and the busy time of a profiled batch); 2 GAN steps
+   with a bf16 generator through pipeline/train_vocoder.run on phase 14's
+   corpus (finite, every network moves, float32 parameters and moments,
+   the checkpoint holds the live state), its ms per step beside phase
+   14's and its |dg|/|g| against the float32 step's; and
+   HubertConfig(dtype="bfloat16") refused.
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -282,7 +310,7 @@ INT8_SITES = {"int8-static": 95, "int8": 95, "int8-tail": 56}
 INT8_SERVE_MS_BEFORE = {"int8-static": 29.7722, "int8": 29.9788,
                         "int8-tail": 16.1821}
 INT8_CONV_KERNEL = "::conv_kernel<"   # csrc/int8_conv.cu's kernels, by name
-MRF_KERNEL = "::mrf_kernel<"          # csrc/fused_mrf.cu's kernels, by name
+MRF_KERNEL = "::mrf_kernel"           # csrc/fused_mrf.cu's kernels, by name
 INT8_WARMUP, INT8_TIMED = 2, 10       # phase 6's launches per site
 # the GEMM's bf16 and float32 results against plain: the same float32
 # products summed in another order (tests/test_torch_kernels.py states why)
@@ -413,15 +441,15 @@ def mrf_key(x, w, b, plan, wk=None) -> tuple:
     return tuple(x.shape)
 
 
-def int8_key(xq, wt, scale, bias=None, *, pads, dilation=1, leaky=None
-             ) -> tuple:
-    """(B, T, Ci, Co, K, dilation, pads, leaky, per_row) of an int8 conv
-    call; per_row: the (B, Co) scale is materialised per row, not one (Co,)
-    vector broadcast over the batch."""
+def int8_key(xq, wt, scale, bias=None, *, pads, dilation=1, leaky=None,
+             out_dtype=torch.float32) -> tuple:
+    """(B, T, Ci, Co, K, dilation, pads, leaky, per_row, bf16) of an int8
+    conv call; per_row: the (B, Co) scale is materialised per row, not one
+    (Co,) vector broadcast over the batch; bf16: a bfloat16 output."""
     b, t, ci = xq.shape
     k, co, _ = wt.shape
     return (b, t, ci, co, k, dilation, tuple(pads), leaky,
-            scale.stride(0) != 0)
+            scale.stride(0) != 0, out_dtype == torch.bfloat16)
 
 
 def phase_card() -> str:
@@ -456,7 +484,7 @@ def phase_build(kernels) -> dict:
 def ptxas_registers(log: str) -> dict:
     """{kernel<D>: (registers, spill store bytes, spill load bytes)} of
     each templated kernel in one source's ptxas report (the fused MRF's as
-    mrf_kernel<C, wgmma n>)."""
+    mrf_kernel<C, wgmma n> and, in bf16, mrf_kernel_bf16<C>)."""
     out, name = {}, None
     for line in log.splitlines():
         if "entry function" in line:
@@ -467,6 +495,9 @@ def ptxas_registers(log: str) -> dict:
             m = re.search(r"mrf_kernelILi(\d+)ELi(\d+)E", line)
             if m:       # <C, wgmma n>; C = 0: a runtime-C instantiation
                 name = f"mrf_kernel<{m.group(1)}, {m.group(2)}>"
+            m = re.search(r"mrf_kernel_bf16ILi(\d+)E", line)
+            if m:       # the bf16 mode at C
+                name = f"mrf_kernel_bf16<{m.group(1)}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1036,16 +1067,18 @@ def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches,
 
 
 def int8_sites(vcfg, n: int, t: int, mode: str) -> dict:
-    """(B, T, Ci, Co, K, dilation, pads, leaky, per_row) -> count, for
-    every int8 conv of one vocoder batch of n rows of t codes in quant
+    """(B, T, Ci, Co, K, dilation, pads, leaky, per_row, bf16) -> count,
+    for every int8 conv of one vocoder batch of n rows of t codes in quant
     mode `mode`: every conv under "int8-static" (its scale broadcast over
-    the batch), the sites of `generator.quant_plan` under "int8" and
-    "int8-tail" (per-row scales)."""
+    the batch, float32 out in either dtype), the sites of
+    `generator.quant_plan` under "int8" and "int8-tail" (per-row scales;
+    bf16 out under vcfg.dtype "bfloat16")."""
     from parrot_tts_tpu_torch.models.vocoder.generator import (LRELU_SLOPE,
                                                                quant_plan)
     from parrot_tts_tpu_torch.ops import conv as conv_ops
 
     per_row = mode != "int8-static"
+    bf16 = per_row and vcfg.dtype == "bfloat16"
     plan = (quant_plan(dataclasses.replace(vcfg, quant=mode), t) if per_row
             else [(True, True)] * len(vcfg.upsample_rates))
     sites: dict = {}
@@ -1062,15 +1095,16 @@ def int8_sites(vcfg, n: int, t: int, mode: str) -> dict:
         *_, pad_left, q_len = conv_ops._polyphase_plan(k, u, (k - u) // 2)
         if ups_q:
             add((n, t * hop, cin, u * ch, q_len, 1,
-                 (pad_left, q_len - 1 - pad_left), None, per_row))
+                 (pad_left, q_len - 1 - pad_left), None, per_row, bf16))
         hop *= u
         for rk, ds in zip(vcfg.resblock_kernel_sizes,
                           vcfg.resblock_dilation_sizes):
             for d in ds if mrf_q else ():
                 p1, p2 = conv_ops.get_padding(rk, d), conv_ops.get_padding(rk)
                 add((n, t * hop, ch, ch, rk, d, (p1, p1), LRELU_SLOPE,
-                     per_row))
-                add((n, t * hop, ch, ch, rk, 1, (p2, p2), None, per_row))
+                     per_row, bf16))
+                add((n, t * hop, ch, ch, rk, 1, (p2, p2), None, per_row,
+                     bf16))
     return sites
 
 
@@ -1087,28 +1121,34 @@ def int8_serve_sites(vcfg, batches, mode: str) -> dict:
     return sites
 
 
-def phase_int8_kernel(qc, vcfg, batches) -> dict:
+def phase_int8_kernel(qc, vcfg, batches, modes=tuple(INT8_SITES)) -> dict:
     """The int8 conv kernel against its plain version, bit for bit, at
-    every distinct site shape of every int8-static and "int8" vocoder
-    batch, with the scale each serve passes ("int8-tail"'s sites are a
-    subset of "int8"'s). A site's "ms" is the device time per launch of
-    launches queued ahead of the device (queued_ms): back to back, the
-    launches of the small sites are paced by the host, whose
-    launch-to-launch time (cuda_ms) is printed beside it."""
+    every distinct site shape of every vocoder batch of the serves of
+    `modes` in vcfg.dtype (the int8-static and "int8" serves' sites cover
+    "int8-tail"'s), with the scale each serve passes and its output type
+    (bfloat16 at the dynamic sites of a bf16 serve). A site's "ms" is the
+    device time per launch of launches queued ahead of the device
+    (queued_ms): back to back, the launches of the small sites are paced by
+    the host, whose launch-to-launch time (cuda_ms) is printed beside it.
+    At a bf16 site "library_ms" is the same conv in bf16 through cuDNN
+    (F.conv1d with its bias), the yardstick no PyTorch int8 conv gives."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
     def ints(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device="cuda",
                              dtype=torch.int8)
 
-    serves = {mode: int8_serve_sites(vcfg, batches, mode)
-              for mode in INT8_SITES}
-    if not set(serves["int8-tail"]) <= set(serves["int8"]):
+    serves = {mode: int8_serve_sites(vcfg, batches, mode) for mode in modes}
+    if "int8" in serves and not set(serves["int8-tail"]) <= set(
+            serves["int8"]):
         raise AssertionError("int8-tail sites outside the int8 sites")
-    sites = {**serves["int8-static"], **serves["int8"]}
+    sites = {}
+    for site_counts in serves.values():
+        sites.update(site_counts)
     rows = []
     for key in sites:
-        n, t, ci, co, k, d, pads, leaky, per_row = key
+        n, t, ci, co, k, d, pads, leaky, per_row, bf16 = key
+        out_dtype = torch.bfloat16 if bf16 else torch.float32
         xq, wt = ints(n, t, ci), ints(k, co, ci)
         # the serve's scale: per row (B, Co), or one (Co,) vector broadcast
         # over the batch
@@ -1119,36 +1159,51 @@ def phase_int8_kernel(qc, vcfg, batches) -> dict:
 
         def kern():
             return qc.int8_conv(xq, wt, scale, bias, pads=pads, dilation=d,
-                                leaky=leaky)
+                                leaky=leaky, out_dtype=out_dtype)
 
         def plain():
             return qc.int8_conv_reference(xq, wt, scale, bias, pads=pads,
-                                          dilation=d, leaky=leaky)
+                                          dilation=d, leaky=leaky,
+                                          out_dtype=out_dtype)
 
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if not (got.dtype == out_dtype and torch.equal(got, want)):
             raise AssertionError(
-                f"int8 conv B={n} T={t} Ci={ci} Co={co} K={k} d={d}: not "
-                f"bit-identical (max |diff| {float((got - want).abs().max())})")
-        err = float((got - want).abs().max())
+                f"int8 conv B={n} T={t} Ci={ci} Co={co} K={k} d={d} "
+                f"{out_dtype}: not bit-identical (max |diff| "
+                f"{float((got.float() - want.float()).abs().max())})")
+        err = float((got.float() - want.float()).abs().max())
         ms = queued_ms(kern, INT8_TIMED, warmup=INT8_WARMUP)
         launch_ms = cuda_ms(kern, INT8_TIMED, warmup=0)
         plain_ms = cuda_ms(plain, 3, warmup=1)
+        library_ms = None
+        if bf16:
+            x16 = xq.bfloat16().transpose(1, 2)
+            w16, b16 = wt.bfloat16().permute(1, 2, 0), bias.bfloat16()
+            library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(
+                torch.nn.functional.pad(x16, pads), w16, b16, dilation=d),
+                INT8_TIMED)
+            del x16, w16
         t_out = got.shape[1]
+        out_bytes = 2 if bf16 else 4
         bound_ms, bound_by = bound(
             2.0 * n * t_out * k * ci * co, INT8_PEAK,
-            n * t * ci + k * ci * co + 4.0 * (co + co + n * t_out * co))
+            n * t * ci + k * ci * co + 4.0 * (co + co)
+            + out_bytes * n * t_out * co)
         rows.append({"key": key, "max_abs_err": err, "ms": ms,
                      "launch_ms": launch_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        plan = qc.conv_plan(n, t, ci, k, co, pads, d)
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms})
+        plan = qc.conv_plan(n, t, ci, k, co, pads, d, out_bytes=out_bytes)
         print(f"int8 conv B={n} T={t:7d} Ci={ci:3d} Co={co:4d} K={k:2d} "
               f"d={d} leaky={int(leaky is not None)} per_row={int(per_row)}"
-              f": bit-identical  kernel {ms:.4f} ms device (launch to launch"
-              f" {launch_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound "
-              f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% of "
-              f"it)  branch {plan['branch']} (tile {plan['bm']} x "
+              f" out {'bf16' if bf16 else 'f32'}: bit-identical  kernel "
+              f"{ms:.4f} ms device (launch to launch {launch_ms:.4f} ms)  "
+              f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+              f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)"
+              + (f"  cuDNN bf16 conv {library_ms:.4f} ms" if bf16 else "")
+              + f"  branch {plan['branch']} (tile {plan['bm']} x "
               f"{plan['bn']}, {'resident' if plan['resident'] else 'streamed'}"
               f" weights, {plan['stages']} stages)")
         del xq, wt, got, want
@@ -1157,29 +1212,39 @@ def phase_int8_kernel(qc, vcfg, batches) -> dict:
     def report(site_counts: dict) -> dict:
         rows_ = [{**by_key[key], "count": count}
                  for key, count in site_counts.items()]
-        return {**total(rows_), "launch_ms": sum(
+        out = {**total(rows_), "launch_ms": sum(
             r["launch_ms"] * r["count"] for r in rows_)}
+        if all(r["library_ms"] is not None for r in rows_):
+            out["library_ms"] = sum(r["library_ms"] * r["count"]
+                                    for r in rows_)
+        return out
 
-    for mode in INT8_SITES:
+    label = "" if vcfg.dtype == "float32" else f" ({vcfg.dtype})"
+    for mode in modes:
         for n, t_codes in batches:
             r = report(int8_sites(vcfg, n, t_codes, mode))
-            print(f"int8 conv per {mode} vocoder batch of {n} x {t_codes} "
-                  f"codes ({INT8_SITES[mode]} launches): kernel "
+            print(f"int8 conv per {mode}{label} vocoder batch of {n} x "
+                  f"{t_codes} codes ({INT8_SITES[mode]} launches): kernel "
                   f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
                   f"{r['bound_ms']:.4f} ms")
         r = report(serves[mode])
-        print(f"int8 conv per {mode} serve ({len(serves[mode])} distinct "
-              f"shapes, {INT8_SITES[mode] * len(batches)} launches): kernel "
-              f"{r['ms']:.4f} ms device ({100 * r['bound_ms'] / r['ms']:.1f}% "
-              f"of the bound; launch to launch {r['launch_ms']:.4f} ms; the "
-              f"mma.sync kernel before it: {INT8_SERVE_MS_BEFORE[mode]} ms)  "
-              f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms")
+        before = ("" if label else "; the mma.sync kernel before it: "
+                  f"{INT8_SERVE_MS_BEFORE[mode]} ms")
+        lib = (f"  cuDNN bf16 convs {r['library_ms']:.4f} ms"
+               if "library_ms" in r else "")
+        print(f"int8 conv per {mode}{label} serve ({len(serves[mode])} "
+              f"distinct shapes, {INT8_SITES[mode] * len(batches)} launches):"
+              f" kernel {r['ms']:.4f} ms device "
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of the bound; launch to "
+              f"launch {r['launch_ms']:.4f} ms{before})  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms{lib}")
     # the three serves together, whose launches the kernels line counts
     all_serves: dict = {}
     for site_counts in serves.values():
         for key, count in site_counts.items():
             all_serves[key] = all_serves.get(key, 0) + count
     return {"report": report(all_serves),
+            "serves": {mode: report(c) for mode, c in serves.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "checked": set(sites)}
 
@@ -1288,24 +1353,31 @@ def phase_int8_serve(qc, tcfg, vcfg, base: dict, checked: set,
             "serve": lambda: tts.tts(TEXTS, speakers=speakers)}
 
 
-def phase_batch_invariance(quant, device="cuda") -> None:
-    """The dynamic int8 conv at a V1 stage-1 MRF site: a quiet row gives the
-    same bits alone and beside a loud row (per-row scales)."""
+def phase_batch_invariance(quant, device="cuda", dtype=torch.float32,
+                           gate: bool = True) -> bool:
+    """The dynamic int8 conv at a V1 stage-1 MRF site, in dtype: a quiet
+    row gives the same bits alone and beside a loud row (per-row scales).
+    gate=False reports the result instead of raising."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
 
     def randn(*shape, scale):
-        return torch.randn(shape, generator=gen, device=device) * scale
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
 
     quiet, loud = randn(1, 1250, 256, scale=0.01), randn(1, 1250, 256,
                                                          scale=10.0)
     w = randn(3, 256, 256, scale=0.05)
-    solo = quant.int8_conv_nwc(quiet, w, None, pads=(1, 1))
-    pair = quant.int8_conv_nwc(torch.cat([quiet, loud]), w, None, pads=(1, 1))
-    if not torch.equal(solo[0], pair[0]):
+    b = randn(256, scale=0.1)
+    solo = quant.int8_conv_nwc(quiet, w, b, pads=(1, 1), leaky=0.1)
+    pair = quant.int8_conv_nwc(torch.cat([quiet, loud]), w, b, pads=(1, 1),
+                               leaky=0.1)
+    same = solo.dtype == dtype and torch.equal(solo[0], pair[0])
+    print(f"dynamic int8 conv in {dtype}: a quiet row (std 0.01) alone and "
+          f"beside a loud row (std 10) gives the same bits: {same}")
+    if gate and not same:
         raise AssertionError("dynamic int8 conv: a quiet row changes beside "
                              "a loud one")
-    print("dynamic int8 conv batch-invariant: a quiet row (std 0.01) gives "
-          "the same bits alone and beside a loud row (std 10)")
+    return same
 
 
 def phase_profile(serve, label: str, split=(), unprofiled_ms=None) -> None:
@@ -2241,6 +2313,7 @@ def phase_gan(mcfg, tcfg, mel_cfg, corpus: dict, device=None) -> dict:
         voc_train.train_step(state, batch, mcfg, tcfg, mel_cfg,
                              steps_per_epoch)
 
+    ms = None
     if dev.type == "cuda":
         ms = cuda_ms(step, GAN_TIMED)
         audio_s = tcfg.batch_size * tcfg.segment_size / mel_cfg.sampling_rate
@@ -2251,7 +2324,8 @@ def phase_gan(mcfg, tcfg, mel_cfg, corpus: dict, device=None) -> dict:
         phase_profile(lambda: (step(), torch.cuda.synchronize()),
                       f"GAN step at batch {tcfg.batch_size} x "
                       f"{tcfg.segment_size} samples", GAN_PROFILE_SPLIT)
-    return {"records": records}
+    return {"records": records, "batch_np": batch_np, "ms": ms,
+            "steps_per_epoch": steps_per_epoch}
 
 
 def phase_manifest_io(fa, tts, speakers, device=None) -> None:
@@ -3890,6 +3964,466 @@ def phase_mesh(fa, fd, base: dict, tcfg, vcfg, smi: str, *, train_cfg,
     return launches
 
 
+# ---- phase 19: the bf16 compute modes ---------------------------------------
+
+BF16_MRF_RTOL = 2.0 ** -6     # row 6 in bf16: max |diff| <= this * max |plain|
+# the bf16 budgets of scripts/tpu_parity_check.py:372-374 against float32:
+# max |dev| and SNR (dB) gate; its log-mel L1 < 0.3 is printed, not gated:
+# with seeded random weights V1's waveform is nearly constant (phase 19
+# prints its rms and peak), so every mel bin but the lowest sits near
+# the log's 1e-5 clamp, where bf16's rounding alone moves it (the float32
+# waveform rounded to bf16 gives 0.10 by itself; printed beside it)
+BF16_MAXDEV, BF16_SNR_DB, BF16_MEL_L1 = 2e-3, 33.0, 0.3
+# bf16 fused against bf16 unfused: the two round at different points (the
+# fused kernel adds each conv's bias before its one rounding and sums the
+# branches in float32, the composition rounds the conv, then the bias, and
+# averages in bf16), so they differ as the JAX package's two routes do;
+# each is within BF16_MAXDEV of float32, so within twice it of the other
+BF16_FUSED_MAXDEV, BF16_FUSED_SNR_DB = 2 * BF16_MAXDEV, BF16_SNR_DB
+BF16_SERVES = {"bf16": {}, "bf16 fused": {"fused_mrf": True},
+               "bf16 int8-static": {"quant": "int8-static"},
+               "bf16 int8": {"quant": "int8"},
+               "bf16 int8-tail": {"quant": "int8-tail"}}
+BENCH_BATCH = (64, 250)       # bench.py's vocoder batch: rows x codes
+BENCH_REPS = 5                # timed warm batches per mode and dtype
+BENCH_MODES = {"float": {}, "fused": {"fused_mrf": True},
+               "int8": {"quant": "int8"}, "int8-tail": {"quant": "int8-tail"},
+               "int8-static": {"quant": "int8-static"}}
+BF16_GAN_STEPS = 2
+
+
+def bf16_mrf_bounds(b: int, t: int, c: int, w, bias, plan) -> tuple:
+    """Row 6's bound in bf16: its products on the bf16 tensor cores (2 *
+    B*T * sum over convs of K * C^2), x read and out written once (2 bytes
+    each), the weights and biases once."""
+    flops = 2.0 * b * t * c * c * sum(
+        2 * k * len(d) for k, d in zip(plan.kernel_sizes, plan.dilations))
+    nbytes = 4.0 * b * t * c + 2.0 * (w.numel() + bias.numel())
+    return bound(flops, BF16_PEAK, nbytes)
+
+
+def phase_bf16_mrf(fm, exact_numerics, model, vcfg, batches,
+                   registers: dict) -> dict:
+    """Row 6's bf16 mode against its bf16 plain version at every (B, T, C)
+    the bf16 fused serve gives it, on the serve's packed bf16 weights:
+    mismatched elements counted, max |diff| <= BF16_MRF_RTOL * max |plain|;
+    kernel, plain and bound ms, and the unfused cuDNN bf16 composition of
+    the same stage (the library yardstick). `model`: the bf16 fused
+    serve's CodeGenerator."""
+    from parrot_tts_tpu_torch.models.vocoder import generator
+
+    regs = {k: v for k, v in registers.items()
+            if k.startswith("mrf_kernel_bf16")}
+    print_registers(regs)
+    spilled = {k: v for k, v in regs.items() if v[1] or v[2]}
+    if spilled:
+        raise AssertionError(f"bf16 fused MRF kernels spill: {spilled}")
+    rng = np.random.default_rng(SEED + 19)
+    nk = len(vcfg.resblock_kernel_sizes)
+    rows = []
+    with torch.no_grad(), exact_numerics(True):
+        for (b, t, c), i in mrf_serve_shapes(vcfg, batches):
+            w, bias = getattr(model, f"mrf_w{i}"), getattr(model, f"mrf_b{i}")
+            wk, plan = getattr(model, f"mrf_k{i}"), model.mrf_plans[i]
+            if all(r["C"] != c for r in rows):
+                tile = fm.tile_plan(plan, dtype=torch.bfloat16)
+                print(f"fused MRF bf16 C={c}: tile {tile.tb} rows, halo "
+                      f"{plan.halo}, {tile.warpgroups} warpgroups x "
+                      f"{tile.rounds} units, wgmma m64n{tile.wgmma_n}k16, "
+                      f"slabs of one tap ({tile.k_chunk} inputs), recompute "
+                      f"{tile.recompute:.3f}, shared memory "
+                      f"{tile.smem_bytes} bytes")
+            x = torch.from_numpy(rng.standard_normal((b, t, c)).astype(
+                np.float32)).to(model.conv_pre.weight.device).bfloat16()
+            got = fm.mrf_fused(x, w, bias, plan, wk=wk)
+            want = fm.mrf_fused_reference(x, w, bias, plan)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err, lim = float(diff.max()), BF16_MRF_RTOL * float(
+                want.float().abs().max())
+            mismatched = int((diff > 0).sum())
+            if not (got.dtype == torch.bfloat16 and err <= lim):
+                raise AssertionError(f"fused MRF bf16 B={b} T={t} C={c}: max "
+                                     f"|diff| {err} > {lim}")
+            stage = model.resblocks[i * nk:(i + 1) * nk]
+
+            def library():
+                acc = None
+                for rb in stage:
+                    y = generator.apply_resblock1(rb, x)
+                    acc = y if acc is None else acc + y
+                return acc / nk
+
+            reps = max(3, min(30, int(3e6 / (b * t))))
+            ms = cuda_ms(lambda: fm.mrf_fused(x, w, bias, plan, wk=wk), reps)
+            plain_ms = cuda_ms(
+                lambda: fm.mrf_fused_reference(x, w, bias, plan), reps)
+            library_ms = cuda_ms(library, reps)
+            bound_ms, bound_by = bf16_mrf_bounds(b, t, c, w, bias, plan)
+            rows.append({"B": b, "T": t, "C": c, "count": 1,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+            print(f"fused MRF bf16 B={b} T={t:7d} C={c:2d}: max|diff| "
+                  f"{err:.3e} (limit {lim:.3e}), {mismatched} of "
+                  f"{diff.numel()} elements differ  kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  cuDNN bf16 composition "
+                  f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                  f"({bound_by}, bf16 tensor cores)")
+            del x, got, want, diff
+    rep = total(rows)
+    rep["library_ms"] = sum(r["library_ms"] for r in rows)
+    for c in sorted({r["C"] for r in rows}, reverse=True):
+        st = [r for r in rows if r["C"] == c]
+        print(f"fused MRF bf16 per serve C={c} ({len(st)} launches): kernel "
+              f"{sum(r['ms'] for r in st):.4f} ms  plain "
+              f"{sum(r['plain_ms'] for r in st):.4f} ms  cuDNN bf16 "
+              f"{sum(r['library_ms'] for r in st):.4f} ms  bound "
+              f"{sum(r['bound_ms'] for r in st):.4f} ms")
+    print(f"fused MRF bf16 per serve ({len(rows)} launches): kernel "
+          f"{rep['ms']:.4f} ms  plain {rep['plain_ms']:.4f} ms  cuDNN bf16 "
+          f"{rep['library_ms']:.4f} ms  bound {rep['bound_ms']:.4f} ms "
+          f"({rep['bound_by']})")
+    return {"report": rep, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "checked": {(r["B"], r["T"], r["C"]) for r in rows}}
+
+
+def wave_stats(got: list, want: list, device=None) -> dict:
+    """max |dev|, SNR over all requests (sums of squares) and of the worst
+    one, and the log-mel L1 (the reference's loss mel, over every frame of
+    every request) of waveforms `got` against `want`."""
+    from parrot_tts_tpu_torch.ops import stft
+
+    sig = err = 0.0
+    dev, worst, mel_sum, mel_n = 0.0, math.inf, 0.0, 0
+    for a, f in zip(got, want):
+        if a.shape != f.shape:
+            raise AssertionError(f"{a.shape} != {f.shape}")
+        if not a.size:
+            continue
+        e = float(((a.astype(np.float64) - f) ** 2).sum())
+        s = float((f.astype(np.float64) ** 2).sum())
+        sig, err = sig + s, err + e
+        dev = max(dev, float(np.abs(a - f).max()))
+        worst = min(worst, 10 * math.log10(s / max(e, 1e-30)))
+        if a.size > 1024:
+            ma, mf = (stft.mel_spectrogram(torch.from_numpy(np.ascontiguousarray(
+                v, np.float32))[None].to(device or "cpu")) for v in (a, f))
+            mel_sum += float((ma - mf).abs().sum())
+            mel_n += ma.numel()
+    return {"maxdev": dev, "snr_db": 10 * math.log10(sig / max(err, 1e-30)),
+            "worst_db": worst, "mel_l1": mel_sum / max(mel_n, 1)}
+
+
+def stats_line(st: dict) -> str:
+    return (f"max |dev| {st['maxdev']:.4e}, SNR {st['snr_db']:.2f} dB (worst "
+            f"request {st['worst_db']:.2f} dB), log-mel L1 {st['mel_l1']:.4f}")
+
+
+def phase_bf16_serves(fm, qc, tcfg, vcfg, base: dict, mrf_checked: set,
+                      int8_checked: set, device=None) -> dict:
+    """ParrotTTS with the bf16 vocoder in every serving mode on phase 4's
+    requests and weights (the TTE in its default decode mode), each served
+    twice: bit-equal, lengths len(units)*320, finite; the fused launches 3
+    and the int8 launches INT8_SITES per vocoder batch, each at a shape
+    phases 6 and 19 checked; against phase 4's float32 waveforms: bf16 and
+    bf16 fused within BF16_MAXDEV and BF16_SNR_DB (log-mel L1 printed),
+    the int8 modes >= SNR_MIN_DB over all requests and for the worst; bf16
+    fused against bf16 unfused within BF16_FUSED_*."""
+    units, speakers = base["units"], base["speakers"]
+    batches = vocoder_batches(units)
+    out = {}
+    for label, change in BF16_SERVES.items():
+        cfg = dataclasses.replace(vcfg, dtype="bfloat16", **change)
+        tts = make_tts(tcfg, cfg, device)
+        if cfg.quant == "int8-static":
+            length = max(t for _, t in batches)
+            rows = [np.tile(u, -(-length // len(u)))[:length] for u in units
+                    if len(u)]
+            tts.vocoder.calibrate(rows, [s for u, s in zip(units, speakers)
+                                         if len(u)])
+        want_mrf = (len(mrf_stages(cfg)) * len(batches) if cfg.fused_mrf
+                    else 0)
+        want_q8 = INT8_SITES.get(cfg.quant, 0) * len(batches)
+        runs = []
+        for run in range(2):
+            with recording(fm, "mrf_fused", mrf_key) as mrf_shapes, \
+                    recording(qc, "int8_conv", int8_key) as q8_shapes:
+                fm.FUSED_MRF.launches = qc.INT8_CONV.launches = 0
+                wavs = tts.tts(TEXTS, speakers=speakers)
+                launches = (fm.FUSED_MRF.launches, qc.INT8_CONV.launches)
+            serve_line(f"{label} serve {run}", tts.last_stats, sum(launches))
+            if launches != (want_mrf, want_q8):
+                raise AssertionError(f"{label}: launches {launches}, want "
+                                     f"{(want_mrf, want_q8)}")
+            if device is None and not (mrf_shapes <= mrf_checked
+                                       and q8_shapes <= int8_checked):
+                raise AssertionError(
+                    f"{label}: launch shapes {sorted(mrf_shapes - mrf_checked)}"
+                    f" {sorted(q8_shapes - int8_checked)} were not checked "
+                    "against plain")
+            runs.append(wavs)
+        for i, (a, b, u) in enumerate(zip(*runs, units)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{label} request {i}: not "
+                                     "deterministic")
+            if len(a) != len(u) * vcfg.total_upsample or a.dtype != np.float32:
+                raise AssertionError(f"{label} request {i}: {len(a)} "
+                                     f"{a.dtype} samples for {len(u)} units")
+            if not np.isfinite(a).all():
+                raise AssertionError(f"{label} request {i}: non-finite")
+        st = wave_stats(runs[0], base["wavs"], tts.device)
+        print(f"{label} serve against phase 4's float32 serve: "
+              f"{stats_line(st)}")
+        if cfg.quant == "none":
+            print(f"{label}: log-mel L1 {st['mel_l1']:.4f} against "
+                  f"tpu_parity_check.py's {BF16_MEL_L1} (a reading: "
+                  "BF16_MEL_L1's comment)")
+            ok = st["maxdev"] < BF16_MAXDEV and st["snr_db"] >= BF16_SNR_DB
+        else:
+            ok = st["snr_db"] >= SNR_MIN_DB and st["worst_db"] >= SNR_MIN_DB
+        if not ok:
+            raise AssertionError(f"{label}: outside its budget: {st}")
+        out[label] = {"wavs": runs[0], "launches": launches, "stats": st,
+                      "tts": tts,
+                      "serve": (lambda t=tts: t.tts(TEXTS, speakers=speakers))}
+    floor = [torch.from_numpy(w).bfloat16().float().numpy()
+             for w in base["wavs"]]
+    level = [(float(np.sqrt(np.mean(np.square(w, dtype=np.float64)))),
+              float(np.abs(w).max())) for w in base["wavs"] if w.size]
+    print(f"phase 4's float32 waveforms: rms {min(r for r, _ in level):.4f}-"
+          f"{max(r for r, _ in level):.4f}, peak "
+          f"{min(p for _, p in level):.4f}-{max(p for _, p in level):.4f}; "
+          "rounded to bf16, against themselves: "
+          + stats_line(wave_stats(floor, base["wavs"], out["bf16"]["tts"]
+                                  .device)))
+    st = wave_stats(out["bf16 fused"]["wavs"], out["bf16"]["wavs"],
+                    out["bf16"]["tts"].device)
+    print(f"bf16 fused serve against the bf16 unfused serve: {stats_line(st)}")
+    if not (st["maxdev"] <= BF16_FUSED_MAXDEV
+            and st["snr_db"] >= BF16_FUSED_SNR_DB):
+        raise AssertionError(f"bf16 fused against bf16 unfused: {st}")
+    return out
+
+
+def fidelity_readings(state: dict, vcfg, device=None) -> None:
+    """scripts/tpu_parity_check.py::vocoder_fidelity's setup: 2 x 96
+    codes, int8-static calibrated on a separate 4 x 120 batch at margins
+    1.0 and 1.25; maxdev, SNR and log-mel L1 of every bf16 mode and the
+    float32 int8 modes against the float32 serve, as readings."""
+    from parrot_tts_tpu_torch.infer.synthesize import VocoderSynthesizer
+
+    rng = np.random.default_rng(2)
+    code = rng.integers(0, vcfg.num_embeddings, size=(2, 96))
+    spk = rng.integers(0, vcfg.num_speakers, size=(2,))
+    calib = rng.integers(0, vcfg.num_embeddings, size=(4, 120))
+    calib_spk = rng.integers(0, vcfg.num_speakers, size=(4,))
+
+    def wave(margin=1.0, **change):
+        synth = VocoderSynthesizer(state, dataclasses.replace(vcfg, **change),
+                                   device=device, calib_margin=margin)
+        if synth.cfg.quant == "int8-static":
+            synth.calibrate(list(calib), list(calib_spk))
+        return synth.synthesize(list(code), list(spk))
+
+    w32 = wave()
+    for name, margin, change in (
+            ("bf16", 1.0, {"dtype": "bfloat16"}),
+            ("bf16_fused", 1.0, {"dtype": "bfloat16", "fused_mrf": True}),
+            ("bf16_int8_tail", 1.0, {"dtype": "bfloat16",
+                                     "quant": "int8-tail"}),
+            ("bf16_int8_full", 1.0, {"dtype": "bfloat16", "quant": "int8"}),
+            ("bf16_int8_static_m1.0", 1.0, {"dtype": "bfloat16",
+                                            "quant": "int8-static"}),
+            ("bf16_int8_static_m1.25", 1.25, {"dtype": "bfloat16",
+                                              "quant": "int8-static"}),
+            ("f32_int8_tail", 1.0, {"quant": "int8-tail"}),
+            ("f32_int8_full", 1.0, {"quant": "int8"}),
+            ("f32_int8_static_m1.0", 1.0, {"quant": "int8-static"}),
+            ("f32_int8_static_m1.25", 1.25, {"quant": "int8-static"})):
+        st = wave_stats(wave(margin, **change), w32, device)
+        print(f"fidelity reading (2 x 96 codes, V1, seeded weights) {name}: "
+              f"{stats_line(st)}")
+
+
+def bench_readings(state: dict, vcfg, smi: str, device=None) -> dict:
+    """bench.py's vocoder batch (64 rows of 250 codes, the 256-code
+    bucket) through VocoderSynthesizer in float32 and bf16 in each mode:
+    ms per batch (CUDA events around each warm synthesize, host readback
+    included; median and spread over BENCH_REPS) and, on the card, the busy
+    time of one more batch (phase_profile). Readings."""
+    from parrot_tts_tpu_torch.infer.synthesize import VocoderSynthesizer
+
+    rng = np.random.default_rng(0)
+    rows, length = BENCH_BATCH
+    code = list(rng.integers(0, vcfg.num_embeddings, size=(rows, length)))
+    spk = list(rng.integers(0, vcfg.num_speakers, size=(rows,)))
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for mode, change in BENCH_MODES.items():
+            synth = VocoderSynthesizer(
+                state, dataclasses.replace(vcfg, dtype=dtype, **change),
+                device=device)
+            if synth.cfg.quant == "int8-static":
+                synth.calibrate(code, spk)       # bench.py calibrates on it
+            serve = (lambda s=synth: s.synthesize(code, spk))
+            times = []
+            for rep in range(BENCH_REPS + 1):
+                times.append(device_seconds(serve) * 1e3)
+            times = sorted(times[1:])            # the first one warms up
+            med = times[len(times) // 2]
+            out[(dtype, mode)] = med
+            print(f"bench batch {rows} x {length} codes, {dtype} {mode}: "
+                  f"{med:.3f} ms per batch (median of {BENCH_REPS}, "
+                  f"{times[0]:.3f}-{times[-1]:.3f}); {smi}")
+            if torch.cuda.is_available() and device is None:
+                phase_profile(serve, f"{dtype} {mode} batch of {rows} x "
+                              f"{length} codes")
+            del synth
+    return out
+
+
+def phase_bf16_gan(mcfg, tcfg, mel_cfg, corpus: dict, gan: dict,
+                   device=None) -> None:
+    """The GAN with a bf16 generator (bench_gan.py --gen-bf16) through
+    pipeline/train_vocoder.run for BF16_GAN_STEPS steps on phase 14's
+    seeded corpus: finite metrics, all three networks move, parameters and
+    moments stay float32, the checkpoint holds the live state; ms per step
+    beside phase 14's float32 (TF32) step, and the bf16 step's |dg|/|g|
+    against the float32 step's from the same seeded state (readings)."""
+    import tempfile
+
+    from parrot_tts_tpu_torch.core.checkpoint import CheckpointManager
+    from parrot_tts_tpu_torch.core.config import PipelineConfig
+    from parrot_tts_tpu_torch.core.device import resolve_device
+    from parrot_tts_tpu_torch.pipeline import train_vocoder
+    from parrot_tts_tpu_torch.train import vocoder as voc_train
+
+    dev = resolve_device(device)
+    mcfg16 = dataclasses.replace(mcfg, dtype="bfloat16")
+    records = []
+    real_step = voc_train.train_step
+
+    def step_spy(state, *args, **kwargs):
+        nets = (state.gen, state.mpd, state.msd)
+        before = [[p.detach().clone() for p in m.parameters()] for m in nets]
+        metrics = real_step(state, *args, **kwargs)
+        records.append({**{k: float(v) for k, v in metrics.items()},
+                        "changed": [any(not torch.equal(a, p) for a, p in
+                                        zip(b, m.parameters()))
+                                    for b, m in zip(before, nets)],
+                        "state": state})
+        return metrics
+
+    tcfg2 = dataclasses.replace(tcfg, checkpoint_interval=BF16_GAN_STEPS,
+                                validation_interval=BF16_GAN_STEPS)
+    with tempfile.TemporaryDirectory(prefix="parrot_gan16_") as tmp:
+        data = write_vocoder_corpus(tmp, seed=SEED + 7, **corpus)
+        cfg = PipelineConfig(vocoder_model=mcfg16, vocoder_train=tcfg2,
+                             mel=mel_cfg)
+        with mock.patch.object(voc_train, "train_step", step_spy):
+            out = train_vocoder.run(cfg, data_dir=data, run_dir=f"{tmp}/run",
+                                    max_steps=BF16_GAN_STEPS, device=device)
+        print(f"bf16-generator GAN train: {out}")
+        for r in records:
+            print(f"  D loss {r['loss_disc_all']:.5f}, G loss "
+                  f"{r['loss_gen_all']:.5f}, mel error {r['mel_error']:.5f};"
+                  f" G / MPD / MSD moved {r['changed']}")
+        if out["steps"] != BF16_GAN_STEPS or len(records) != BF16_GAN_STEPS:
+            raise AssertionError(f"bf16 GAN run: {out}")
+        if not all(math.isfinite(r[k]) for r in records
+                   for k in ("loss_disc_all", "loss_gen_all", "mel_error")):
+            raise AssertionError("a non-finite bf16 GAN loss")
+        if not all(all(r["changed"]) for r in records):
+            raise AssertionError("a bf16 GAN step left a network unchanged")
+        state = records[-1]["state"]
+        live = state.state_dict()
+        if not all(v.dtype == torch.float32
+                   for part in ("gen", "mu_g", "nu_g", "mu_d", "nu_d")
+                   for v in live[part].values() if v.is_floating_point()):
+            raise AssertionError("a bf16-generator parameter or moment is "
+                                 "not float32")
+        saved = CheckpointManager(f"{tmp}/run/ckpt").restore()
+        for part in ("gen", "mpd", "msd", "mu_g", "nu_g", "mu_d", "nu_d"):
+            if saved[part].keys() != live[part].keys() or not all(
+                    torch.equal(saved[part][k], v.cpu())
+                    for k, v in live[part].items()):
+                raise AssertionError(f"bf16 GAN checkpoint {part} differs")
+        if json.loads(open(f"{tmp}/run/ckpt/config.json").read()).get(
+                "dtype") != "bfloat16":
+            raise AssertionError("the checkpoint's config.json lost dtype")
+        print("bf16 GAN: parameters and moments float32, the checkpoint "
+              "(and its config.json's dtype) holds the live state")
+        del live, saved, state
+        records.clear()
+
+    steps_per_epoch, batch_np = gan["steps_per_epoch"], gan["batch_np"]
+    grads = {}
+    for cfg_ in (mcfg, mcfg16):
+        state = voc_train.init_state(tcfg.seed, cfg_, dev)
+        voc_train.train_step(state, voc_train.to_batch(batch_np, dev), cfg_,
+                             tcfg, mel_cfg, steps_per_epoch)
+        grads[cfg_.dtype] = gan_grads(state)
+        del state
+    for net in grads["float32"]:
+        g32, g16 = grads["float32"][net], grads["bfloat16"][net]
+        num = sum(float((g16[k] - v).pow(2).sum()) for k, v in g32.items())
+        den = sum(float(v.pow(2).sum()) for v in g32.values())
+        print(f"bf16-generator GAN step against the float32 (TF32) step from "
+              f"the seeded state: {net} |dg|/|g| {math.sqrt(num / den):.3e}")
+    del grads
+    if dev.type == "cuda":
+        state = voc_train.init_state(tcfg.seed, mcfg16, dev)
+        batch = voc_train.to_batch(batch_np, dev)
+        ms = cuda_ms(lambda: voc_train.train_step(
+            state, batch, mcfg16, tcfg, mel_cfg, steps_per_epoch), GAN_TIMED)
+        print(f"bf16-generator GAN reading: {ms:.3f} ms per step over "
+              f"{GAN_TIMED} warm steps (CUDA events), phase 14's float32 "
+              f"step {gan['ms']:.3f} ms ({ms / gan['ms']:.3f}x)")
+
+
+def phase_bf16(fm, qc, quant, exact_numerics, tcfg, vcfg, base: dict,
+               q8: dict, registers: dict, smi: str, gan: dict, gan_args,
+               device=None) -> dict:
+    """Phase 19: the bf16 compute modes (module docstring)."""
+    from parrot_tts_tpu_torch.core.config import HubertConfig
+    from parrot_tts_tpu_torch.models.hubert.model import HubertModel
+
+    v16 = dataclasses.replace(vcfg, dtype="bfloat16")
+    batches = vocoder_batches(base["units"])
+    fused = make_tts(tcfg, dataclasses.replace(v16, fused_mrf=True), device)
+    mrf = phase_bf16_mrf(fm, exact_numerics, fused.vocoder.model, v16,
+                         batches, registers)
+    del fused
+    q16 = phase_int8_kernel(qc, v16, batches, modes=("int8", "int8-tail"))
+    serves = phase_bf16_serves(fm, qc, tcfg, vcfg, base, mrf["checked"],
+                               q8["checked"] | q16["checked"], device)
+    same = phase_batch_invariance(quant, device=base["tts"].device.type,
+                                  dtype=torch.bfloat16, gate=False)
+    synth = serves["bf16"]["tts"].vocoder
+    longest = max(base["units"], key=len)
+    alone = synth.synthesize([longest], [0])[0]
+    rows = synth.synthesize([longest] * 3, [0, 1, 2])[0]
+    print(f"bf16 float serve batch-invariant (a request alone and as the "
+          f"first of 3 rows of its batch): {np.array_equal(alone, rows)}; "
+          f"the dynamic int8 conv in bf16: {same} (readings, not gates)")
+    for label in ("bf16", "bf16 int8-static", "bf16 int8"):
+        phase_profile(serves[label]["serve"], f"{label} serve")
+    state = base["tts"].vocoder.model.state_dict()
+    fidelity_readings(state, vcfg, device)
+    bench = bench_readings(state, vcfg, smi, device)
+    phase_bf16_gan(*gan_args, gan, device=device)
+    try:
+        HubertModel(HubertConfig(dtype="bfloat16"))
+    except ValueError as e:
+        print(f"HubertConfig(dtype='bfloat16') refused: {e}")
+    else:
+        raise AssertionError("HubertConfig(dtype='bfloat16') did not raise")
+    return {"mrf": mrf, "int8": q16, "bench": bench,
+            "mrf_launches": serves["bf16 fused"]["launches"][0],
+            "int8_launches": sum(s["launches"][1] for s in serves.values())}
+
+
 def spec_pair(train_cfg) -> tuple[int, int]:
     """The smallest bucket pair of a (rehearsal) training config."""
     return train_cfg.src_buckets[0], train_cfg.tgt_buckets[0]
@@ -3955,10 +4489,11 @@ def main() -> int:
     gemm_launches = phase_int8_experiment(qc)
     # the V1 vocoder and VocoderTrainConfig() defaults (batch 16, segments
     # of 8960 samples), logging every step, validation at the last
-    phase_gan(vcfg, VocoderTrainConfig(summary_interval=1,
-                                       validation_interval=GAN_STEPS,
-                                       checkpoint_interval=GAN_STEPS),
-              MelConfig(), dict(n_train=32, n_val=4, seconds=(1.0, 1.6)))
+    gan_corpus = dict(n_train=32, n_val=4, seconds=(1.0, 1.6))
+    gan = phase_gan(vcfg, VocoderTrainConfig(summary_interval=1,
+                                             validation_interval=GAN_STEPS,
+                                             checkpoint_interval=GAN_STEPS),
+                    MelConfig(), gan_corpus)
     phase_manifest_io(fa, base["tts"], base["speakers"])
     hubert = phase_hubert(HubertConfig())
     phase_f0(vcfg, VocoderTrainConfig(summary_interval=1,
@@ -3971,6 +4506,19 @@ def main() -> int:
         fa, fd, base, tcfg, vcfg, smi,
         train_cfg=TTETrainConfig(warmup_steps=0, grad_acc_steps=2),
         gan=(vcfg, VocoderTrainConfig(), MelConfig()))
+    b16 = phase_bf16(fm, qc, quant, exact_numerics, tcfg, vcfg, base, q8,
+                     ptxas_registers(build["fused_mrf"]), smi, gan,
+                     (vcfg, VocoderTrainConfig(summary_interval=1), MelConfig(),
+                      gan_corpus))
+    rep16, q16 = b16["mrf"]["report"], b16["int8"]["serves"]
+    print(f"row 6 bf16 per fused serve ({b16['mrf_launches']} launches): "
+          f"kernel {rep16['ms']:.4f} ms, plain {rep16['plain_ms']:.4f} ms, "
+          f"cuDNN bf16 composition {rep16['library_ms']:.4f} ms, bound "
+          f"{rep16['bound_ms']:.4f} ms ({rep16['bound_by']}); row 7 bf16 "
+          "output per serve: " + ", ".join(
+              f"{m} kernel {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, cuDNN bf16 {r['library_ms']:.4f})"
+              for m, r in q16.items()) + f"; {smi}")
     rep = kern["report"]
     one = rep["one_pass"]
     print(f"row 1 at {REPORT_SHAPE} (B, T, d), H=2: 3xTF32 {rep['ms']:.4f} ms "
@@ -4003,8 +4551,8 @@ def main() -> int:
         "route": "cuda",
         "source": "parrot_tts_tpu_torch/csrc/fused_mrf.cu",
         "replaces": "parrot_tts_tpu/ops/fused_mrf.py:115",
-        "launches": fused["launches"],
-        "max_abs_err": mrf["max_abs_err"],
+        "launches": fused["launches"] + b16["mrf_launches"],
+        "max_abs_err": max(mrf["max_abs_err"], b16["mrf"]["max_abs_err"]),
         **{k: mrf["report"][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by")},
         "library_ms": None,
@@ -4013,8 +4561,9 @@ def main() -> int:
         "route": "cuda",
         "source": "parrot_tts_tpu_torch/csrc/int8_conv.cu",
         "replaces": "parrot_tts_tpu/ops/pallas_qconv.py:42",
-        "launches": sum(r["launches"] for r in int8.values()),
-        "max_abs_err": q8["max_abs_err"],
+        "launches": (sum(r["launches"] for r in int8.values())
+                     + b16["int8_launches"]),
+        "max_abs_err": max(q8["max_abs_err"], b16["int8"]["max_abs_err"]),
         **{k: q8["report"][k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")},
         "library_ms": None,

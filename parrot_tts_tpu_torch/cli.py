@@ -137,8 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("-n", "--limit", type=int, default=None,
                    help="stop after N utterances (reference -n)")
     s.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
-                   help="serving compute dtype (the port serves float32; "
-                        "bfloat16 raises)")
+                   help="serving compute dtype (default: checkpoint config)")
     s.add_argument("--quant", default=None,
                    choices=["none", "int8-tail", "int8", "int8-static"],
                    help="int8 serving path (ops/qconv.py's kernels; "
@@ -345,15 +344,14 @@ def _synthesize(args):
     from parrot_tts_tpu_torch.infer.synthesize import (VocoderSynthesizer,
                                                        peak_normalize)
 
-    if getattr(args, "dtype", None) == "bfloat16":
-        raise NotImplementedError(
-            "synthesize --dtype bfloat16: the port's vocoder serves float32 "
-            "and the int8 modes (--quant)")
     saved_cfg = Path(args.ckpt_dir) / "config.json"
     vcfg = (vocoder_config_from_json(saved_cfg.read_text())
             if saved_cfg.exists() else PipelineConfig().vocoder_model)
-    if getattr(args, "quant", None):
-        vcfg = dataclasses.replace(vcfg, quant=args.quant)
+    # --dtype / --quant override the checkpoint config's
+    over = {k: getattr(args, k) for k in ("dtype", "quant")
+            if getattr(args, k, None)}
+    if over:
+        vcfg = dataclasses.replace(vcfg, **over)
     state = CheckpointManager(args.ckpt_dir).restore()
     # a vocoder training checkpoint holds the generator under "gen"
     gen_state = state["gen"] if "gen" in state else state

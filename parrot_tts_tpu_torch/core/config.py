@@ -6,19 +6,27 @@ reference's full-width models and recipe), the fields of `PipelineConfig`
 that TTE and vocoder training read, `to_json`, `vocoder_config_from_json`
 and the aligner's `aligner_configs_to_json` / `aligner_configs_from_json`.
 
-Not copied: the reference-file loaders, the TPU-only fields and, for now,
-`dtype`. `fold_tail` selects a TPU layout. `dtype` is a bf16 compute
-precision with a fidelity budget, not a layout: the port has no bf16
-compute mode yet (ROADMAP queue 1 item 12). `remat` /
-`remat_min_len` rematerialised FFT blocks in the backward pass so the XLA
-attention's saved (B, H, T, T) weights fit in memory; the port's training
-attention (`ops/flash_dropout.py`) never stores (B, H, T, T) scores, so
-there is nothing to rematerialise. The vocoder keeps `f0`, `fused_mrf` and
+Not copied: the reference-file loaders and the TPU-only fields.
+`fold_tail` selects a TPU layout. `remat` / `remat_min_len`
+rematerialised FFT blocks in the backward pass so the XLA attention's
+saved (B, H, T, T) weights fit in memory; the port's training attention
+(`ops/flash_dropout.py`) never stores (B, H, T, T) scores, so there is
+nothing to rematerialise. The vocoder keeps `f0`, `dtype`, `fused_mrf` and
 `quant`; the port serves `fused_mrf=True` and every `quant` mode ("int8",
-"int8-tail", "int8-static"; int8-static refuses `f0=True`), and trains
-only the float generator without the fused MRF (`train/vocoder.py`), with
-or without f0. `MelConfig` leaves out `center`, which no trainer reads: the
-loss mel is always the reference's uncentred one.
+"int8-tail", "int8-static"; int8-static refuses `f0=True`), each in
+float32 or bfloat16, and trains only the generator without the fused MRF
+(`train/vocoder.py`), with or without f0, in float32 or bfloat16.
+
+`dtype` is a compute precision with a fidelity budget, not a layout. The
+vocoder's "bfloat16" follows the JAX package's rounding points
+(`models/vocoder/generator.py`): bf16 activations and weights, float32
+sums in every conv, parameters, gradients and optimizer moments in
+float32. `TTEModelConfig.dtype` is copied for the JAX package's
+config.json, but no module of the JAX package reads it (its TTE always
+computes in float32), so the port's `Parrot` refuses anything but
+"float32" rather than run float32 silently. `MelConfig` leaves out
+`center`, which no trainer reads: the loss mel is always the reference's
+uncentred one.
 """
 
 from __future__ import annotations
@@ -60,6 +68,8 @@ class TTEModelConfig:
     #   double QKV projection through an extra qkv/wo   (modules/fft.py:48-57)
     #   duration-predictor conv2 hardcoded padding=1    (modules/duration.py:34)
     reference_compat: bool = True
+    # compute dtype for matmuls (params stay float32)
+    dtype: str = "float32"
 
 
 @dataclass(frozen=True)
@@ -114,9 +124,11 @@ class VocoderModelConfig:
     # 16-channel stages); int8 supersedes the fused MRF on a stage.
     # "int8-static": every conv between conv_pre and conv_post runs int8
     # with calibrated static scales (models/vocoder/generator_staticq.py).
-    # conv_pre and conv_post stay float32. f0=True: a code-rate pitch
-    # channel joins the embedding (model_in_dim counts it).
+    # conv_pre and conv_post stay in `dtype`. f0=True: a code-rate pitch
+    # channel joins the embedding (model_in_dim counts it). dtype: the
+    # compute dtype, "float32" or "bfloat16" (parameters stay float32).
     f0: bool = False
+    dtype: str = "float32"
     fused_mrf: bool = False
     quant: str = "none"
 

@@ -35,14 +35,19 @@ def exact_numerics(exact: bool, *, deterministic: bool | None = None):
     time (the default algorithms of the vocoder's convs differ run to run
     in the last bit, measured on an H100). exact=False allows TF32 and any
     algorithm. deterministic: the cuDNN algorithm rule when it should not
-    follow `exact` (`ops/precision.py` runs TF32 deterministically). This
+    follow `exact` (`ops/precision.py` runs TF32 deterministically). In
+    either mode bfloat16 GEMMs sum in float32
+    (`allow_bf16_reduced_precision_reduction` off), as the JAX package's
+    bf16 products do; bf16 convolutions go to cuDNN with float32 sums. This
     is the one place that sets these global flags; the previous flags are
     restored on exit."""
     flags = (torch.backends.cuda.matmul, "allow_tf32"), \
         (torch.backends.cudnn, "allow_tf32"), \
-        (torch.backends.cudnn, "deterministic")
+        (torch.backends.cudnn, "deterministic"), \
+        (torch.backends.cuda.matmul,
+         "allow_bf16_reduced_precision_reduction")
     values = (not exact, not exact,
-              exact if deterministic is None else deterministic)
+              exact if deterministic is None else deterministic, False)
     prev = [getattr(obj, name) for obj, name in flags]
     for (obj, name), value in zip(flags, values):
         setattr(obj, name, value)

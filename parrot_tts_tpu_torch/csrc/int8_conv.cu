@@ -15,6 +15,20 @@
 // to the plain PyTorch version in ops/qconv.py (an exact float64 conv, then
 // the same float32 multiply and add).
 //
+// With a bfloat16 output (the bf16 vocoder's dynamic int8 sites) the same
+// float32 y is rounded to bf16 (__float2bfloat16_rn) and, when leaky is
+// set, the leaky ReLU is then taken on the bf16 value:
+//     y16 = bf16(y);  y16 = max(y16, bf16(s16 * y16)),  s16 = bf16(slope)
+// (s16 * y16 is exact in float32; one rounding). That is what the JAX
+// package's bf16 serving path computes: its int8 conv's output cast to bf16
+// (ops/quant.py::int8_conv_nwc, out_dtype x.dtype), then jax.nn.leaky_relu
+// in bf16, so its value is rounded twice where leaky is fused. The Pallas
+// kernel itself (pallas_qconv.py:64-68) applies the leaky ReLU in float32
+// and rounds once at its store; the port follows the serving path, whose
+// numbers the fidelity budgets were measured on. The plain version rounds
+// at the same two points and is bit-equal. Two bytes per output halve the
+// output's bytes.
+//
 // Bound on this card: 2*B*T_out*K*Ci*Co int8 operations against the bytes of
 // xq, the weights, scale, bias and the float32 output. At the vocoder's
 // narrow stages (Ci = Co = 16-64, up to 327,680 rows a batch row) the bytes
@@ -70,15 +84,18 @@
 // Interface (plain C, loaded with ctypes):
 //   int int8_conv_s8(xq, wt, scale, scale_bstride, bias or NULL, out, B, T,
 //                    Ci, K, Co, ldo, T_out, pad_left, dil, leaky, slope,
-//                    bn, mb, stages, resident, grid, stream)
+//                    bn, mb, stages, resident, grid, out_bf16, stream)
 // xq: (B, T, Ci) int8, wt: (K, Co, Ci) int8, out: (B, T_out, ldo) float32
-// (channels [Co, ldo) not written), all contiguous with 16-byte aligned
-// bases, Ci a multiple of 16 and ldo of 4;
+// or, with out_bf16, bfloat16 (channels [Co, ldo) not written), all
+// contiguous with 16-byte aligned bases, Ci a multiple of 16 and ldo of 4
+// (float32) or 8 (bfloat16);
 // scale: (B, Co) float32, element [b, co] at b * scale_bstride + co (0
 // broadcasts one (Co,) vector over the batch); bias: (Co,) float32 or NULL;
 // bn, mb, stages, resident, grid: the plan of ops/qconv.py::conv_plan (mb:
 // m64 blocks of rows per consumer warpgroup). Returns the
 // CUDA error code of the launch.
+
+#include <cuda_bf16.h>
 
 #include "sm90.cuh"
 
@@ -122,8 +139,17 @@ struct Epi {
   int Co, T_out, pad_left, dil;
 };
 
-// BN channels and 2 x MB m64 blocks of rows per tile
-template <int BN, int MB>
+// y16 rounded to bf16 then max(y16, bf16(s16 * y16)): s16 * y16 is exact in
+// float32, so one rounding, as the JAX package's bf16 leaky_relu
+__device__ __forceinline__ __nv_bfloat16 leaky_bf16(__nv_bfloat16 y,
+                                                    float s16) {
+  const float v = __bfloat162float(y);
+  const float p = __bfloat162float(__float2bfloat16_rn(__fmul_rn(s16, v)));
+  return __float2bfloat16_rn(fmaxf(v, p));
+}
+
+// BN channels and 2 x MB m64 blocks of rows per tile; BF16: the output type
+template <int BN, int MB, bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_kernel(const __grid_constant__ CUtensorMap tx,
             const __grid_constant__ CUtensorMap tw,
@@ -132,7 +158,8 @@ conv_kernel(const __grid_constant__ CUtensorMap tx,
   constexpr int ROWS = 64 * MB;              // output rows per consumer
   constexpr int BM = 2 * ROWS;
   constexpr int EC = BN < 32 ? BN : 32;      // columns per store box
-  constexpr int PITCH = EC * 4;              // its row: 64 or 128 bytes
+  constexpr int OB = BF16 ? 2 : 4;           // bytes per output
+  constexpr int PITCH = EC * OB;             // its row: 32 to 128 bytes
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = align_1024(smem_raw);
   unsigned char* wres = sm + p.off_w();
@@ -239,6 +266,8 @@ conv_kernel(const __grid_constant__ CUtensorMap tx,
         for (int jj = 0; jj < EC / 8; ++jj) {
           const int j = ch * (EC / 8) + jj;
           float sc[2], bi[2];
+          const float s16 =
+              BF16 ? __bfloat162float(__float2bfloat16_rn(e.slope)) : 0.f;
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
             const int co = n0 + j * 8 + 2 * t + q;
@@ -253,12 +282,24 @@ conv_kernel(const __grid_constant__ CUtensorMap tx,
             for (int q = 0; q < 2; ++q) {
               float v = __fmul_rn(__int2float_rn(acc[mb][4 * j + 2 * h + q]), sc[q]);
               if (e.bias != nullptr) v = __fadd_rn(v, bi[q]);
-              if (e.leaky) v = fmaxf(v, __fmul_rn(e.slope, v));
+              if (!BF16 && e.leaky) v = fmaxf(v, __fmul_rn(e.slope, v));
               y[q] = v;
             }
             const int row = warp * 16 + g + 8 * h;
-            const uint32_t off = swizzled(row * PITCH + (jj * 8 + 2 * t) * 4, PITCH);
-            *reinterpret_cast<float2*>(buf + off) = make_float2(y[0], y[1]);
+            const uint32_t off =
+                swizzled(row * PITCH + (jj * 8 + 2 * t) * OB, PITCH);
+            if constexpr (BF16) {
+              __nv_bfloat16 y0 = __float2bfloat16_rn(y[0]);
+              __nv_bfloat16 y1 = __float2bfloat16_rn(y[1]);
+              if (e.leaky) {
+                y0 = leaky_bf16(y0, s16);
+                y1 = leaky_bf16(y1, s16);
+              }
+              *reinterpret_cast<__nv_bfloat162*>(buf + off) =
+                  __halves2bfloat162(y0, y1);
+            } else {
+              *reinterpret_cast<float2*>(buf + off) = make_float2(y[0], y[1]);
+            }
           }
         }
         fence_proxy_async();
@@ -274,25 +315,34 @@ conv_kernel(const __grid_constant__ CUtensorMap tx,
   if (tid == 0) bulk_wait_all();   // shared memory outlives its stores
 }
 
+template <int BN, int MB, bool BF16>
+int launch_t(const CUtensorMap& tx, const CUtensorMap& tw,
+             const CUtensorMap& to, const Plan& p, const Epi& e, int grid,
+             cudaStream_t s) {
+  const cudaError_t err =
+      prepare_once<conv_kernel<BN, MB, BF16>>(REGS, SMEM_MAX);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_kernel<BN, MB, BF16><<<grid, THREADS, p.smem(), s>>>(tx, tw, to, p, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BN, int MB>
 int launch(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& to,
-           const Plan& p, const Epi& e, int grid, cudaStream_t s) {
-  const cudaError_t err = prepare_once<conv_kernel<BN, MB>>(REGS, SMEM_MAX);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  conv_kernel<BN, MB><<<grid, THREADS, p.smem(), s>>>(tx, tw, to, p, e);
-  return static_cast<int>(cudaGetLastError());
+           const Plan& p, const Epi& e, int grid, bool bf16, cudaStream_t s) {
+  return bf16 ? launch_t<BN, MB, true>(tx, tw, to, p, e, grid, s)
+              : launch_t<BN, MB, false>(tx, tw, to, p, e, grid, s);
 }
 
 }  // namespace
 
 extern "C" int int8_conv_s8(const int8_t* xq, const int8_t* wt,
                             const float* scale, int scale_bstride,
-                            const float* bias, float* out,
+                            const float* bias, void* out,
                             int B, int T, int Ci, int K, int Co, int ldo,
                             int T_out,
                             int pad_left, int dil, int leaky, float slope,
                             int bn, int mb, int stages, int resident,
-                            int grid, void* stream) {
+                            int grid, int out_bf16, void* stream) {
   Plan p;
   p.B = B;
   p.K = K;
@@ -307,7 +357,9 @@ extern "C" int int8_conv_s8(const int8_t* xq, const int8_t* wt,
   p.resident = resident;
   p.tiles_m = (T_out + bm - 1) / bm;
   p.tiles_n = (Co + bn - 1) / bn;
-  if (Ci % 16 != 0 || ldo % 4 != 0 || ldo < Co || stages < 2 || stages > MAX_STAGES ||
+  const int ob = out_bf16 ? 2 : 4;   // bytes per output
+  if (Ci % 16 != 0 || (ldo * ob) % 16 != 0 || ldo < Co || stages < 2 ||
+      stages > MAX_STAGES ||
       (resident && p.tiles_n != 1) || p.smem() > SMEM_MAX || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Epi e{scale, scale_bstride, bias, leaky, slope, Co, T_out, pad_left, dil};
@@ -330,31 +382,37 @@ extern "C" int int8_conv_s8(const int8_t* xq, const int8_t* wt,
   const cuuint64_t o_dims[3] = {static_cast<cuuint64_t>(Co),
                                 static_cast<cuuint64_t>(T_out),
                                 static_cast<cuuint64_t>(B)};
-  const cuuint64_t o_strides[2] = {static_cast<cuuint64_t>(ldo) * 4,
-                                   static_cast<cuuint64_t>(T_out) * ldo * 4};
+  const cuuint64_t o_strides[2] = {static_cast<cuuint64_t>(ldo) * ob,
+                                   static_cast<cuuint64_t>(T_out) * ldo * ob};
   const cuuint32_t o_box[3] = {static_cast<cuuint32_t>(ec), 64, 1};
+  // the store box's rows: ec * ob bytes, in the swizzle of that width
+  const int pitch = ec * ob;
+  const CUtensorMapSwizzle o_swizzle =
+      pitch == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   : pitch == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B;
   if (!encode_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, xq, x_dims, x_strides,
                   x_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !encode_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, wt, w_dims, w_strides,
                   w_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !encode_map(&to, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, out, o_dims,
-                  o_strides, o_box,
-                  ec == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_64B))
+      !encode_map(&to,
+                  out_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  3, out, o_dims, o_strides, o_box, o_swizzle))
     return static_cast<int>(cudaErrorInvalidValue);
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn * 8 + mb) {
-    case 16 * 8 + 4: return launch<16, 4>(tx, tw, to, p, e, grid, s);
-    case 16 * 8 + 2: return launch<16, 2>(tx, tw, to, p, e, grid, s);
-    case 16 * 8 + 1: return launch<16, 1>(tx, tw, to, p, e, grid, s);
-    case 32 * 8 + 4: return launch<32, 4>(tx, tw, to, p, e, grid, s);
-    case 32 * 8 + 2: return launch<32, 2>(tx, tw, to, p, e, grid, s);
-    case 32 * 8 + 1: return launch<32, 1>(tx, tw, to, p, e, grid, s);
-    case 64 * 8 + 2: return launch<64, 2>(tx, tw, to, p, e, grid, s);
-    case 64 * 8 + 1: return launch<64, 1>(tx, tw, to, p, e, grid, s);
-    case 128 * 8 + 1: return launch<128, 1>(tx, tw, to, p, e, grid, s);
-    case 256 * 8 + 1: return launch<256, 1>(tx, tw, to, p, e, grid, s);
+    case 16 * 8 + 4: return launch<16, 4>(tx, tw, to, p, e, grid, out_bf16, s);
+    case 16 * 8 + 2: return launch<16, 2>(tx, tw, to, p, e, grid, out_bf16, s);
+    case 16 * 8 + 1: return launch<16, 1>(tx, tw, to, p, e, grid, out_bf16, s);
+    case 32 * 8 + 4: return launch<32, 4>(tx, tw, to, p, e, grid, out_bf16, s);
+    case 32 * 8 + 2: return launch<32, 2>(tx, tw, to, p, e, grid, out_bf16, s);
+    case 32 * 8 + 1: return launch<32, 1>(tx, tw, to, p, e, grid, out_bf16, s);
+    case 64 * 8 + 2: return launch<64, 2>(tx, tw, to, p, e, grid, out_bf16, s);
+    case 64 * 8 + 1: return launch<64, 1>(tx, tw, to, p, e, grid, out_bf16, s);
+    case 128 * 8 + 1: return launch<128, 1>(tx, tw, to, p, e, grid, out_bf16, s);
+    case 256 * 8 + 1: return launch<256, 1>(tx, tw, to, p, e, grid, out_bf16, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

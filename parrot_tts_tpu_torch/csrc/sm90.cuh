@@ -449,11 +449,12 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
 }
 
 // the byte offset of (row, 16-byte chunk) in a tile of `pitch`-byte rows
-// (128 or 64) stored in the matching swizzle, the tile 1024-byte aligned:
-// address bits 4-6 (128B) or 4-5 (64B) XOR bits 7-9 / 7-8
+// (128, 64 or 32) stored in the matching swizzle, the tile 1024-byte
+// aligned: address bits 4-6 (128B), 4-5 (64B) or 4 (32B) XOR bits 7-9,
+// 7-8 or 7
 __host__ __device__ __forceinline__ uint32_t swizzled(uint32_t off,
                                                       uint32_t pitch) {
-  const uint32_t mask = pitch == 128 ? 7u : 3u;
+  const uint32_t mask = pitch / 16 - 1;
   return off ^ (((off >> 7) & mask) << 4);
 }
 

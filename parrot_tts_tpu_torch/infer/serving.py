@@ -9,7 +9,9 @@ float32 throughout (`models/tte/parrot.py` lists the modes). A string
 mode sets the TTE decode only: the vocoder then runs as under exact=True
 (IEEE float32, deterministic), so units equal to exact=True's give the
 same waveform bits. exact=True is IEEE float32 but
-for attention's 3xTF32 kernel; exact=False allows TF32 in both stages.
+for attention's 3xTF32 kernel; exact=False allows TF32 in both stages. A
+vocoder config with dtype="bfloat16" serves the vocoder in bf16
+(`infer/synthesize.py`); the TTE keeps its decode mode.
 """
 
 from __future__ import annotations

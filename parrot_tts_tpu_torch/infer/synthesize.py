@@ -12,7 +12,10 @@ batched per length bucket (`CODE_BUCKETS`; longer sequences are cropped to
 the largest bucket, as in the JAX package), short rows are repeat-padded
 with their own codes, and each waveform is trimmed to len(units) * hop.
 An f0-conditioned vocoder (`cfg.f0`) takes a code-rate pitch track per
-utterance, padded as its codes are; int8-static serving refuses it.
+utterance, padded as its codes are; int8-static serving refuses it. Every
+mode serves in `cfg.dtype`, float32 or bfloat16 (the JAX package's bf16
+rounding points, `models/vocoder/generator.py`); the waveforms come back
+as float32 either way.
 
 With a mesh (`core/mesh.py`, model axis 1) each bucket's batch is padded
 to a multiple of the data axis with repeats of row 0, every process takes
@@ -64,8 +67,9 @@ class VocoderSynthesizer:
     process. calib_margin scales the int8-static activation scales
     (quant="int8-static" only); `staticq` holds the int8-static state
     once calibrated (of the first replica; `staticqs` of each). Under fused_mrf=True each fused stage's
-    weights are packed once, here, and under quant="int8" / "int8-tail"
-    every MRF conv's and upsample's int8 weight."""
+    weights are packed once, here, under quant="int8" / "int8-tail"
+    every MRF conv's and upsample's int8 weight, and under
+    dtype="bfloat16" every conv's bf16 weight and bias."""
 
     def __init__(self, state: dict, cfg: VocoderModelConfig, *,
                  sample_rate: int = 16_000,
@@ -92,6 +96,7 @@ class VocoderSynthesizer:
         self.replicas = ([self.model] if mesh is None
                          else meshlib.replicated(mesh, self.model))
         for m in {id(m): m for m in self.replicas}.values():
+            m.pack_bf16()
             m.pack_fused_mrf()
             m.pack_int8()
         self.calib_margin = calib_margin

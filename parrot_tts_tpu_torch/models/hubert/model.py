@@ -129,8 +129,13 @@ class HubertModel(nn.Module):
                 f"feat_extract_norm {cfg.feat_extract_norm!r} not in "
                 "('group', 'layer', 'none')")
         if cfg.dtype != "float32":
-            raise ValueError("the port extracts in float32 (dtype="
-                             f"{cfg.dtype!r}); cast the module to run wider")
+            raise ValueError(
+                f"HubertConfig.dtype={cfg.dtype!r}: the port extracts in "
+                "float32. The JAX package's bfloat16 extraction does not "
+                "run: its masked GroupNorm multiplies by the float32 scale, "
+                "which promotes x to float32, so it raises a TypeError at "
+                "the second conv (a float32 input, a bfloat16 weight; "
+                "parrot_tts_tpu/models/hubert/model.py:125-135, 206-207)")
         self.cfg = cfg
         self.feature_extractor = _FeatureExtractor(cfg)
         self.feature_projection = _FeatureProjection(cfg)

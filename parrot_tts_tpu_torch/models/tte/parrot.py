@@ -172,6 +172,14 @@ class Parrot(nn.Module):
 
     def __init__(self, cfg: TTEModelConfig, *, folded: bool = False):
         super().__init__()
+        if cfg.dtype != "float32":
+            raise ValueError(
+                f"TTEModelConfig.dtype={cfg.dtype!r}: the TTE computes in "
+                "float32 (its precision is the decode mode). The JAX "
+                "package ignores this field (no module of it reads "
+                "TTEModelConfig.dtype), so a bfloat16 config there runs "
+                "float32; the port refuses it rather than do the same "
+                "silently")
         self.cfg = cfg
         self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.d_model,
                                     padding_idx=cfg.pad_idx)

@@ -25,12 +25,25 @@ Weight norm is kept as plain `weight_g` / `weight_v` parameters under the
 reference's state_dict keys; `fold_params` collapses them into `weight`
 for serving (remove_weight_norm), loaded by `CodeGenerator(cfg,
 weight_norm=False)`.
+
+`cfg.dtype="bfloat16"` computes in bf16 at the JAX package's rounding
+points: the embedding (with any conditioning feature) is cast at entry;
+weight norm is resolved in float32 and cast, and every bias is cast to
+bf16; each conv rounds its float32 sum to bf16 and then adds its bias in
+bf16 (`ops/conv.py`); the leaky ReLUs take bf16(slope)
+(`ops/activation.py`); the unfused MRF mean (`acc + y`, `/ nk`) is taken
+in bf16; tanh in bf16, then the waveform is returned as float32. A fused
+stage runs the fused kernel's bf16 mode, and the dynamic int8 convs
+return bf16. Parameters stay float32: a serving model with weight norm
+folded keeps bf16 copies of its weights and biases made once by
+`CodeGenerator.pack_bf16` (the same values as the JAX package's cast at
+each call); under weight norm the cast is taken per call, so training
+differentiates through it into the float32 parameters.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from parrot_tts_tpu_torch.core.config import VocoderModelConfig
@@ -39,6 +52,7 @@ from parrot_tts_tpu_torch.ops import conv as conv_ops
 from parrot_tts_tpu_torch.ops import fused_mrf
 from parrot_tts_tpu_torch.ops import init as init_ops
 from parrot_tts_tpu_torch.ops import quant as quant_ops
+from parrot_tts_tpu_torch.ops.activation import leaky_relu
 from parrot_tts_tpu_torch.ops.weight_norm import wn_init, wn_resolve
 
 LRELU_SLOPE = 0.1  # reference models.py:11
@@ -47,6 +61,15 @@ LRELU_SLOPE = 0.1  # reference models.py:11
 FUSED_BELOW_CHANNELS = 128
 LANE_TARGET = 128      # the JAX package's apply_generator(lane_target=128)
 DYNAMIC_QUANT = ("int8", "int8-tail")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: VocoderModelConfig) -> torch.dtype:
+    """The torch dtype of cfg.dtype ("float32" or "bfloat16")."""
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"VocoderModelConfig.dtype={cfg.dtype!r}: the "
+                         f"vocoder computes in {tuple(DTYPES)}")
+    return DTYPES[cfg.dtype]
 
 
 class WNConv(nn.Module):
@@ -68,6 +91,28 @@ class WNConv(nn.Module):
         if hasattr(self, "weight_v"):
             return wn_resolve(self.weight_g, self.weight_v)
         return self.weight
+
+    def weight_in(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight in the compute dtype: bfloat16 cast per call under
+        weight norm (resolved in float32 first), else the copy
+        `CodeGenerator.pack_bf16` made; any other dtype the weight as it
+        is."""
+        return self._in(dtype, self.kernel, "weight16")
+
+    def bias_in(self, dtype: torch.dtype) -> torch.Tensor:
+        """The bias in the compute dtype, as `weight_in`."""
+        return self._in(dtype, lambda: self.bias, "bias16")
+
+    def _in(self, dtype, value, packed: str) -> torch.Tensor:
+        if dtype != torch.bfloat16:
+            return value()
+        if hasattr(self, "weight_v"):
+            return value().to(dtype)
+        if not hasattr(self, packed):
+            raise RuntimeError("dtype='bfloat16': make the bf16 copies of "
+                               "the weights with model.pack_bf16() once they "
+                               "are loaded")
+        return getattr(self, packed)
 
     def int8(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The int8 weight (K, Co, Ci) and its (Co,) scales that
@@ -114,9 +159,11 @@ class ResBlock2(nn.Module):
 
 def _conv(c: WNConv, x: torch.Tensor, *, padding: int, dilation: int = 1,
           quant: bool = False, leaky: float | None = None) -> torch.Tensor:
-    """The conv c on x, in float or (quant) as the dynamic int8 conv on
-    c's packed int8 weight; `leaky` is the ReLU that follows it."""
-    return conv_ops.conv1d(x, c.kernel(), c.bias, padding=padding,
+    """The conv c on x, in x's dtype or (quant) as the dynamic int8 conv
+    on c's packed int8 weight; `leaky` is the ReLU that follows it."""
+    dt = x.dtype
+    return conv_ops.conv1d(x, None if quant else c.weight_in(dt),
+                           c.bias_in(dt), padding=padding,
                            dilation=dilation, quant=quant,
                            qweight=c.int8() if quant else None, leaky=leaky)
 
@@ -124,10 +171,10 @@ def _conv(c: WNConv, x: torch.Tensor, *, padding: int, dilation: int = 1,
 def apply_resblock1(rb: ResBlock1, x: torch.Tensor,
                     quant: bool = False) -> torch.Tensor:
     """ResBlock1 (reference models.py:13-44): pairs of (dilated, plain)
-    convs with leaky relus and residual adds."""
+    convs with leaky relus and residual adds, in x's dtype."""
     k = rb.kernel_size
     for c1, c2, d in zip(rb.convs1, rb.convs2, rb.dilations):
-        xt = F.leaky_relu(x, LRELU_SLOPE)
+        xt = leaky_relu(x, LRELU_SLOPE)
         xt = _conv(c1, xt, padding=conv_ops.get_padding(k, d), dilation=d,
                    quant=quant, leaky=LRELU_SLOPE)
         xt = _conv(c2, xt, padding=conv_ops.get_padding(k, 1), quant=quant)
@@ -140,7 +187,7 @@ def apply_resblock2(rb: ResBlock2, x: torch.Tensor,
     """ResBlock2 (reference models.py:47-66)."""
     k = rb.kernel_size
     for c, d in zip(rb.convs, rb.dilations):
-        xt = F.leaky_relu(x, LRELU_SLOPE)
+        xt = leaky_relu(x, LRELU_SLOPE)
         xt = _conv(c, xt, padding=conv_ops.get_padding(k, d), dilation=d,
                    quant=quant)
         x = xt + x
@@ -155,6 +202,7 @@ class CodeGenerator(nn.Module):
         super().__init__()
         if cfg.quant not in ("none", "int8-static", *DYNAMIC_QUANT):
             raise ValueError(f"unknown quant mode {cfg.quant!r}")
+        self.dtype = compute_dtype(cfg)
         self.cfg = cfg
         wn = weight_norm
         c0 = cfg.upsample_initial_channel
@@ -189,6 +237,7 @@ class CodeGenerator(nn.Module):
                 # quantizes depends on the length served
                 if _fuses(self, i, quant=self.cfg.quant == "int8"):
                     w, b, plan = pack_stage(self, i)
+                    w, b = w.to(self.dtype), b.to(self.dtype)
                     self.register_buffer(f"mrf_w{i}", w, persistent=False)
                     self.register_buffer(f"mrf_k{i}", fused_mrf.kernel_weights(
                         w, plan), persistent=False)
@@ -200,23 +249,43 @@ class CodeGenerator(nn.Module):
         MRF conv and every upsample (in its polyphase form) once, for
         serving: per conv an int8 (K, Co, Ci) kernel and its (Co,) scales
         as buffers (moved with the module, left out of its state_dict). A
-        no-op in the other modes. Call it after the final weights are
-        loaded; weights changed later need a new call."""
+        no-op in the other modes. In bfloat16 the weights are quantized
+        from their bf16 values, as the JAX package quantizes its bf16
+        kernels. Call it after the final weights are loaded; weights
+        changed later need a new call."""
         if self.cfg.quant not in DYNAMIC_QUANT:
             return
+        dt = self.dtype
         with torch.no_grad():
             for i, (u, k) in enumerate(zip(self.cfg.upsample_rates,
                                            self.cfg.upsample_kernel_sizes)):
                 up = self.ups[i]
                 if conv_ops.polyphase_applies(k, u, (k - u) // 2):
                     w = conv_ops.polyphase_weights(
-                        up.kernel().permute(2, 0, 1), u, (k - u) // 2)[0]
+                        up.kernel().to(dt).permute(2, 0, 1), u,
+                        (k - u) // 2)[0]
                     _register_int8(up, quant_ops.quantize_weight(w))
             for rb in self.resblocks:
                 for c in rb.modules():
                     if isinstance(c, WNConv):
                         _register_int8(c, quant_ops.quantize_weight(
-                            c.kernel().permute(2, 1, 0)))
+                            c.kernel().to(dt).permute(2, 1, 0)))
+
+    def pack_bf16(self) -> None:
+        """Under dtype="bfloat16" with weight norm folded, the bf16 copy of
+        every conv's weight and bias, once, for serving (buffers moved with
+        the module, left out of its state_dict). A no-op otherwise. Call it
+        after the final weights are loaded; weights changed later need a
+        new call."""
+        if self.dtype == torch.float32 or hasattr(self.conv_pre, "weight_v"):
+            return
+        with torch.no_grad():
+            for c in self.modules():
+                if isinstance(c, WNConv):
+                    c.register_buffer("weight16", c.weight.to(self.dtype),
+                                      persistent=False)
+                    c.register_buffer("bias16", c.bias.to(self.dtype),
+                                      persistent=False)
 
     def forward(self, code: torch.Tensor, spkr: torch.Tensor | None,
                 extra_feats: dict | None = None) -> torch.Tensor:
@@ -264,22 +333,27 @@ def quant_plan(cfg: VocoderModelConfig, t: int) -> list[tuple[bool, bool]]:
 
 def apply_generator(model: CodeGenerator, x: torch.Tensor) -> torch.Tensor:
     """Generator forward (reference models.py:96-111): x (B, T,
-    model_in_dim) -> waveform (B, T*prod(upsample_rates), 1)."""
+    model_in_dim) -> waveform (B, T*prod(upsample_rates), 1): computed in
+    bfloat16 under cfg.dtype "bfloat16" (x cast at entry, the waveform
+    returned as float32), else in x's dtype."""
     cfg = model.cfg
+    if model.dtype == torch.bfloat16:
+        x = x.to(model.dtype)
+    dt = x.dtype
     nk = len(cfg.resblock_kernel_sizes)
     apply_rb = apply_resblock1 if cfg.resblock == "1" else apply_resblock2
     plan = quant_plan(cfg, x.shape[1])
-    x = conv_ops.conv1d(x, model.conv_pre.kernel(), model.conv_pre.bias,
-                        padding=3)
+    x = conv_ops.conv1d(x, model.conv_pre.weight_in(dt),
+                        model.conv_pre.bias_in(dt), padding=3)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates,
                                    cfg.upsample_kernel_sizes)):
         ups_q, mrf_q = plan[i]
-        x = F.leaky_relu(x, LRELU_SLOPE)
+        x = leaky_relu(x, LRELU_SLOPE)
         up, pad = model.ups[i], (k - u) // 2
         packed = ups_q and conv_ops.polyphase_applies(k, u, pad)
         x = conv_ops.conv_transpose1d(
-            x, up.kernel(), up.bias, stride=u, padding=pad, quant=ups_q,
-            qweight=up.int8() if packed else None)
+            x, up.weight_in(dt), up.bias_in(dt), stride=u, padding=pad,
+            quant=ups_q, qweight=up.int8() if packed else None)
         y = _mrf_stage_fused(model, i, x, mrf_q)
         if y is not None:
             x = y
@@ -290,10 +364,11 @@ def apply_generator(model: CodeGenerator, x: torch.Tensor) -> torch.Tensor:
                 acc = y if acc is None else acc + y
             x = acc / nk
     # final leaky uses torch's DEFAULT slope 0.01 (reference models.py:107)
-    x = F.leaky_relu(x, 0.01)
-    x = conv_ops.conv1d(x, model.conv_post.kernel(), model.conv_post.bias,
-                        padding=3)
-    return torch.tanh(x)
+    x = leaky_relu(x, 0.01)
+    x = conv_ops.conv1d(x, model.conv_post.weight_in(dt),
+                        model.conv_post.bias_in(dt), padding=3)
+    x = torch.tanh(x)
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def _fuses(model: CodeGenerator, i: int, quant: bool) -> bool:

@@ -10,8 +10,18 @@ an int8 activation and runs as an int8 conv with int32 accumulation
 weight quantization, which `quantize_generator` does once per set of
 scales. The upsamples run as stride-1 convs on the polyphase packing of
 their transposed-conv kernels. conv_pre, conv_post and the
-residual carriers stay float32 (`residual_int8=False`, the default, puts
-quantization error only at conv inputs).
+residual carriers stay in the compute dtype (`residual_int8=False`, the
+default, puts quantization error only at conv inputs).
+
+In bfloat16 (`cfg.dtype`) the forward follows the JAX package's: conv_pre
+and conv_post run in bf16 (the model's `pack_bf16` copies) and conv_pre's
+output is widened to float32; the int8 convs keep their float32 weights,
+biases and outputs; the residual carriers are rounded to bf16 when served
+(calibration keeps them float32, as there), and each carrier is widened
+to float32 where it is read; the stage mean is taken in float32, and the
+final leaky ReLU in float32 before the cast to bf16. Calibration runs
+each conv in bf16 (weights and bias cast, the output rounded, then the
+bias added in bf16) and records float32 absmaxes.
 
 Sites, in forward order, per upsample stage: the upsample input, then for
 each ResBlock and each of its (dilated, plain) conv pairs the two conv
@@ -100,17 +110,18 @@ def _site_conv(model: CodeGenerator, conv: tuple
 def _forward(model: CodeGenerator, x: torch.Tensor, tape: _QTape,
              residual_int8: bool = False) -> torch.Tensor:
     """The generator forward with explicit materialization points.
-    x: (B, T, model_in_dim) float32 -> (B, T*320, 1)."""
+    x: (B, T, model_in_dim) float32 -> float32 (B, T*320, 1)."""
     cfg = model.cfg
     if cfg.resblock != "1":
         raise ValueError("int8-static serving targets the V1 topology "
                          "(resblock '1')")
     nk = len(cfg.resblock_kernel_sizes)
     calib = tape.mode == "calibrate"
+    dt = model.dtype
 
     def mat(xf, int8=True):
         if not int8:
-            return xf
+            return xf if calib else xf.to(dt)
         if calib:
             tape.collected.append(xf.abs().amax(dim=(0, 1)))
             return xf
@@ -119,15 +130,17 @@ def _forward(model: CodeGenerator, x: torch.Tensor, tape: _QTape,
         return _QT(quant_ops.quantize_static(xf, s), s, tape.i - 1)
 
     def deq(xt):
-        return xt.q.float() * xt.s if isinstance(xt, _QT) else xt
+        return xt.q.float() * xt.s if isinstance(xt, _QT) else xt.float()
 
     def qconv(xt, conv, *, pads, dil=1, leaky=None):
-        """The conv `conv` names on a materialized tensor; leaky is the
-        ReLU that follows (fused into the int8 kernel's epilogue)."""
+        """The conv `conv` names on a materialized tensor, float32 out;
+        leaky is the ReLU that follows (fused into the int8 kernel's
+        epilogue)."""
         if calib:
             w, b = _site_conv(model, conv)
-            y = F.conv1d(F.pad(xt.transpose(1, 2), pads), w.permute(2, 1, 0),
-                         b, dilation=dil).transpose(1, 2)
+            xp = F.pad(xt.to(dt).transpose(1, 2), pads)
+            y = conv_ops.conv1d(xp.transpose(1, 2), w.to(dt).permute(2, 1, 0),
+                                b.to(dt), dilation=dil).float()
             return y if leaky is None else F.leaky_relu(y, leaky)
         site, qw, b = tape.q.convs[conv]
         if site != xt.site:
@@ -136,9 +149,9 @@ def _forward(model: CodeGenerator, x: torch.Tensor, tape: _QTape,
         return quant_ops.int8_conv_qweight(xt.q, qw, b, pads=pads,
                                            rhs_dilation=dil, leaky=leaky)
 
-    # conv_pre stays float
-    x = conv_ops.conv1d(x, model.conv_pre.kernel(), model.conv_pre.bias,
-                        padding=3)
+    # conv_pre stays in the compute dtype, its output widened
+    x = conv_ops.conv1d(x.to(dt), model.conv_pre.weight_in(dt),
+                        model.conv_pre.bias_in(dt), padding=3).float()
     for i, (u, k) in enumerate(zip(cfg.upsample_rates,
                                    cfg.upsample_kernel_sizes)):
         cout = cfg.upsample_initial_channel // (2 ** (i + 1))
@@ -166,11 +179,11 @@ def _forward(model: CodeGenerator, x: torch.Tensor, tape: _QTape,
             acc = deq(xt_res) if acc is None else acc + deq(xt_res)
         x = acc / nk
 
-    # conv_post stays float; torch's default slope 0.01
-    x = F.leaky_relu(x, 0.01)
-    x = conv_ops.conv1d(x, model.conv_post.kernel(), model.conv_post.bias,
-                        padding=3)
-    return torch.tanh(x)
+    # conv_post stays in the compute dtype; torch's default slope 0.01
+    x = F.leaky_relu(x, 0.01).to(dt)
+    x = conv_ops.conv1d(x, model.conv_post.weight_in(dt),
+                        model.conv_post.bias_in(dt), padding=3)
+    return torch.tanh(x).float()
 
 
 def _sites(cfg: VocoderModelConfig, residual_int8: bool = False

@@ -12,6 +12,13 @@ That kernel is stride-1, so the int8 upsample runs the transposed conv as
 a stride-1 conv on its polyphase packing, the (q_len, Cin, u·Cout) kernel
 that `polyphase_weights` makes (the int8-static vocoder,
 `models/vocoder/generator_staticq.py`, packs it the same way).
+
+In bfloat16 (x, w and b all bf16) each conv sums in float32 (cuDNN on the
+card) and rounds its output to bf16 once; the bias is then added in bf16,
+which rounds a second time, as the JAX package's bf16 conv (no
+preferred_element_type) followed by `out + b` does. The leaky ReLU that
+follows takes bf16(slope) (`ops/activation.py`). The int8 convs return
+x's dtype.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from parrot_tts_tpu_torch.ops import quant as quant_ops
+from parrot_tts_tpu_torch.ops.activation import leaky_relu
 
 _WARNED_QUANT_FALLBACK: set = set()
 
@@ -32,19 +40,24 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            qweight: tuple | None = None, leaky: float | None = None
            ) -> torch.Tensor:
     """torch.nn.functional.conv1d on x (B, T, Cin) -> (B, T', Cout), then
-    leaky_relu(·, leaky) when `leaky` is given. quant=True runs the dynamic
-    int8 conv (`quant.int8_conv_nwc_qweight`, the leaky fused into its
-    epilogue) on qweight, the int8 form of w that `quant.quantize_weight`
-    makes of w (K, Cin, Cout); without one, w is quantized here."""
+    leaky_relu(·, leaky) when `leaky` is given; w and b in x's dtype (in
+    bf16 the bias is added after the conv's rounding). quant=True runs the
+    dynamic int8 conv (`quant.int8_conv_nwc_qweight`, the leaky fused into
+    its epilogue) on qweight, the int8 form of w that
+    `quant.quantize_weight` makes of w (K, Cin, Cout); without one, w is
+    quantized here."""
     if quant:
         if qweight is None:
             qweight = quant_ops.quantize_weight(w.permute(2, 1, 0))
         return quant_ops.int8_conv_nwc_qweight(
             x, qweight, b, pads=(padding, padding), rhs_dilation=dilation,
             leaky=leaky)
-    y = F.conv1d(x.transpose(1, 2), w, b, padding=padding,
+    late = x.dtype == torch.bfloat16 and b is not None
+    y = F.conv1d(x.transpose(1, 2), w, None if late else b, padding=padding,
                  dilation=dilation).transpose(1, 2)
-    return y if leaky is None else F.leaky_relu(y, leaky)
+    if late:
+        y = y + b
+    return y if leaky is None else leaky_relu(y, leaky)
 
 
 def _warn_quant_fallback(k: int, stride: int, padding: int) -> None:
@@ -74,24 +87,36 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
     applies, runs the dynamic int8 conv on the packed kernel (qweight:
     `quant.quantize_weight` of `polyphase_weights(w)`, else made here) with
     the bias tiled over the phases into the epilogue (the same two float32
-    roundings as the JAX package's add after the reshape); elsewhere it
-    warns once and runs the float conv."""
+    roundings as the JAX package's add after the reshape; in bf16 the bias
+    is added to the bf16 output after the reshape, as there); elsewhere it
+    warns once and runs the float conv. w and b in x's dtype."""
     k = w.shape[2]
+    late = x.dtype == torch.bfloat16 and b is not None
     if quant and polyphase_applies(k, stride, padding):
         *_, pad_left, q_len = _polyphase_plan(k, stride, padding)
         if qweight is None:
             qweight = quant_ops.quantize_weight(
                 polyphase_weights(w.permute(2, 0, 1), stride, padding)[0])
         y = quant_ops.int8_conv_nwc_qweight(
-            x, qweight, None if b is None else b.repeat(stride),
+            x, qweight, None if b is None or late else b.repeat(stride),
             pads=(pad_left, q_len - 1 - pad_left))
         bsz, t, _ = y.shape
-        return y.reshape(bsz, t * stride, w.shape[1])   # phase-major
+        y = y.reshape(bsz, t * stride, w.shape[1])      # phase-major
+        return y + b if late else y
     if quant:
         _warn_quant_fallback(k, stride, padding)
-    y = F.conv_transpose1d(x.transpose(1, 2), w, b, stride=stride,
-                           padding=padding)
-    return y.transpose(1, 2)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        # PyTorch's CPU bf16 transposed conv returns a wrong input gradient
+        # (relative error ~1 against float64 at the vocoder's upsamples);
+        # the same bf16 conv, operands widened to float32 and the output
+        # rounded once, has the same rounding points forward and backward
+        y = F.conv_transpose1d(x.float().transpose(1, 2), w.float(),
+                               stride=stride, padding=padding).to(x.dtype)
+    else:
+        y = F.conv_transpose1d(x.transpose(1, 2), w, None if late else b,
+                               stride=stride, padding=padding)
+    y = y.transpose(1, 2)
+    return y + b if late else y
 
 
 def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:

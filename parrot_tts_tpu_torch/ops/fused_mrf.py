@@ -16,6 +16,16 @@ A CPU tensor goes to `mrf_fused_reference` (the averaged `apply_resblock1`
 composition); a CUDA tensor launches the kernel or raises. Nothing falls
 back, and unlike the JAX `mrf_fused` the kernel takes any T.
 `FUSED_MRF.launches` counts kernel launches.
+
+In bfloat16 (x, w and b bf16: the bf16 vocoder) the kernel's bf16 mode
+runs (bf16 wgmma; C = 16, 32 or 64) and the plain version follows the JAX
+kernel's rounding points on a bf16 strip: each conv sums in float32 from
+its bf16 bias and is rounded to bf16 once, the leaky ReLU (bf16(0.1)) and
+y + t are taken in bf16, and the branches are summed in float32 and the
+mean rounded to bf16. That differs from the unfused bf16 composition,
+which rounds each conv before its bias and averages in bf16, as the JAX
+package's two routes differ. `kernel_weights` of bf16 weights lays out
+one slab per tap ([C / 8][C][8], k permuted for the bf16 A fragment).
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from parrot_tts_tpu_torch.core import kernels
+from parrot_tts_tpu_torch.ops.activation import leaky_relu
 
 LRELU_SLOPE = 0.1
 MAX_BRANCHES = 4           # csrc/fused_mrf.cu MAXB
@@ -39,6 +50,8 @@ RING_SLOTS = 2             # csrc/fused_mrf.cu NS
 SMEM_BYTES = 232448        # shared memory a block may take on Hopper
 H100_SMS = 132
 _MAX_GRID_Y = 65535
+BF16_CHANNELS = (16, 32, 64)   # csrc/fused_mrf.cu mrf_kernel_bf16's widths
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclass(frozen=True)
@@ -88,7 +101,9 @@ class MRFTile:
     64-row units each warpgroup holds through a conv, tb output rows per
     block on a strip of tb + 2 * halo rows, the strips' row stride
     (floats), the shared memory and the recompute factor (rows the convs
-    compute, in whole rounds, over n_convs * tb)."""
+    compute, in whole rounds, over n_convs * tb); `dtype` the kernel's
+    mode (in bfloat16 the strips hold bf16, the stride is in bf16
+    elements, and a float32 strip of tb rows holds the branch sum)."""
 
     channels: int
     halo: int
@@ -99,9 +114,13 @@ class MRFTile:
     strip_stride: int
     smem_bytes: int
     recompute: float
+    dtype: torch.dtype = torch.float32
 
     @property
     def k_chunk(self) -> int:
+        """Input channels per weight slab: one tap's C in bfloat16."""
+        if self.dtype == torch.bfloat16:
+            return self.channels
         return min(self.wgmma_n, 32)
 
 
@@ -126,6 +145,28 @@ def _strip_stride(c: int) -> int:
     """C + 8 or C + 16: a multiple of 8 that is 8 or 24 mod 32, so the
     float2 fragment loads of a half warp hit 32 banks."""
     return c + 8 if c % 16 == 0 else c + 16
+
+
+def _strip_stride16(c: int) -> int:
+    """csrc/fused_mrf.cu strip_stride16: C + 16, or C at an odd multiple
+    of 16, so a half warp's 8-byte loads of four rows hit 32 banks."""
+    return c if c % 32 == 16 else c + 16
+
+
+def _smem_bf16(c: int, tb: int, halo: int) -> int:
+    """csrc/fused_mrf.cu smem_bytes_bf16: two bf16 strips, the ring of
+    two one-tap slabs, the float32 branch sum of tb rows of C + 8."""
+    return (2 * (2 * (tb + 2 * halo) * _strip_stride16(c)
+                 + RING_SLOTS * c * c) + 4 * tb * (c + 8))
+
+
+def _tb_max_bf16(c: int, halo: int) -> int:
+    """The longest bf16 tile (a multiple of 16): its strips within the
+    warpgroups' rounds of units and within shared memory."""
+    tb = (UNIT_ROWS * _warpgroups(c) * _rounds(c) - 2 * halo) // 16 * 16
+    while tb >= 16 and _smem_bf16(c, tb, halo) > SMEM_BYTES:
+        tb -= 16
+    return tb
 
 
 def max_strip_rows(c: int) -> int:
@@ -164,7 +205,8 @@ def _rows_computed(plan: MRFPlan, tb: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
-              sms: int = H100_SMS) -> MRFTile:
+              sms: int = H100_SMS,
+              dtype: torch.dtype = torch.float32) -> MRFTile:
     """tb, a multiple of 16 whose strip fits, chosen for the least work: a
     block's time taken as the rows its convs compute (whole rounds of
     units), a launch of shape = (B, T) as its waves of blocks (one block
@@ -172,9 +214,12 @@ def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
     No tb below 2 * halo where a longer one fits: every block streams the
     stage's weights and waits at a barrier per slab, which the rows do not
     count. Raises ValueError when no tile of 16 rows fits (a halo too long
-    for the strips)."""
+    for the strips). dtype: the kernel's mode (bfloat16: bf16 strips and
+    the float32 branch-sum strip, `_smem_bf16`)."""
     c, halo = plan.channels, plan.halo
-    tb_max = (max_strip_rows(c) - 2 * halo) // 16 * 16
+    bf16 = dtype == torch.bfloat16
+    tb_max = (_tb_max_bf16(c, halo) if bf16
+              else (max_strip_rows(c) - 2 * halo) // 16 * 16)
     if tb_max < 16:
         raise ValueError(f"mrf_fused: a halo of {halo} rows leaves no room "
                          f"for a 16-row tile at {c} channels")
@@ -187,15 +232,18 @@ def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
 
     floor = min(tb_max, max(16, -(-2 * halo // 16) * 16))
     tb = min(range(floor, tb_max + 1, 16), key=cost)
-    n = _wgmma_n(c)
+    n = c if bf16 else _wgmma_n(c)
     n_convs = 2 * sum(len(d) for d in plan.dilations)
-    smem = 4 * (2 * (tb + 2 * halo) * _strip_stride(c)
-                + RING_SLOTS * 2 * min(n, 32) * c)
+    smem = (_smem_bf16(c, tb, halo) if bf16
+            else 4 * (2 * (tb + 2 * halo) * _strip_stride(c)
+                      + RING_SLOTS * 2 * min(n, 32) * c))
     return MRFTile(channels=c, halo=halo, tb=tb, wgmma_n=n,
                    warpgroups=_warpgroups(c), rounds=_rounds(c),
-                   strip_stride=_strip_stride(c),
+                   strip_stride=_strip_stride16(c) if bf16
+                   else _strip_stride(c),
                    smem_bytes=smem,
-                   recompute=_rows_computed(plan, tb) / (n_convs * tb))
+                   recompute=_rows_computed(plan, tb) / (n_convs * tb),
+                   dtype=dtype)
 
 
 def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -207,6 +255,9 @@ def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 _K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)   # element k of an 8-wide k-step
+# element k of a 16-wide bf16 k-step: thread t's a0 (k 2t, 2t + 1) and a2
+# (k 2t + 8, 2t + 9) are channels 4t .. 4t + 3, one 8-byte load
+_K_ORDER16 = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
 
 
 def kernel_weights(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
@@ -215,8 +266,11 @@ def kernel_weights(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
     TF32 hi half, then its lo half, each K-major [k_chunk / 4][Co][4] (the
     wgmma's no-swizzle layout), the input channels of every 8 in the order
     _K_ORDER (the A fragment's: k t holds channel 2t, k t + 4 channel
-    2t + 1)."""
+    2t + 1). For bfloat16 w, one bf16 slab per tap: K-major [C / 8][C][8],
+    the input channels of every 16 in the order _K_ORDER16."""
     c = plan.channels
+    if w.dtype == torch.bfloat16:
+        return _kernel_weights_bf16(w, plan)
     kc = min(_wgmma_n(c), 32)
     order = torch.tensor(_K_ORDER)
     slabs, off = [], 0
@@ -229,6 +283,23 @@ def kernel_weights(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
             hi, lo = tf32_split(kt.contiguous())
             # [tap][chunk][hi, lo][kc / 4][co][4]
             slabs.append(torch.stack([hi, lo], dim=2))
+    return torch.cat([x.reshape(-1) for x in slabs]).contiguous()
+
+
+def _kernel_weights_bf16(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
+    c = plan.channels
+    if c % 16:
+        raise ValueError(f"mrf_fused: {c} channels; the bf16 kernel takes "
+                         f"{BF16_CHANNELS}")
+    order = torch.tensor(_K_ORDER16)
+    slabs, off = [], 0
+    for k, dils in zip(plan.kernel_sizes, plan.dilations):
+        for _ in range(2 * len(dils)):
+            kern = w[off:off + k * c * c].reshape(k, c, c)      # [tap][ci][co]
+            off += k * c * c
+            kt = kern.transpose(1, 2).reshape(k, c, c // 16, 16)[..., order]
+            # [tap][c / 8][co][8]
+            slabs.append(kt.reshape(k, c, c // 8, 8).permute(0, 2, 1, 3))
     return torch.cat([x.reshape(-1) for x in slabs]).contiguous()
 
 
@@ -247,7 +318,10 @@ def _unpack(w: torch.Tensor, b: torch.Tensor, plan: MRFPlan):
 def mrf_fused_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         plan: MRFPlan) -> torch.Tensor:
     """Plain PyTorch: the mean of the branches' apply_resblock1 chains,
-    each conv a zero-padded F.conv1d on (B, C, T)."""
+    each conv a zero-padded F.conv1d on (B, C, T); for a bfloat16 x the JAX
+    kernel's bf16 rounding points (`_reference_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _reference_bf16(x, w, b, plan)
     xt = x.transpose(1, 2)
     acc, y = None, None
     for i, j, w1, b1, w2, b2, d, (p1, p2) in _unpack(w, b, plan):
@@ -261,6 +335,28 @@ def mrf_fused_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         if j == len(plan.dilations[i]) - 1:
             acc = y if acc is None else acc + y
     return (acc / len(plan.kernel_sizes)).transpose(1, 2)
+
+
+def _reference_bf16(x, w, b, plan: MRFPlan) -> torch.Tensor:
+    """The JAX `_mrf_kernel` on a bf16 strip: each conv in float32 on bf16
+    values with its bf16 bias, rounded to bf16 once; leaky ReLU and y + t
+    in bf16; the branches summed in float32, times 1 / n, rounded."""
+    bf16 = torch.bfloat16
+    xt = x.transpose(1, 2)
+    acc, y = None, None
+    w, b = w.to(bf16).float(), b.to(bf16).float()
+    for i, j, w1, b1, w2, b2, d, (p1, p2) in _unpack(w, b, plan):
+        if j == 0:
+            y = xt
+        t = leaky_relu(y, LRELU_SLOPE).float()
+        t = F.conv1d(t, w1.permute(2, 1, 0), b1, padding=p1,
+                     dilation=d).to(bf16)
+        t = leaky_relu(t, LRELU_SLOPE).float()
+        t = F.conv1d(t, w2.permute(2, 1, 0), b2, padding=p2).to(bf16)
+        y = t + y
+        if j == len(plan.dilations[i]) - 1:
+            acc = y.float() if acc is None else acc + y.float()
+    return (acc * (1.0 / len(plan.kernel_sizes))).to(bf16).transpose(1, 2)
 
 
 class _FusedMRF:
@@ -277,6 +373,8 @@ class _FusedMRF:
                 ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.fused_mrf_f32.restype = ctypes.c_int
+            lib.fused_mrf_bf16.argtypes = lib.fused_mrf_f32.argtypes
+            lib.fused_mrf_bf16.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
@@ -287,9 +385,9 @@ FUSED_MRF = _FusedMRF()
 def mrf_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               plan: MRFPlan, *, wk: torch.Tensor | None = None
               ) -> torch.Tensor:
-    """x (B, T, C) float32; w, b from `pack_mrf`; wk, `kernel_weights(w,
-    plan)` where the caller keeps it (made here otherwise). Returns
-    (B, T, C)."""
+    """x (B, T, C) float32 or bfloat16; w, b from `pack_mrf` in x's dtype;
+    wk, `kernel_weights(w, plan)` where the caller keeps it (made here
+    otherwise). Returns (B, T, C) in x's dtype."""
     if x.device.type == "cpu":
         return mrf_fused_reference(x, w, b, plan)
     if x.device.type != "cuda":
@@ -297,8 +395,10 @@ def mrf_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _check(x, w, b, plan)
     if wk is None:
         wk = kernel_weights(w, plan)
-    if (wk.dtype != torch.float32 or wk.device != x.device
-            or not wk.is_contiguous() or wk.shape != (2 * w.numel(),)
+    bf16 = x.dtype == torch.bfloat16
+    if (wk.dtype != x.dtype or wk.device != x.device
+            or not wk.is_contiguous()
+            or wk.shape != ((1 if bf16 else 2) * w.numel(),)
             or wk.data_ptr() % 16):
         raise ValueError("mrf_fused: wk is not kernel_weights(w, plan) on "
                          "x's device")
@@ -314,9 +414,10 @@ def mrf_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
           for j in range(MAX_PAIRS)))
     with torch.cuda.device(x.device):
         sms = _sm_count(torch.cuda.current_device())
-        tile = tile_plan(plan, (bsz, t), sms)
+        tile = tile_plan(plan, (bsz, t), sms, x.dtype)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = FUSED_MRF.lib().fused_mrf_f32(
+        lib = FUSED_MRF.lib()
+        err = (lib.fused_mrf_bf16 if bf16 else lib.fused_mrf_f32)(
             x.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(),
             bsz, t, c, nb, ks, npairs, dils, plan.halo, tile.tb, stream)
     if err != 0:
@@ -331,9 +432,13 @@ def _sm_count(index: int) -> int:
 
 
 def _check(x, w, b, plan: MRFPlan) -> None:
+    if x.dtype not in DTYPES:
+        raise TypeError(f"mrf_fused: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
     for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"mrf_fused: {name} must be float32, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"mrf_fused: {name} must be {x.dtype}, got "
+                            f"{t.dtype}")
         if t.device != x.device:
             raise ValueError(f"mrf_fused: {name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -358,6 +463,10 @@ def _check(x, w, b, plan: MRFPlan) -> None:
               for k, d in zip(plan.kernel_sizes, plan.dilations))
     if w.shape != (n_w,) or b.shape != (2 * n_pairs * c,):
         raise ValueError("mrf_fused: packed weights do not fit the plan")
+    if x.dtype == torch.bfloat16 and c not in BF16_CHANNELS:
+        raise ValueError(f"mrf_fused: {c} channels; the bf16 kernel takes "
+                         f"{BF16_CHANNELS}")
     if x.shape[0] > _MAX_GRID_Y:
         raise ValueError(f"mrf_fused: B = {x.shape[0]} > {_MAX_GRID_Y}")
-    tile_plan(plan)                # raises for a halo the strips cannot hold
+    # raises for a halo the strips cannot hold
+    tile_plan(plan, dtype=x.dtype)

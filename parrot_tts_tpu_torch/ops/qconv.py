@@ -5,7 +5,11 @@ wrappers and their plain versions.
 int8, given as wt (K, Co, Ci), the layout the kernel reads,
     acc = conv(xq, w) in int32 (stride 1, dilation d, zero pads (pl, pr)),
     y = float32(acc) · scale[b, co] + bias[co],  then max(y, leaky·y),
-as float32 (B, T + pl + pr - d·(K-1), Co). It replaces the TPU's Pallas
+as float32 (B, T + pl + pr - d·(K-1), Co), or with out_dtype=bfloat16
+    y16 = bf16(float32(acc) · scale[b, co] + bias[co]),  then
+    max(y16, bf16(bf16(leaky)·y16)),
+the JAX package's bf16 serving path (its int8 conv's output rounded to
+bf16, then its bf16 leaky ReLU). It replaces the TPU's Pallas
 kernel `parrot_tts_tpu/ops/pallas_qconv.py::_conv_kernel`, which the JAX
 package never wired in; here it is the int8 conv of every int8-static
 serving site (`ops/quant.py`). PyTorch has no int8
@@ -50,6 +54,7 @@ import torch.nn.functional as F
 
 from parrot_tts_tpu_torch.core import kernels
 from parrot_tts_tpu_torch.core.device import exact_numerics
+from parrot_tts_tpu_torch.ops.activation import leaky_relu
 
 INT8_MAX_K = 133_144       # the largest K with 127^2 * K < 2^31
 SMEM_MAX = 232_448         # dynamic shared memory a block may use (H100)
@@ -84,7 +89,8 @@ class _Kernel:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 INT8_CONV = _Kernel("int8_conv", "int8_conv_s8",
                     [_P] * 3 + [_I] + [_P] * 2 + [_I] * 10 + [ctypes.c_float]
-                    + [_I] * 5 + [_P])
+                    + [_I] * 6 + [_P])
+OUT_DTYPES = (torch.float32, torch.bfloat16)   # int8_conv's outputs
 MATMUL = _Kernel("int8_gemm", "int8_gemm",
                  [_I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P])
 # the int8 GEMM's B^T pass (part of every int8 `matmul`, whose launch
@@ -136,13 +142,15 @@ def _conv_smem(plan: dict, stages: int) -> int:
 @functools.lru_cache(maxsize=4096)
 def conv_plan(b: int, t: int, ci: int, k: int, co: int,
               pads: tuple[int, int], dilation: int, *, x_aligned: bool = True,
-              w_aligned: bool = True, sms: int = H100_SMS) -> dict:
+              w_aligned: bool = True, sms: int = H100_SMS,
+              out_bytes: int = 4) -> dict:
     """The launch of csrc/int8_conv.cu for xq (b, t, ci), wt (k, co, ci):
     - branch: xq / wt go through a workspace (b, t_x, ci_p) / (k, co, ci_p),
       zero past ci, when ci is not a multiple of 16 or the base is not
       16-byte aligned (TMA's rule; t_x = max(t, 1), since a map has no empty
-      dimension); the output through (b, t_out, co_p) when co is not a
-      multiple of 4; "tma" when nothing is padded;
+      dimension); the output through (b, t_out, co_p) when its rows are
+      not a multiple of 16 bytes (co not a multiple of 4 in float32, 8 in
+      bfloat16: out_bytes 4 or 2); "tma" when nothing is padded;
     - resident: the tile covers co (bn the smallest of CONV_TILE_N that
       does) and all weights fit CONV_RESIDENT_MAX, so the block loads them
       once; else they stream with the activations, in tiles of bn = 64
@@ -158,7 +166,8 @@ def conv_plan(b: int, t: int, ci: int, k: int, co: int,
     plan is cached per argument list (the wrapper computes it at every
     launch), so it is read-only."""
     t_out = out_len(t, k, pads, dilation)
-    ci_p, co_p, t_x = _round_up(ci, 16), _round_up(co, 4), max(t, 1)
+    ci_p, co_p, t_x = (_round_up(ci, 16), _round_up(co, 16 // out_bytes),
+                       max(t, 1))
     plan = {"t_out": t_out, "ci_p": ci_p, "co_p": co_p, "t_x": t_x, "k": k,
             "pad_x": ci_p != ci or t_x != t or not x_aligned,
             "pad_w": ci_p != ci or not w_aligned, "pad_out": co_p != co,
@@ -192,7 +201,7 @@ def conv_plan(b: int, t: int, ci: int, k: int, co: int,
     plan["workspace_bytes"] = (
         (b * t_x * ci_p if plan["pad_x"] else 0)
         + (k * co * ci_p if plan["pad_w"] else 0)
-        + (4 * b * t_out * co_p if plan["pad_out"] else 0))
+        + (out_bytes * b * t_out * co_p if plan["pad_out"] else 0))
     return types.MappingProxyType(plan)
 
 
@@ -208,16 +217,22 @@ def conv_tile(plan: dict, tile: int) -> tuple[int, int, int]:
 def int8_conv_reference(xq: torch.Tensor, wt: torch.Tensor,
                         scale: torch.Tensor, bias: torch.Tensor | None, *,
                         pads: tuple[int, int], dilation: int = 1,
-                        leaky: float | None = None) -> torch.Tensor:
-    """Plain PyTorch: the conv in float64, then the float32 epilogue. cuDNN
-    is off for the conv, since its FFT and Winograd algorithms are not
-    exact; PyTorch's own im2col + GEMM sums integers below 2^53 exactly."""
+                        leaky: float | None = None,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """Plain PyTorch: the conv in float64, then the float32 epilogue (in
+    bfloat16: rounded, then the bf16 leaky ReLU). cuDNN is off for the
+    conv, since its FFT and Winograd algorithms are not exact; PyTorch's
+    own im2col + GEMM sums integers below 2^53 exactly."""
     x = F.pad(xq.double().transpose(1, 2), pads)
     with torch.backends.cudnn.flags(enabled=False):
         acc = F.conv1d(x, wt.double().permute(1, 2, 0), dilation=dilation)
     y = acc.transpose(1, 2).float() * scale[:, None, :]
     if bias is not None:
         y = y + bias
+    if out_dtype == torch.bfloat16:
+        y = y.to(out_dtype)
+        return (y if leaky is None else leaky_relu(y, leaky)).contiguous()
     if leaky is not None:
         y = torch.maximum(y, leaky * y)
     return y.contiguous()
@@ -225,32 +240,38 @@ def int8_conv_reference(xq: torch.Tensor, wt: torch.Tensor,
 
 def int8_conv(xq: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
               bias: torch.Tensor | None = None, *, pads: tuple[int, int],
-              dilation: int = 1, leaky: float | None = None) -> torch.Tensor:
+              dilation: int = 1, leaky: float | None = None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """xq (B, T, Ci) int8, wt (K, Co, Ci) int8, scale (B, Co) float32 with
     unit channel stride (a (Co,) vector `expand`ed over the batch is passed
     as it is), bias (Co,) float32 or None; xq, wt and bias contiguous; all
-    on one device."""
+    on one device. out_dtype: float32 or bfloat16."""
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"int8_conv: out_dtype {out_dtype}; the kernel "
+                        "writes float32 or bfloat16")
     if xq.device.type == "cpu":
         return int8_conv_reference(xq, wt, scale, bias, pads=pads,
-                                   dilation=dilation, leaky=leaky)
+                                   dilation=dilation, leaky=leaky,
+                                   out_dtype=out_dtype)
     if xq.device.type != "cuda":
         raise ValueError(f"int8_conv: unsupported device {xq.device}")
     _check(xq, wt, scale, bias, pads, dilation)
     b, t, ci = xq.shape
     k, co, _ = wt.shape
     t_out = out_len(t, k, pads, dilation)
-    out = torch.empty((b, t_out, co), dtype=torch.float32, device=xq.device)
+    out = torch.empty((b, t_out, co), dtype=out_dtype, device=xq.device)
     if b == 0 or co == 0:
         return out
+    bf16 = out_dtype == torch.bfloat16
     plan = conv_plan(b, t, ci, k, co, tuple(pads), dilation,
                      x_aligned=xq.data_ptr() % 16 == 0,
                      w_aligned=wt.data_ptr() % 16 == 0,
-                     sms=_sms(xq.device))
+                     sms=_sms(xq.device), out_bytes=2 if bf16 else 4)
     if plan["pad_x"]:
         xq = _padded(xq, (b, plan["t_x"], plan["ci_p"]))
     if plan["pad_w"]:
         wt = _padded(wt, (k, co, plan["ci_p"]))
-    y = (torch.empty((b, t_out, plan["co_p"]), dtype=torch.float32,
+    y = (torch.empty((b, t_out, plan["co_p"]), dtype=out_dtype,
                      device=xq.device) if plan["pad_out"] else out)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
@@ -260,8 +281,7 @@ def int8_conv(xq: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
             b, plan["t_x"], plan["ci_p"], k, co, plan["co_p"], t_out, pads[0],
             dilation, int(leaky is not None), float(leaky or 0.0),
             plan["bn"], plan["mb"], plan["stages"], int(plan["resident"]),
-            plan["grid"],
-            stream)
+            plan["grid"], int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"int8_conv launch failed: CUDA error {err}")
     INT8_CONV.launches += 1

@@ -24,7 +24,14 @@ same values.
   + `int8_conv_nwc_qweight`, which quantizes the float activation per batch
   row (absmax over (T, C)) on every call and runs the conv with the
   materialised (B, Co) scale s_x[b]·s_w[co]. Per-row scales keep a batch
-  row's output independent of its batchmates.
+  row's output independent of its batchmates. The output has x's dtype:
+  for a bfloat16 x the float32 epilogue is rounded to bf16 once and a fused
+  leaky ReLU is then taken in bf16, as the JAX package's `int8_conv_nwc`
+  (out_dtype x.dtype) followed by its bf16 `leaky_relu` computes it.
+
+The quantizers take float32 or bfloat16 input: the absmax of bf16 values
+is exact, and the division runs in float32 (`x.float() / scale`), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -133,14 +140,16 @@ def int8_conv_nwc_qweight(x: torch.Tensor,
                           pads: tuple[int, int], rhs_dilation: int = 1,
                           leaky: float | None = None) -> torch.Tensor:
     """The dynamic int8 conv with its weight already quantized: qweight =
-    `quantize_weight(w)`. x (B, T, Ci) float is quantized per row here;
-    returns (B, T', Co) float32 = acc · (s_x[b]·s_w[co]) + b, then
-    max(y, leaky·y) when `leaky` is given."""
+    `quantize_weight(w)`. x (B, T, Ci) float32 or bfloat16 is quantized
+    per row here; returns (B, T', Co) in x's dtype = acc · (s_x[b]·s_w[co])
+    + float32(b), then max(y, leaky·y) when `leaky` is given (in bf16 on the
+    rounded output)."""
     wt, sw = qweight
     xq, sx = quantize_per_row(x)
     return qconv.int8_conv(xq.contiguous(), wt, sx[:, :, 0] * sw,
                            None if b is None else b.float().contiguous(),
-                           pads=pads, dilation=rhs_dilation, leaky=leaky)
+                           pads=pads, dilation=rhs_dilation, leaky=leaky,
+                           out_dtype=x.dtype)
 
 
 def int8_conv_nwc(x: torch.Tensor, w: torch.Tensor,
@@ -150,7 +159,7 @@ def int8_conv_nwc(x: torch.Tensor, w: torch.Tensor,
     """Stride-1 NWC conv with both operands dynamically quantized to int8.
 
     x: (B, T, Ci) float; w: (K, Ci, Co) float (already packed by the
-    caller's lowering); b: (Co,) or None. Returns (B, T', Co) float32,
+    caller's lowering); b: (Co,) or None. Returns (B, T', Co) in x's dtype,
     equal to the float conv up to the quantization error the per-row and
     per-channel scales bound."""
     return int8_conv_nwc_qweight(x, quantize_weight(w), b, pads=pads,

@@ -36,6 +36,15 @@ Weight norm stays live (`WNConv.kernel()`), never folded. The step runs
 under `exact_numerics(exact)`: by default TF32 convolutions and matmuls
 on the card, IEEE float32 with `exact=True`. The state is updated in
 place.
+
+A generator with `VocoderModelConfig(dtype="bfloat16")` (bench_gan.py's
+--gen-bf16) runs its forward and backward in bf16 at the JAX package's
+rounding points (`models/vocoder/generator.py`; cuDNN on the card, float32
+sums): weight norm is resolved in float32 and cast per call, so the
+gradients reach the float32 parameters through the cast. Its tanh output
+reaches the losses as float32, and the mel loss, every loss reduction,
+the parameters, the gradients and AdamW's moments stay float32, as in
+the JAX step.
 """
 
 from __future__ import annotations
@@ -145,7 +154,8 @@ class VocoderTrainState:
 
 def _check_trainable(model_cfg: VocoderModelConfig) -> None:
     """Only the float generator with weight norm live trains (with or
-    without f0 conditioning)."""
+    without f0 conditioning, in float32 or bfloat16)."""
+    gen.compute_dtype(model_cfg)
     if model_cfg.quant != "none":
         raise ValueError(
             f"VocoderModelConfig.quant={model_cfg.quant!r} is a SERVING "

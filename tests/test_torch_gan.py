@@ -19,6 +19,14 @@ float64 transform); discriminator scores and feature maps rtol 1e-5, atol
 (1 - b1) g after one update from zero moments); the spectral-norm vectors
 atol 1e-5; AdamW fed the same gradients atol 1e-6.
 
+bf16 steps (`test_bf16_gan_step_matches_jax`: a bf16 generator, as
+bench_gan.py's --gen-bf16, and bf16 discriminators) against the JAX
+package's bf16 step from the float32 step's state: per network, |dg|/|g|
+from JAX's bf16 step at most twice JAX's own bf16-against-float32 |dg|/|g|
+(measured in the test: ~0.07 on the generator at this config, 1e-5 on the
+discriminators under a bf16 generator); the metrics within rtol 1e-2 (JAX's
+bf16 metrics move ~1e-3 from its float32 ones).
+
 `test_gan_step_on_card` needs a CUDA device and no JAX; run it on the
 card with `python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_gan.py -k on_card`.
@@ -446,6 +454,61 @@ def test_bf16_disc_step_updates_all_networks():
     assert all(p.dtype == torch.float32 for p in state.d_params().values())
     assert all(v.dtype == torch.float32
                for v in state.moments()["mu_d"].values())
+
+
+def _first_moments(sd: dict) -> dict:
+    """The first moments of each network (mu = (1 - b1) g after one update
+    from zero moments)."""
+    nets = {"G": sd["mu_g"]}
+    for net in ("mpd", "msd"):
+        nets[net] = {k: v for k, v in sd["mu_d"].items()
+                     if k.startswith(net)}
+    return nets
+
+
+@pytest.mark.parametrize("mchange,tchange", [
+    ({"dtype": "bfloat16"}, {}), ({}, {"disc_dtype": "bfloat16"})],
+    ids=["gen_bf16", "disc_bf16"])
+def test_bf16_gan_step_matches_jax(jax_step, mchange, tchange):
+    """One GAN step with a bf16 generator, and one with bf16
+    discriminators, from the float32 parity step's state, against the JAX
+    package's: per network |dg|/|g| from JAX's bf16 step at most twice
+    JAX's own bf16-against-float32 |dg|/|g|; metrics within rtol 1e-2;
+    parameters and moments stay float32; every network moves."""
+    start, end32, _ = jax_step
+    jm = dataclasses.replace(jax_config.VocoderModelConfig(**TINY), **mchange)
+    jt = dataclasses.replace(jax_config.VocoderTrainConfig(**STEP_CFG),
+                             **tchange)
+    end16, want = jax_train.train_step(
+        jax.tree_util.tree_map(jnp.asarray, start),
+        {k: jnp.asarray(v) for k, v in tiny_batch().items()}, jm, jt,
+        jax_config.MelConfig(**MEL), SPE)
+    mcfg = VocoderModelConfig(**TINY, **mchange)
+    first = vocoder_train_state_from_jax(start, VocoderModelConfig(**TINY))
+    state = voc_train.init_state(1, mcfg, "cpu")
+    state.load_state_dict(first)
+    got = voc_train.train_step(
+        state, voc_train.to_batch(tiny_batch(), "cpu"), mcfg,
+        VocoderTrainConfig(**STEP_CFG, **tchange), MelConfig(**MEL), SPE)
+    for k, v in want.items():
+        np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-2)
+    sd = state.state_dict()
+    assert all(v.dtype == torch.float32 for name in ("gen", "mpd", "msd")
+               for k, v in sd[name].items() if v.is_floating_point())
+    assert all(v.dtype == torch.float32 for part in state.moments().values()
+               for v in part.values())
+    g32, g16 = (_first_moments(vocoder_train_state_from_jax(
+        jax.tree_util.tree_map(np.asarray, e), VocoderModelConfig(**TINY)))
+        for e in (end32, end16))
+    gp = _first_moments(sd)
+    for net in g16:
+        own = rel_err(g16[net], g32[net])
+        err = rel_err(gp[net], g16[net])
+        assert err <= 2 * own, (net, err, own)
+    for name in ("gen", "mpd", "msd"):
+        k = next(k for k in first[name] if k.endswith("weight_v")
+                 or k.endswith("weight_orig") or k.endswith(".weight"))
+        assert not torch.equal(sd[name][k], first[name][k]), name
 
 
 def write_wav_corpus(root, n_train=5, n_val=2, seed=8):

@@ -275,6 +275,46 @@ def test_int8_conv_bit_identical_to_plain_on_card(cuda_device, b, t, ci, co,
     assert got.shape == want.shape and torch.equal(got, want)
 
 
+def test_int8_conv_bf16_cpu_tensors_take_the_plain_version(rng):
+    """A bf16 output on the CPU: the plain version, rounded once and the
+    leaky ReLU taken in bf16; other output types raise."""
+    xq, wq, scale, bias = _qconv_inputs(rng, 2, 20, 16, 8, 3)
+    got = qconv.int8_conv(xq, wq, scale, bias, pads=(1, 1), leaky=0.1,
+                          out_dtype=torch.bfloat16)
+    y = qconv.int8_conv_reference(xq, wq, scale, bias, pads=(1, 1))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, torch.maximum(y.bfloat16(),
+                                          y.bfloat16() * 0.10009765625))
+    with pytest.raises(TypeError, match="out_dtype"):
+        qconv.int8_conv(xq, wq, scale, bias, pads=(1, 1),
+                        out_dtype=torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,ci,co,k,dil,pads,leaky,bias", [
+    (2, 1000, 64, 64, 11, 5, (25, 25), 0.1, True),   # a V1 stage-3 MRF conv
+    (3, 777, 16, 16, 7, 3, (9, 9), None, True),      # narrow, ragged T
+    (1, 130, 512, 1280, 3, 1, (1, 1), None, False),  # stage-1 upsample, bf16
+    (2, 50, 24, 44, 4, 2, (3, 0), 0.1, False),       # Co off the 8s: padded
+    (2, 300, 32, 32, 3, 1, (1, 1), 0.1, True),       # bn 32: 64-byte rows
+])
+def test_int8_conv_bf16_output_bit_identical_on_card(cuda_device, b, t, ci,
+                                                     co, k, dil, pads, leaky,
+                                                     bias):
+    rng = np.random.default_rng(t + 1)
+    xq, wq, scale, bvec = _qconv_inputs(rng, b, t, ci, co, k, cuda_device,
+                                        bias)
+    before = qconv.INT8_CONV.launches
+    got = qconv.int8_conv(xq, wq, scale, bvec, pads=pads, dilation=dil,
+                          leaky=leaky, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert qconv.INT8_CONV.launches == before + 1
+    want = qconv.int8_conv_reference(xq, wq, scale, bvec, pads=pads,
+                                     dilation=dil, leaky=leaky,
+                                     out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,ci,co,k,dil,pads,leaky", [
     (3, 1250, 256, 256, 11, 5, (25, 25), 0.1),     # a V1 stage-1 MRF conv
@@ -443,6 +483,31 @@ def test_fused_mrf_matches_plain_on_card(cuda_device, b, t, c):
     # IEEE float32 both; only the order of the sums differs
     err = float((got - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c", [
+    (2, 5120, 64), (3, 1013, 32), (1, 20480, 16), (2, 7, 16),
+    (3, 2999, 64), (3, 4001, 32), (3, 6007, 16)])
+def test_fused_mrf_bf16_matches_plain_on_card(cuda_device, b, t, c):
+    """Row 6's bf16 mode against its bf16 plain version: both round at the
+    JAX kernel's points and sum in float32 in another order, so an element
+    moves by an ulp now and then and the chain carries it on: max |diff|
+    <= 2^-6 max |plain| (4 ulps at the top binade)."""
+    rng = np.random.default_rng(t)
+    x, w, bias, plan = _mrf_inputs(rng, b, t, c, cuda_device)
+    for r in range(1, b):
+        x[r, t * (b - r) // b:] = 0.0
+    x, w, bias = x.bfloat16(), w.bfloat16(), bias.bfloat16()
+    before = fused_mrf.FUSED_MRF.launches
+    got = fused_mrf.mrf_fused(x, w, bias, plan)
+    torch.cuda.synchronize()
+    assert fused_mrf.FUSED_MRF.launches == before + 1
+    with exact_numerics(True):
+        want = fused_mrf.mrf_fused_reference(x, w, bias, plan)
+    assert got.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -6 * float(want.float().abs().max()), err
 
 
 # ---- rows 2-5: flash attention with dropout (ops/flash_dropout.py,
