@@ -4006,7 +4006,9 @@ def phase_bf16_mrf(fm, exact_numerics, model, vcfg, batches,
                    registers: dict) -> dict:
     """Row 6's bf16 mode against its bf16 plain version at every (B, T, C)
     the bf16 fused serve gives it, on the serve's packed bf16 weights:
-    mismatched elements counted, max |diff| <= BF16_MRF_RTOL * max |plain|;
+    mismatched elements counted, max |diff| <= BF16_MRF_RTOL * max |plain|,
+    two launches bit-equal; no ptxas spills; per width the tile, its weight
+    slots (a ring, or the whole stream resident) and the share of its bound;
     kernel, plain and bound ms, and the unfused cuDNN bf16 composition of
     the same stage (the library yardstick). `model`: the bf16 fused
     serve's CodeGenerator."""
@@ -4027,15 +4029,19 @@ def phase_bf16_mrf(fm, exact_numerics, model, vcfg, batches,
             wk, plan = getattr(model, f"mrf_k{i}"), model.mrf_plans[i]
             if all(r["C"] != c for r in rows):
                 tile = fm.tile_plan(plan, dtype=torch.bfloat16)
+                slots = (f"all {tile.ring_slots} slabs resident"
+                         if tile.resident else
+                         f"a ring of {tile.ring_slots} slots")
                 print(f"fused MRF bf16 C={c}: tile {tile.tb} rows, halo "
                       f"{plan.halo}, {tile.warpgroups} warpgroups x "
                       f"{tile.rounds} units, wgmma m64n{tile.wgmma_n}k16, "
-                      f"slabs of one tap ({tile.k_chunk} inputs), recompute "
-                      f"{tile.recompute:.3f}, shared memory "
+                      f"slabs of one tap ({tile.k_chunk} inputs) in {slots}, "
+                      f"recompute {tile.recompute:.3f}, shared memory "
                       f"{tile.smem_bytes} bytes")
             x = torch.from_numpy(rng.standard_normal((b, t, c)).astype(
                 np.float32)).to(model.conv_pre.weight.device).bfloat16()
             got = fm.mrf_fused(x, w, bias, plan, wk=wk)
+            again = fm.mrf_fused(x, w, bias, plan, wk=wk)
             want = fm.mrf_fused_reference(x, w, bias, plan)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
@@ -4045,6 +4051,9 @@ def phase_bf16_mrf(fm, exact_numerics, model, vcfg, batches,
             if not (got.dtype == torch.bfloat16 and err <= lim):
                 raise AssertionError(f"fused MRF bf16 B={b} T={t} C={c}: max "
                                      f"|diff| {err} > {lim}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"fused MRF bf16 B={b} T={t} C={c}: two "
+                                     f"launches differ")
             stage = model.resblocks[i * nk:(i + 1) * nk]
 
             def library():
@@ -4070,20 +4079,22 @@ def phase_bf16_mrf(fm, exact_numerics, model, vcfg, batches,
                   f"{plain_ms:.4f} ms  cuDNN bf16 composition "
                   f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms "
                   f"({bound_by}, bf16 tensor cores)")
-            del x, got, want, diff
+            del x, got, again, want, diff
     rep = total(rows)
     rep["library_ms"] = sum(r["library_ms"] for r in rows)
     for c in sorted({r["C"] for r in rows}, reverse=True):
         st = [r for r in rows if r["C"] == c]
+        ms, bnd = (sum(r[k] for r in st) for k in ("ms", "bound_ms"))
         print(f"fused MRF bf16 per serve C={c} ({len(st)} launches): kernel "
-              f"{sum(r['ms'] for r in st):.4f} ms  plain "
+              f"{ms:.4f} ms  plain "
               f"{sum(r['plain_ms'] for r in st):.4f} ms  cuDNN bf16 "
               f"{sum(r['library_ms'] for r in st):.4f} ms  bound "
-              f"{sum(r['bound_ms'] for r in st):.4f} ms")
+              f"{bnd:.4f} ms ({100 * bnd / ms:.1f}% of it)")
     print(f"fused MRF bf16 per serve ({len(rows)} launches): kernel "
           f"{rep['ms']:.4f} ms  plain {rep['plain_ms']:.4f} ms  cuDNN bf16 "
           f"{rep['library_ms']:.4f} ms  bound {rep['bound_ms']:.4f} ms "
-          f"({rep['bound_by']})")
+          f"({rep['bound_by']}; {100 * rep['bound_ms'] / rep['ms']:.1f}% "
+          f"of it)")
     return {"report": rep, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "checked": {(r["B"], r["T"], r["C"]) for r in rows}}
 

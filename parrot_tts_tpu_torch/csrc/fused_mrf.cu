@@ -71,23 +71,52 @@
 // is masked; any T works.
 //
 // The bfloat16 mode (mrf_kernel_bf16; the bf16 vocoder's fused stages, C =
-// 16, 32 or 64) follows the JAX kernel's rounding points in bf16
-// (_mrf_kernel with a bf16 strip, fused_mrf.py:97-152): every conv sums its
-// bf16 products in float32 from its bf16 bias and rounds the sum to bf16
-// once (_strip_conv); the validity mask, the leaky ReLU (slope bf16(0.1))
-// and y + t are taken in bf16, each rounded to nearest even; the branches
-// are summed in float32 and the sum times 1 / n_branch is rounded to bf16
-// at the store. Its products are bf16 wgmma m64nCk16 (one product per
-// k-step, no split), A from registers with leaky(Y) taken at the load in
-// bf16, B a K-major bf16 slab of one tap's C input channels (ops/
-// fused_mrf.py::kernel_weights of the bf16 weights: [C / 8][C][8], the
-// inputs of every 16 in the order of the A fragment's k, so a thread's four
-// values are one 8-byte load). The strips hold bf16 (half the bytes of a
-// float32 row; stride C + 16, or C when C is an odd multiple of 16, so a
-// half warp's 8-byte loads hit 32 banks), and the branch sum sits in a
-// float32 strip of tb rows; the tiles follow from that (ops/fused_mrf.py::
-// tile_plan(..., dtype=torch.bfloat16)). Bound: the same operations on the
-// bf16 tensor cores (989 TFLOP/s), against 4 C bytes per sample.
+// 16, 32 or 64) replaces the same JAX kernel run on a bf16 strip
+// (_mrf_kernel, _strip_conv: fused_mrf.py:98-152) and keeps its rounding
+// points: every conv sums its bf16 products in float32 from its bf16 bias
+// and rounds the sum to bf16 once; the validity mask, the leaky ReLU
+// (slope bf16(0.1)) and y + t are taken in bf16, each rounded to nearest
+// even; the branches are summed in float32 and the sum times 1 / n_branch
+// is rounded to bf16 at the store.
+//
+// Bound: the same 252 C^2 operations per sample on the bf16 tensor cores
+// (989 TFLOP/s) against 4 C bytes per sample: the operations, by 3-14x.
+// A lone m64nCk16 runs at 40% / 66% / 99% of that rate at C = 16 / 32 /
+// 64 (scripts/exp_wgmma_rate.py).
+//
+// The design. The float32 mode's strip walk and rounds of 64-row units,
+// with bf16 wgmma m64nCk16 products whose operands are both in shared
+// memory: the strips are [C / 8][rows][8] planes (8 x 16-byte core
+// matrices, the no-swizzle K-major layout; planes strip_rows apart, 4 mod
+// 8), so a tap's row shift is a descriptor 16 bytes further on, and no
+// thread loads, converts or holds A. B is a one-tap slab, [C / 8][C][8]
+// (ops/fused_mrf.py::kernel_weights of bf16 weights).
+// - Waits. Each conv's sums stay in the wgmma accumulators through all its
+//   taps, from the bias: no partial sums and no float32 adds. A warpgroup
+//   waits for its products only one tap behind, to free that tap's weight
+//   slot, and before the conv's epilogue. A tap's rounds are issued
+//   straight-line (one block-uniform test per tap picks how many): ptxas
+//   serializes wgmmas around a branch between them.
+// - Barriers. None per slab. The weights arrive by bulk async copies that
+//   one thread issues (a predicate, not a branch) into slots with a full
+//   and an empty mbarrier each: a ring of 8 at C = 64 and 12 at C = 32,
+//   filled two short of the ring ahead, each slot released by one thread
+//   of each warpgroup (a predicate again) once the warpgroup's wait has
+//   retired its products on it; at C = 16 the whole stage's 126 slabs (63
+//   KB at V1) are resident, loaded once per block. Block barriers remain
+//   only where a strip changes hands: four per pair, one per branch.
+// - Leaky ReLU. leaky(y) is written once per pair into the Z strip, which
+//   the dilated conv reads and its epilogue then overwrites with leaky(t)
+//   for the plain conv: no more shared memory than before. Leaky ReLU,
+//   the rounding and y + t run on packed pairs (mul/max/add.bf16x2), bit
+//   for bit the rounding of the float32 forms, and an epilogue loads all
+//   of a row's pairs before it stores any.
+// - Weight traffic. Every block still streams the stage's slabs from L2
+//   (at C = 64, 1008 KB per tile); the ring keeps six 8 KB copies in
+//   flight. Tiles at V1 (halo 60; tile_plan(..., dtype=torch.bfloat16)):
+//   C = 64 tb 240 (2 warpgroups x 3 units), C = 32 tb 640 (3 x 4), C = 16
+//   tb 944 (4 x 5), the strips, slots and float32 branch sum within the
+//   SM's 227 KB.
 //
 // Interface (plain C, loaded with ctypes):
 //   int fused_mrf_f32(x, wk, bias, out, B, T, C, n_branch, kernel_sizes,
@@ -107,6 +136,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "sm90.cuh"
 #include "tf32x3.cuh"
@@ -114,10 +144,16 @@
 namespace {
 
 using namespace tf32x3;
+using sm90::bulk_load_1d;
 using sm90::fence_proxy_async;
 using sm90::kNoSwizzle;
+using sm90::mbar_arrive_if;
+using sm90::mbar_fence_init;
+using sm90::mbar_init;
+using sm90::mbar_wait;
 using sm90::reg_fence;
 using sm90::sdesc;
+using sm90::smem_u32;
 using sm90::wg_commit;
 using sm90::wg_fence;
 using sm90::wg_wait;
@@ -385,84 +421,104 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ wk,
 
 constexpr float SLOPE16 = 0.10009765625f;   // bf16(0.1)
 
-// bf16 row stride (elements): C + 16, or C when C is an odd multiple of 16;
-// a half warp's 8-byte loads of rows g..g+3 then start 32 bytes apart mod
-// 128. The float32 branch-sum strip: C + 8 floats a row.
-__host__ __device__ constexpr int strip_stride16(int c) {
-  return c % 32 == 16 ? c : c + 16;
+// C = 16 holds the stage's whole weight stream (63 KB at V1) in place of
+// the ring
+__host__ __device__ constexpr bool resident16(int c) { return c == 16; }
+
+// the bf16 weight slots: a ring of 8 one-tap slabs at C = 64 (8 KB each),
+// 12 at C = 32 (2 KB), copied two short of the ring ahead; at C = 16 every
+// slab of the stage
+__host__ __device__ constexpr int slots16(int c, int n_slabs) {
+  return resident16(c) ? n_slabs : c == 64 ? 8 : 12;
 }
+
+// the bf16 weight stream's slabs: one per tap of every conv
+__host__ __device__ inline int plan_slabs(const Plan& plan) {
+  int n = 0;
+  for (int br = 0; br < plan.nb; ++br) n += 2 * plan.np[br] * plan.k[br];
+  return n;
+}
+
+// a full and an empty mbarrier per slot, padded to 128 bytes
+__host__ __device__ constexpr int barrier_bytes(int nslot) {
+  return (16 * nslot + 127) / 128 * 128;
+}
+
+// a strip plane's rows: l rounded up to 4 mod 8, so a k-step's two planes
+// start 64 bytes apart mod 128
+__host__ __device__ constexpr int strip_rows(int l) {
+  return (l + 3) / 8 * 8 + 4;
+}
+
+// the float32 branch-sum strip's row: C + 8 floats
 __host__ __device__ constexpr int sum_stride(int c) { return c + 8; }
 
-__device__ __forceinline__ float bf(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// a packed pair of bf16 (the first in the low half) and its 32 bits
+__device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
 }
-__device__ __forceinline__ __nv_bfloat16 rn(float v) {
-  return __float2bfloat16_rn(v);
+__device__ __forceinline__ __nv_bfloat162 pair2(uint32_t u) {
+  __nv_bfloat162 v;
+  memcpy(&v, &u, 4);
+  return v;
 }
-// leaky ReLU in bf16: max(v, bf16(SLOPE16 * v)), the product exact in float32
-__device__ __forceinline__ __nv_bfloat16 leaky16(__nv_bfloat16 v) {
-  const float f = bf(v);
-  return rn(fmaxf(f, bf(rn(__fmul_rn(SLOPE16, f)))));
-}
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-__device__ __forceinline__ __nv_bfloat16 lo16(uint32_t u) {
-  return __ushort_as_bfloat16(static_cast<unsigned short>(u & 0xFFFF));
-}
-__device__ __forceinline__ __nv_bfloat16 hi16(uint32_t u) {
-  return __ushort_as_bfloat16(static_cast<unsigned short>(u >> 16));
-}
+// the leaky ReLU of a packed pair of bf16, max(v, bf16(0.1) v), in two
+// instructions (mul.bf16x2, max.bf16x2): a product of two bf16 values is
+// exact in float32, so the one rounding of the packed multiply (to nearest,
+// ties to even) gives the bf16 of the float32 product, as the JAX kernel's
+// bf16 leaky ReLU does (tests/test_torch_bf16.py checks every finite bf16)
 __device__ __forceinline__ uint32_t leaky2(uint32_t u) {
-  return pack2(leaky16(lo16(u)), leaky16(hi16(u)));
+  const __nv_bfloat162 v = pair2(u);
+  return bits2(__hmax2(v, __hmul2(__float2bfloat162_rn(SLOPE16), v)));
+}
+// y + t on packed pairs, rounded once to nearest even: equal to rounding
+// the float32 sum, which is exact unless the exponents are over 15 apart,
+// and then too far from a bf16 tie for the two roundings to differ
+__device__ __forceinline__ uint32_t add2(uint32_t y, uint32_t t) {
+  return bits2(__hadd2(pair2(y), pair2(t)));
 }
 
-// wgmma m64nNk16 bf16 with A from registers (the m16n8k16 A fragment: a0 (g,
-// k 2t..2t+1), a1 (g + 8, same k), a2 (g, k 2t+8..2t+9), a3 (g + 8, same)),
-// B K-major through the descriptor, float32 d = A B + (accumulate ? d : 0)
-__device__ __forceinline__ void wgmma_bf16(float (&d)[8],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int accumulate) {
+// wgmma m64nNk16 bf16, A and B K-major in shared memory (both through
+// descriptors, no transpose), float32 d += A B
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8], uint64_t da,
+                                           uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+      : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_bf16(float (&d)[16],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int accumulate) {
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t da,
+                                           uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+      : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int accumulate) {
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -471,13 +527,52 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+      : "l"(da), "l"(db), "r"(1));
 }
 
-// one MRF stage in bf16 at C = CT (16, 32, 64): wgmma n = C, one slab per
-// tap (all C inputs, C / 16 k-steps); the walk, tiles and barriers are
-// mrf_kernel's
+// the fixed half of a K-major no-swizzle descriptor: leading and stride
+// byte offsets (the start address, in 16-byte units, is or-ed in per use)
+__device__ __forceinline__ uint64_t desc_hi(uint32_t lbo, uint32_t sbo) {
+  return (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// one tap's products for this warpgroup's first NA rounds, straight-line:
+// a is the shared address of its round-0 unit's first A row in plane 0
+// (planes `plane` bytes apart, a round NWG units further on), w the slab's
+template <int NA, int R, int N, int NWG>
+__device__ __forceinline__ void tap_products(float (&acc)[R][N / 2],
+                                             uint32_t a, uint32_t w,
+                                             uint64_t ha, uint64_t hb,
+                                             uint32_t plane) {
+#pragma unroll
+  for (int r = 0; r < NA; ++r)
+#pragma unroll
+    for (int ks = 0; ks < N / 16; ++ks)
+      wgmma_bf16(acc[r],
+                 ha | ((a + r * NWG * UNIT_ROWS * 16 + 2 * ks * plane) >> 4),
+                 hb | ((w + 2 * ks * N * 16) >> 4));
+}
+
+// tap_products for the conv's n active rounds (1 <= n <= NA): one test the
+// block agrees on per tap, none between the wgmmas
+template <int NA, int R, int N, int NWG>
+__device__ __forceinline__ void tap_rounds(int n, float (&acc)[R][N / 2],
+                                           uint32_t a, uint32_t w,
+                                           uint64_t ha, uint64_t hb,
+                                           uint32_t plane) {
+  if constexpr (NA > 1) {
+    if (n < NA) {
+      tap_rounds<NA - 1, R, N, NWG>(n, acc, a, w, ha, hb, plane);
+      return;
+    }
+  }
+  tap_products<NA, R, N, NWG>(acc, a, w, ha, hb, plane);
+}
+
+// one MRF stage in bf16 at C = CT (16, 32, 64): wgmma m64nCk16 with both
+// operands in shared memory; the strip walk and the tiles' rounds are
+// mrf_kernel's (header: the bfloat16 mode)
 template <int CT>
 __global__ void __launch_bounds__(128 * warpgroups(CT), 1)
 mrf_kernel_bf16(const __nv_bfloat16* __restrict__ x,
@@ -486,19 +581,26 @@ mrf_kernel_bf16(const __nv_bfloat16* __restrict__ x,
                 __nv_bfloat16* __restrict__ out, int T,
                 const __grid_constant__ Plan plan) {
   constexpr int C = CT, N = CT;
-  constexpr int KS = C / 16;           // k-steps per slab
   constexpr int NWG = warpgroups(CT);
   constexpr int THREADS = 128 * NWG;
   constexpr int R = rounds(CT);
-  constexpr int S = strip_stride16(C);
   constexpr int SM = sum_stride(C);
   constexpr int slab = C * C;          // bf16 elements: one tap
-  const int H = plan.halo, tb = plan.tb, L = tb + 2 * H;
+  constexpr int c8 = C / 8;            // 8-channel planes of a strip
+  const int H = plan.halo, tb = plan.tb, L = strip_rows(tb + 2 * H);
+  const int n_slabs = plan_slabs(plan);
+  // resident: every slab its own slot, all issued at once, none reused
+  const int nslot = slots16(C, n_slabs);
+  const int lead = resident16(C) ? n_slabs : nslot - 2;
   extern __shared__ __align__(128) unsigned char smem16[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem16);
-  __nv_bfloat16* Y = ring + NS * slab;         // the branch state y
-  __nv_bfloat16* LT = Y + L * S;               // leaky(dilated conv output)
-  float* M = reinterpret_cast<float*>(LT + L * S);   // branch sum, tb rows
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem16);   // slab landed
+  uint64_t* empty = full + nslot;      // every warpgroup done with the slot
+  __nv_bfloat16* ring =
+      reinterpret_cast<__nv_bfloat16*>(smem16 + barrier_bytes(nslot));
+  // the strips: [C / 8][L][8], row r's channels 8q..8q+7 at (q L + r) 8
+  __nv_bfloat16* Y = ring + nslot * slab;      // the branch state y
+  __nv_bfloat16* Z = Y + L * C;     // leaky(y), then leaky(dilated conv)
+  float* M = reinterpret_cast<float*>(Z + L * C);   // branch sum, tb rows
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wl = warp & 3;
@@ -507,122 +609,144 @@ mrf_kernel_bf16(const __nv_bfloat16* __restrict__ x,
   const int g0 = blockIdx.x * tb - H;
   const __nv_bfloat16* xb = x + static_cast<size_t>(b) * T * C;
   __nv_bfloat16* ob = out + static_cast<size_t>(b) * T * C;
-  constexpr int c8 = C / 8;            // 16-byte pieces of a row
 
-  int n_slabs = 0;
-  for (int br = 0; br < plan.nb; ++br) n_slabs += 2 * plan.np[br] * plan.k[br];
-  auto issue = [&](int s) {
-    if (s < n_slabs) {
-      const __nv_bfloat16* src = wk + static_cast<size_t>(s) * slab;
-      __nv_bfloat16* dst = ring + (s % NS) * slab;
-      for (int idx = tid; idx < slab / 8; idx += THREADS)
-        cp_async16(reinterpret_cast<float*>(dst + 8 * idx),
-                   reinterpret_cast<const float*>(src + 8 * idx), true);
-    }
-    cp_async_commit();
+  for (int j = tid; j < nslot; j += THREADS) {
+    mbar_init(full + j, 1);
+    if (!resident16(C)) mbar_init(empty + j, NWG);
+  }
+  mbar_fence_init();
+  __syncthreads();
+  // the first `lead` slabs, before any product is in flight
+  if (tid == 0)
+    for (int j = 0; j < lead; ++j)
+      bulk_load_1d(ring + j * slab, wk + static_cast<size_t>(j) * slab,
+                   2 * slab, full + j, true);
+  // then the next slab q into slot qs (its use qp-th mod 2), once every
+  // warpgroup has released the slot's previous slab q - nslot: all threads
+  // wait, thread 0 copies (the test a predicate, so no divergent path sits
+  // among the wgmmas)
+  int q = lead, qs = lead % nslot;
+  uint32_t qp = (lead / nslot) & 1;
+  auto issue = [&]() {
+    if (q >= n_slabs) return;
+    mbar_wait(empty + qs, qp ^ 1);
+    bulk_load_1d(ring + qs * slab, wk + static_cast<size_t>(q) * slab,
+                 2 * slab, full + qs, tid == 0);
+    ++q;
+    if (++qs == nslot) qs = 0, qp ^= 1;
   };
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) issue(s);
+  // one thread of each warpgroup releases its slots
+  const bool releaser = (tid & 127) == 0;
+  const uint32_t z_s = smem_u32(Z), ring_s = smem_u32(ring);
+  const uint64_t ha = desc_hi(L * 16, 128), hb = desc_hi(C * 16, 128);
 
   float acc[R][N / 2];
-  int s = 0;
-  int boff = 0;
+  int ss = 0;         // the slot of the slab in use, across convs and
+  uint32_t sp = 0;    // branches, and its use mod 2
+  int boff = 0;       // bias offset of the current conv
   for (int br = 0; br < plan.nb; ++br) {
     const int K = plan.k[br];
     int rem = 0;
     for (int p = 0; p < plan.np[br]; ++p)
       rem += (K - 1) * plan.d[br][p] / 2 + (K - 1) / 2;
 
+    // the rows this branch needs, [H - rem, H + tb + rem), from x (zero
+    // outside [0, T)); the barrier first: the previous branch's last
+    // epilogue may still be updating Y
     __syncthreads();
     {
       const int lo = H - rem, n = tb + 2 * rem;
       for (int idx = tid; idx < n * c8; idx += THREADS) {
-        const int r = lo + idx / c8, q = idx % c8;
+        const int r = lo + idx / c8, pc = idx % c8;
         const int tt = g0 + r;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
         if (tt >= 0 && tt < T)
           v = __ldg(reinterpret_cast<const uint4*>(
-                        xb + static_cast<size_t>(tt) * C) + q);
-        *reinterpret_cast<uint4*>(Y + r * S + 8 * q) = v;
+                        xb + static_cast<size_t>(tt) * C) + pc);
+        *reinterpret_cast<uint4*>(Y + (pc * L + r) * 8) = v;
       }
     }
 
     for (int p = 0; p < plan.np[br]; ++p) {
       const int d = plan.d[br][p];
       const int p1 = (K - 1) * d / 2, p2 = (K - 1) / 2;
+      // Z = leaky(y) on the rows the dilated conv reads, [H - rem, H + tb +
+      // rem), once per pair; y is written, and the last conv's products no
+      // longer read Z
+      __syncthreads();
+      for (int r = H - rem + tid; r < H + tb + rem; r += THREADS) {
+        uint4 v[c8];      // a row: all its loads, then its stores
+#pragma unroll
+        for (int pc = 0; pc < c8; ++pc)
+          v[pc] = *reinterpret_cast<const uint4*>(Y + (pc * L + r) * 8);
+#pragma unroll
+        for (int pc = 0; pc < c8; ++pc)
+          *reinterpret_cast<uint4*>(Z + (pc * L + r) * 8) =
+              make_uint4(leaky2(v[pc].x), leaky2(v[pc].y), leaky2(v[pc].z),
+                         leaky2(v[pc].w));
+      }
+      fence_proxy_async();   // the generic stores, visible to the wgmmas
+      __syncthreads();
 #pragma unroll 1
       for (int cv = 0; cv < 2; ++cv) {
         const int dil = cv ? 1 : d, pad = cv ? p2 : p1;
         if (cv) rem -= p1 + p2;
         const int lo = cv ? H - rem : H - rem + p1;
         const int hi = cv ? H + tb + rem : H + tb + rem - p1;
-        const __nv_bfloat16* src = cv ? LT : Y;
         // every unit's sum starts at the bias (bf16, exact in float32)
 #pragma unroll
         for (int i = 0; i < N / 2; i += 2) {
           const int co = 8 * (i / 4) + 2 * t;
-          const float b0 = bf(bias[boff + co]);
-          const float b1 = bf(bias[boff + co + 1]);
+          const float b0 = __bfloat162float(bias[boff + co]);
+          const float b1 = __bfloat162float(bias[boff + co + 1]);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             acc[r][i] = b0;
             acc[r][i + 1] = b1;
           }
         }
-        for (int tap = 0; tap < K; ++tap, ++s) {
-          const int shift = tap * dil - pad;
-          cp_async_wait<NS - 2>();
-          fence_proxy_async();
-          __syncthreads();
-          issue(s + NS - 1);
-          const __nv_bfloat16* ws = ring + (s % NS) * slab;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            if (lo + r * NWG * UNIT_ROWS >= hi) continue;
-            const int m0 = lo + (wg + r * NWG) * UNIT_ROWS;
-            const int ra = min(m0 + 16 * wl + g, hi - 1);
-            const int rb = min(m0 + 16 * wl + g + 8, hi - 1);
-            const __nv_bfloat16* pa = src + (ra + shift) * S + 4 * t;
-            const __nv_bfloat16* pb = src + (rb + shift) * S + 4 * t;
-            uint32_t a[KS][4];
-#pragma unroll
-            for (int ks = 0; ks < KS; ++ks) {
-              // channels 16 ks + 4t .. 4t + 3: logical k 2t, 2t + 1 (a0,
-              // a1) and 2t + 8, 2t + 9 (a2, a3) of the k-step
-              uint2 x0 = *reinterpret_cast<const uint2*>(pa + 16 * ks);
-              uint2 x1 = *reinterpret_cast<const uint2*>(pb + 16 * ks);
-              if (cv == 0) {
-                x0 = make_uint2(leaky2(x0.x), leaky2(x0.y));
-                x1 = make_uint2(leaky2(x1.x), leaky2(x1.y));
-              }
-              a[ks][0] = x0.x;
-              a[ks][1] = x1.x;
-              a[ks][2] = x0.y;
-              a[ks][3] = x1.y;
-            }
-            float part[N / 2];
-            wg_fence();
-#pragma unroll
-            for (int ks = 0; ks < KS; ++ks) {
-              // k-step ks: 16-byte k groups 2ks, 2ks + 1 of [C / 8][C][8]
-              const uint64_t db =
-                  sdesc(ws + 2 * ks * C * 8, C * 16, 128, kNoSwizzle);
-              wgmma_bf16(part, a[ks], db, ks > 0);
-            }
-            wg_commit();
-            wg_wait<0>();
-            reg_fence(part);
-#pragma unroll
-            for (int i = 0; i < N / 2; ++i) acc[r][i] += part[i];
-          }
+        // a round (one unit per warpgroup) runs while its first unit has
+        // rows, so n rounds, a number the whole block agrees on (ptxas
+        // serializes wgmmas on a divergent path); a later warpgroup's unit
+        // past hi reads rows past the conv's, whose sums are not stored
+        const int n = min(R, (hi - lo + NWG * UNIT_ROWS - 1) /
+                                 (NWG * UNIT_ROWS));
+        const uint32_t a0 = z_s + (lo + wg * UNIT_ROWS) * 16;
+        wg_fence();
+        int prev = 0;
+#pragma unroll 1
+        for (int tap = 0; tap < K; ++tap) {
+          // the slab `lead` ahead; its slot's last reader, the slab two
+          // before this one, was released at the end of the previous tap
+          if (!resident16(C)) issue();
+          mbar_wait(full + ss, sp);
+          // k-step ks: planes 2ks, 2ks + 1 of Z from row m0 + shift; the
+          // slab's 16-byte k groups 2ks, 2ks + 1 ([C / 8][C][8])
+          tap_rounds<R, R, N, NWG>(n, acc, a0 + (tap * dil - pad) * 16,
+                                   ring_s + ss * slab * 2, ha, hb, L * 16);
+          wg_commit();
+          wg_wait<1>();   // the previous tap's products are done
+          if (!resident16(C) && tap > 0)
+            mbar_arrive_if(empty + prev, releaser);
+          prev = ss;
+          if (++ss == nslot) ss = 0, sp ^= 1;
         }
+        wg_wait<0>();
+#pragma unroll
+        for (int r = 0; r < R; ++r) reg_fence(acc[r]);
+        if (!resident16(C)) mbar_arrive_if(empty + prev, releaser);
         boff += C;
+        // the dilated conv's epilogue overwrites Z: every warpgroup's
+        // products must be done reading it
+        if (cv == 0) __syncthreads();
 
-        // epilogue: t = bf16(sum), zero outside [0, T); the dilated conv
-        // stores leaky(t) in LT; the plain one sets y = bf16(y + t) and, on
-        // the branch's last pair, adds y to the float32 sum, which the last
-        // branch scales and stores
+        // epilogue, on packed pairs of bf16: t = bf16(sum), zero outside
+        // [0, T); the dilated conv stores leaky(t) in Z; the plain one sets
+        // y = bf16(y + t) (add.bf16x2 rounds the exact sum once, as
+        // rounding its float32 sum does) and, on the branch's last pair,
+        // adds y to the float32 sum, which the last branch scales and stores
         const bool last = cv == 1 && p == plan.np[br] - 1;
+        const bool store = last && br == plan.nb - 1;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const int m0 = lo + (wg + r * NWG) * UNIT_ROWS;
@@ -633,53 +757,79 @@ mrf_kernel_bf16(const __nv_bfloat16* __restrict__ x,
             if (row >= hi) continue;
             const int tt = g0 + row;
             const bool valid = tt >= 0 && tt < T;
+            const uint32_t keep = valid ? 0xFFFFFFFFu : 0u;
+            // the row's N / 8 pairs: j holds channels 8j + 2t, 8j + 2t + 1
+            // (accumulators 2h + 4j, 2h + 4j + 1), in plane j of the strip
+            constexpr int NP = N / 8;
+            uint32_t* zr = reinterpret_cast<uint32_t*>((cv ? Y : Z) +
+                                                       row * 8 + 2 * t);
+            uint32_t v[NP];
 #pragma unroll
-            for (int i = 2 * h; i < N / 2; i += 4) {
-              const int co = 8 * (i / 4) + 2 * t;
-              const __nv_bfloat16 v0 = rn(valid ? acc[r][i] : 0.f);
-              const __nv_bfloat16 v1 = rn(valid ? acc[r][i + 1] : 0.f);
-              uint32_t* yp = reinterpret_cast<uint32_t*>(
-                  (cv ? Y : LT) + row * S + co);
-              if (cv == 0) {
-                *yp = pack2(leaky16(v0), leaky16(v1));
+            for (int j = 0; j < NP; ++j)
+              v[j] = bits2(__floats2bfloat162_rn(acc[r][2 * h + 4 * j],
+                                                 acc[r][2 * h + 4 * j + 1])) &
+                     keep;
+            if (cv == 0) {
+#pragma unroll
+              for (int j = 0; j < NP; ++j) zr[j * L * 4] = leaky2(v[j]);
+              continue;
+            }
+            // every load before the stores: the compiler cannot tell the
+            // pairs apart and would wait out each load's latency in turn
+            uint32_t y[NP];
+#pragma unroll
+            for (int j = 0; j < NP; ++j) y[j] = zr[j * L * 4];
+#pragma unroll
+            for (int j = 0; j < NP; ++j) {
+              y[j] = add2(y[j], v[j]);
+              zr[j * L * 4] = y[j];
+            }
+            if (!(last && valid)) continue;   // rows [H, H + tb)
+            float2* mr =
+                reinterpret_cast<float2*>(M + (row - H) * SM + 2 * t);
+            float2 m[NP];
+#pragma unroll
+            for (int j = 0; j < NP; ++j) {
+              m[j] = make_float2(__uint_as_float(y[j] << 16),
+                                 __uint_as_float(y[j] & 0xFFFF0000u));
+              if (br > 0) {
+                const float2 prev = mr[4 * j];
+                m[j].x = __fadd_rn(prev.x, m[j].x);
+                m[j].y = __fadd_rn(prev.y, m[j].y);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < NP; ++j) {
+              if (store) {
+                const float inv = 1.0f / plan.nb;
+                *reinterpret_cast<uint32_t*>(
+                    ob + static_cast<size_t>(tt) * C + 8 * j + 2 * t) =
+                    bits2(__floats2bfloat162_rn(__fmul_rn(m[j].x, inv),
+                                                __fmul_rn(m[j].y, inv)));
               } else {
-                const uint32_t y = *yp;
-                const __nv_bfloat16 y0 = rn(__fadd_rn(bf(lo16(y)), bf(v0)));
-                const __nv_bfloat16 y1 = rn(__fadd_rn(bf(hi16(y)), bf(v1)));
-                *yp = pack2(y0, y1);
-                if (last && valid) {   // rows [H, H + tb) by construction
-                  float2* mp = reinterpret_cast<float2*>(
-                      M + (row - H) * SM + co);
-                  float2 m = make_float2(bf(y0), bf(y1));
-                  if (br > 0) {
-                    const float2 prev = *mp;
-                    m.x = __fadd_rn(prev.x, m.x);
-                    m.y = __fadd_rn(prev.y, m.y);
-                  }
-                  if (br == plan.nb - 1) {
-                    const float inv = 1.0f / plan.nb;
-                    *reinterpret_cast<uint32_t*>(
-                        ob + static_cast<size_t>(tt) * C + co) =
-                        pack2(rn(__fmul_rn(m.x, inv)),
-                              rn(__fmul_rn(m.y, inv)));
-                  } else {
-                    *mp = m;
-                  }
-                }
+                mr[4 * j] = m[j];
               }
             }
           }
         }
+        if (cv == 0) {      // leaky(t) in Z, for the plain conv's products
+          fence_proxy_async();
+          __syncthreads();
+        }
       }
     }
   }
-  cp_async_wait<0>();
 }
 
-size_t smem_bytes_bf16(int tb, int halo, int C) {
-  return 2 * (2 * static_cast<size_t>(tb + 2 * halo) * strip_stride16(C) +
-              static_cast<size_t>(NS) * C * C) +
-         4 * static_cast<size_t>(tb) * sum_stride(C);
+// shared memory of a bf16 launch: the barriers, the weight slots, the two
+// strips, the branch sum, and room past them for the rows a last round's
+// unit reads past its conv's
+size_t smem_bytes_bf16(int tb, int halo, int C, int n_slabs) {
+  const int nslot = slots16(C, n_slabs);
+  return barrier_bytes(nslot) + 2 * static_cast<size_t>(nslot) * C * C +
+         2 * 2 * static_cast<size_t>(strip_rows(tb + 2 * halo)) * C +
+         4 * static_cast<size_t>(tb) * sum_stride(C) +
+         16 * UNIT_ROWS * warpgroups(C);
 }
 
 template <int CT>
@@ -689,7 +839,8 @@ int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wk,
   const int rows = plan.tb + 2 * plan.halo;
   if ((rows + UNIT_ROWS - 1) / UNIT_ROWS > warpgroups(CT) * rounds(CT))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_bytes_bf16(plan.tb, plan.halo, CT);
+  const size_t bytes =
+      smem_bytes_bf16(plan.tb, plan.halo, CT, plan_slabs(plan));
   cudaError_t err = cudaFuncSetAttribute(
       mrf_kernel_bf16<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -786,7 +937,7 @@ extern "C" int fused_mrf_bf16(const void* x, const void* wk, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
   if (!make_plan(plan, n_branch, kernel_sizes, n_pairs, dilations, halo, tb) ||
-      smem_bytes_bf16(tb, halo, C) > SMEM_MAX)
+      smem_bytes_bf16(tb, halo, C, plan_slabs(plan)) > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const __nv_bfloat16*>(wk);

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the int8 kernels: mbarriers,
-// TMA tile loads and stores, named barriers, register reallocation, wgmma
-// shared-memory descriptors and the wgmma instructions those kernels issue,
-// and the tensor-map encoder. Header-only; every function is inline, so each
+// Hopper (sm_90a) building blocks shared by the int8 kernels and the fused
+// MRF kernel: mbarriers, TMA tile loads and stores, 1-D bulk copies, named
+// barriers, register reallocation, wgmma shared-memory descriptors and the
+// wgmma instructions the int8 kernels issue, and the tensor-map encoder. Header-only; every function is inline, so each
 // source that includes it compiles its own copy. core/kernels.py hashes this
 // header with every source that includes it, so an edit rebuilds them.
 
@@ -44,6 +44,15 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                :: "r"(smem_u32(bar)) : "memory");
 }
 
+// mbar_arrive where `arrive`, predicated rather than branched: no divergent
+// path then sits among a warpgroup's wgmmas (ptxas serializes them there)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool arrive) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+               "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+               :: "r"(smem_u32(bar)), "r"(static_cast<int>(arrive))
+               : "memory");
+}
+
 // wait for the completion of the barrier's phase with this parity (the
 // parity of the phase before the first returns at once); a phase that never
 // completes traps (an error for the caller) instead of hanging the card
@@ -72,6 +81,25 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// where `issue`: arrive on `bar` expecting `bytes`, and copy that many
+// contiguous bytes (a multiple of 16; both addresses 16-byte aligned) from
+// global into shared memory by the async proxy, completing on `bar`.
+// Predicated, not branched: every thread of a warpgroup may call it with
+// one `issue` true, and no divergent path then sits among the warpgroup's
+// wgmmas (ptxas serializes them around one)
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar,
+                                             bool issue) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n}\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar)), "r"(static_cast<int>(issue))
       : "memory");
 }
 

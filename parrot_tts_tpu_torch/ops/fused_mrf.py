@@ -18,14 +18,16 @@ back, and unlike the JAX `mrf_fused` the kernel takes any T.
 `FUSED_MRF.launches` counts kernel launches.
 
 In bfloat16 (x, w and b bf16: the bf16 vocoder) the kernel's bf16 mode
-runs (bf16 wgmma; C = 16, 32 or 64) and the plain version follows the JAX
-kernel's rounding points on a bf16 strip: each conv sums in float32 from
-its bf16 bias and is rounded to bf16 once, the leaky ReLU (bf16(0.1)) and
-y + t are taken in bf16, and the branches are summed in float32 and the
-mean rounded to bf16. That differs from the unfused bf16 composition,
-which rounds each conv before its bias and averages in bf16, as the JAX
-package's two routes differ. `kernel_weights` of bf16 weights lays out
-one slab per tap ([C / 8][C][8], k permuted for the bf16 A fragment).
+runs (bf16 wgmma, both operands in shared memory; C = 16, 32 or 64) and
+the plain version follows the JAX kernel's rounding points on a bf16
+strip: each conv sums in float32 from its bf16 bias and is rounded to
+bf16 once, the leaky ReLU (bf16(0.1)) and y + t are taken in bf16, and the
+branches are summed in float32 and the mean rounded to bf16. That differs
+from the unfused bf16 composition, which rounds each conv before its bias
+and averages in bf16, as the JAX package's two routes differ.
+`kernel_weights` of bf16 weights lays out one slab per tap ([C / 8][C][8]),
+which the kernel copies into a ring of slots, or holds whole at C = 16
+(`tile_plan`'s `ring_slots` and `resident`).
 """
 
 from __future__ import annotations
@@ -47,6 +49,10 @@ CHANNEL_QUANTUM = 8        # the wgmma's n and k: channels come in eights
 MAX_CHANNELS = 120         # the fused route takes stages below 128 channels
 UNIT_ROWS = 64             # csrc/fused_mrf.cu UNIT_ROWS: a warpgroup's unit
 RING_SLOTS = 2             # csrc/fused_mrf.cu NS
+RING_SLOTS_BF16 = {64: 8, 32: 12}   # csrc/fused_mrf.cu slots16: the bf16
+                                    # mode's ring at each width
+RESIDENT_BF16 = (16,)      # csrc/fused_mrf.cu resident16: bf16 widths whose
+                           # whole weight stream stays in shared memory
 SMEM_BYTES = 232448        # shared memory a block may take on Hopper
 H100_SMS = 132
 _MAX_GRID_Y = 65535
@@ -102,8 +108,10 @@ class MRFTile:
     block on a strip of tb + 2 * halo rows, the strips' row stride
     (floats), the shared memory and the recompute factor (rows the convs
     compute, in whole rounds, over n_convs * tb); `dtype` the kernel's
-    mode (in bfloat16 the strips hold bf16, the stride is in bf16
-    elements, and a float32 strip of tb rows holds the branch sum)."""
+    mode (in bfloat16 the strips hold bf16 in [C / 8][rows][8] planes, a
+    row's C elements, and a float32 strip of tb rows holds the branch
+    sum); `ring_slots` the weight slabs shared memory holds at once, all
+    of the stage's when `resident`."""
 
     channels: int
     halo: int
@@ -115,6 +123,8 @@ class MRFTile:
     smem_bytes: int
     recompute: float
     dtype: torch.dtype = torch.float32
+    ring_slots: int = RING_SLOTS
+    resident: bool = False
 
     @property
     def k_chunk(self) -> int:
@@ -147,24 +157,42 @@ def _strip_stride(c: int) -> int:
     return c + 8 if c % 16 == 0 else c + 16
 
 
-def _strip_stride16(c: int) -> int:
-    """csrc/fused_mrf.cu strip_stride16: C + 16, or C at an odd multiple
-    of 16, so a half warp's 8-byte loads of four rows hit 32 banks."""
-    return c if c % 32 == 16 else c + 16
+def _n_slabs(plan: MRFPlan) -> int:
+    """The bf16 weight stream's slabs: one per tap of every conv."""
+    return 2 * sum(k * len(d)
+                   for k, d in zip(plan.kernel_sizes, plan.dilations))
 
 
-def _smem_bf16(c: int, tb: int, halo: int) -> int:
-    """csrc/fused_mrf.cu smem_bytes_bf16: two bf16 strips, the ring of
-    two one-tap slabs, the float32 branch sum of tb rows of C + 8."""
-    return (2 * (2 * (tb + 2 * halo) * _strip_stride16(c)
-                 + RING_SLOTS * c * c) + 4 * tb * (c + 8))
+def _slots_bf16(c: int, slabs: int) -> int:
+    """Weight slots in shared memory: the whole stream at a resident
+    width, else the ring."""
+    return slabs if c in RESIDENT_BF16 else RING_SLOTS_BF16[c]
 
 
-def _tb_max_bf16(c: int, halo: int) -> int:
+def _strip_rows(rows: int) -> int:
+    """csrc/fused_mrf.cu strip_rows: a bf16 strip plane's rows, rounded
+    up to 4 mod 8."""
+    return (rows + 3) // 8 * 8 + 4
+
+
+def _smem_bf16(c: int, tb: int, halo: int, slabs: int) -> int:
+    """csrc/fused_mrf.cu smem_bytes_bf16: a full and an empty mbarrier per
+    weight slot (padded to 128 bytes), the slots of one-tap slabs, two bf16
+    strips ([C / 8][rows][8], tb + 2 * halo rows rounded up to 4 mod 8),
+    the float32 branch sum of tb rows of C + 8, and 16 bytes a row for one
+    unit per warpgroup (a last round's unit reads that far past the
+    strips)."""
+    nslot = _slots_bf16(c, slabs)
+    return (-(-16 * nslot // 128) * 128 + 2 * nslot * c * c
+            + 2 * 2 * _strip_rows(tb + 2 * halo) * c + 4 * tb * (c + 8)
+            + 16 * UNIT_ROWS * _warpgroups(c))
+
+
+def _tb_max_bf16(c: int, halo: int, slabs: int) -> int:
     """The longest bf16 tile (a multiple of 16): its strips within the
     warpgroups' rounds of units and within shared memory."""
     tb = (UNIT_ROWS * _warpgroups(c) * _rounds(c) - 2 * halo) // 16 * 16
-    while tb >= 16 and _smem_bf16(c, tb, halo) > SMEM_BYTES:
+    while tb >= 16 and _smem_bf16(c, tb, halo, slabs) > SMEM_BYTES:
         tb -= 16
     return tb
 
@@ -212,13 +240,14 @@ def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
     units), a launch of shape = (B, T) as its waves of blocks (one block
     per SM) times a block's; with no shape, the least work per output row.
     No tb below 2 * halo where a longer one fits: every block streams the
-    stage's weights and waits at a barrier per slab, which the rows do not
-    count. Raises ValueError when no tile of 16 rows fits (a halo too long
-    for the strips). dtype: the kernel's mode (bfloat16: bf16 strips and
-    the float32 branch-sum strip, `_smem_bf16`)."""
+    stage's weights (in float32 with a barrier per slab), which the rows do
+    not count. Raises ValueError when no tile of 16 rows fits (a halo too
+    long for the strips). dtype: the kernel's mode (bfloat16: bf16 strips,
+    the weight slots and the float32 branch-sum strip, `_smem_bf16`)."""
     c, halo = plan.channels, plan.halo
     bf16 = dtype == torch.bfloat16
-    tb_max = (_tb_max_bf16(c, halo) if bf16
+    slabs = _n_slabs(plan)
+    tb_max = (_tb_max_bf16(c, halo, slabs) if bf16
               else (max_strip_rows(c) - 2 * halo) // 16 * 16)
     if tb_max < 16:
         raise ValueError(f"mrf_fused: a halo of {halo} rows leaves no room "
@@ -234,16 +263,17 @@ def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
     tb = min(range(floor, tb_max + 1, 16), key=cost)
     n = c if bf16 else _wgmma_n(c)
     n_convs = 2 * sum(len(d) for d in plan.dilations)
-    smem = (_smem_bf16(c, tb, halo) if bf16
+    smem = (_smem_bf16(c, tb, halo, slabs) if bf16
             else 4 * (2 * (tb + 2 * halo) * _strip_stride(c)
                       + RING_SLOTS * 2 * min(n, 32) * c))
     return MRFTile(channels=c, halo=halo, tb=tb, wgmma_n=n,
                    warpgroups=_warpgroups(c), rounds=_rounds(c),
-                   strip_stride=_strip_stride16(c) if bf16
-                   else _strip_stride(c),
+                   strip_stride=c if bf16 else _strip_stride(c),
                    smem_bytes=smem,
                    recompute=_rows_computed(plan, tb) / (n_convs * tb),
-                   dtype=dtype)
+                   dtype=dtype,
+                   ring_slots=_slots_bf16(c, slabs) if bf16 else RING_SLOTS,
+                   resident=bf16 and c in RESIDENT_BF16)
 
 
 def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -255,9 +285,6 @@ def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 _K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)   # element k of an 8-wide k-step
-# element k of a 16-wide bf16 k-step: thread t's a0 (k 2t, 2t + 1) and a2
-# (k 2t + 8, 2t + 9) are channels 4t .. 4t + 3, one 8-byte load
-_K_ORDER16 = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
 
 
 def kernel_weights(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
@@ -266,8 +293,9 @@ def kernel_weights(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
     TF32 hi half, then its lo half, each K-major [k_chunk / 4][Co][4] (the
     wgmma's no-swizzle layout), the input channels of every 8 in the order
     _K_ORDER (the A fragment's: k t holds channel 2t, k t + 4 channel
-    2t + 1). For bfloat16 w, one bf16 slab per tap: K-major [C / 8][C][8],
-    the input channels of every 16 in the order _K_ORDER16."""
+    2t + 1). For bfloat16 w, one bf16 slab per tap: K-major [C / 8][C][8]
+    (input channel 8q + j of output channel co at [q][co][j]), the order in
+    which the strips' [C / 8][rows][8] planes give the A operand its k."""
     c = plan.channels
     if w.dtype == torch.bfloat16:
         return _kernel_weights_bf16(w, plan)
@@ -291,16 +319,9 @@ def _kernel_weights_bf16(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
     if c % 16:
         raise ValueError(f"mrf_fused: {c} channels; the bf16 kernel takes "
                          f"{BF16_CHANNELS}")
-    order = torch.tensor(_K_ORDER16)
-    slabs, off = [], 0
-    for k, dils in zip(plan.kernel_sizes, plan.dilations):
-        for _ in range(2 * len(dils)):
-            kern = w[off:off + k * c * c].reshape(k, c, c)      # [tap][ci][co]
-            off += k * c * c
-            kt = kern.transpose(1, 2).reshape(k, c, c // 16, 16)[..., order]
-            # [tap][c / 8][co][8]
-            slabs.append(kt.reshape(k, c, c // 8, 8).permute(0, 2, 1, 3))
-    return torch.cat([x.reshape(-1) for x in slabs]).contiguous()
+    # [tap][ci][co] of every conv, in pack order -> [tap][ci / 8][co][8]
+    kern = w.reshape(-1, c // 8, 8, c)
+    return kern.permute(0, 1, 3, 2).contiguous().reshape(-1)
 
 
 def _unpack(w: torch.Tensor, b: torch.Tensor, plan: MRFPlan):

@@ -108,6 +108,28 @@ def test_leaky_relu_bf16_is_jax_bit_for_bit(rng, slope):
     assert (f32(F.leaky_relu(t, slope)) != want).mean() > 0.05
 
 
+def test_packed_leaky_relu_is_the_ports_on_every_finite_bf16():
+    """Row 6's bf16 mode takes the leaky ReLU on packed pairs
+    (csrc/fused_mrf.cu::leaky2: mul.bf16x2 by bf16(0.1), one rounding to
+    nearest even, then max.bf16x2). Modelled here in integers on every
+    finite bf16 value: the float32 product of two bf16 is exact, its bits
+    rounded to bf16 (ties to even), then the larger of v and it; equal to
+    `activation.leaky_relu` bit for bit, signed zeros and subnormals
+    included."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32)
+    v = bits.to(torch.int16).view(BF16)
+    v = v[torch.isfinite(v.float())]
+    prod = v.float() * activation.bf16_slope(0.1)
+    assert torch.equal(prod.double(),
+                       v.double() * activation.bf16_slope(0.1))
+    u = prod.view(torch.int32)
+    rne = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).to(torch.int16).view(BF16)
+    packed = torch.where(v.float() >= rne.float(), v, rne)
+    want = activation.leaky_relu(v, 0.1)
+    assert v.numel() == 2 ** 16 - 2 ** 8      # all but infs and NaNs
+    assert torch.equal(packed.view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.parametrize("k,d,pads,ci,co,leaky", [
     (3, 1, (1, 1), 32, 32, 0.1), (7, 3, (9, 9), 32, 32, None),
     (11, 5, (25, 25), 16, 16, 0.1), (2, 1, (1, 0), 64, 128, None)])
@@ -151,15 +173,19 @@ def test_mrf_reference_bf16_matches_jax_fused_kernel(rng, g, channels, t):
 
 
 def test_bf16_fragment_order_is_the_kernels():
-    """csrc/fused_mrf.cu's bf16 A fragment: thread t loads channels 4t ..
-    4t + 3 of a 16-channel k-step in one 8-byte load and gives them to a0
-    (logical k 2t, 2t + 1) and a2 (k 2t + 8, 2t + 9); `kernel_weights`
-    puts channel _K_ORDER16[k] at logical k."""
-    order = fused_mrf._K_ORDER16
-    assert sorted(order) == list(range(16))
-    for t in range(4):
-        assert [order[2 * t], order[2 * t + 1], order[2 * t + 8],
-                order[2 * t + 9]] == [4 * t, 4 * t + 1, 4 * t + 2, 4 * t + 3]
+    """csrc/fused_mrf.cu's bf16 products read A from the strips' [C / 8]
+    [rows][8] planes, so logical k of a 16-channel k-step is channel 16 ks
+    + k; `kernel_weights` puts the weight of input channel 8q + j and
+    output channel co at [tap][q][co][j], the K-major slab of the B
+    descriptor, in that same k order."""
+    c = 32
+    x, w, b, plan = _mrf_inputs(0, 1, 20, c)
+    wk = fused_mrf.kernel_weights(w, plan).reshape(-1, c // 8, c, 8)
+    taps = w.reshape(-1, c, c)                        # [tap][ci][co]
+    assert wk.shape[0] == taps.shape[0] == sum(2 * k * len(d)
+                                               for k, d in zip(KS, DS))
+    ci = torch.arange(c)
+    assert torch.equal(wk[:, ci // 8, :, ci % 8].permute(1, 0, 2), taps)
 
 
 def _mrf_inputs(seed, b, t, c):
@@ -181,13 +207,13 @@ def _mrf_inputs(seed, b, t, c):
 def emulate_bf16(x, wk, b, plan, tb):
     """csrc/fused_mrf.cu's bf16 mode on x (B, T, C), in torch: the strip
     walk of `conv_walk`, each conv's products from the bf16 weight slabs
-    `kernel_weights` streams (one tap, [C / 8][C][8], logical k ->
-    channel _K_ORDER16), summed per slab in float32 from the bias and
-    rounded to bf16; leaky and y + t in bf16; the branch sum in float32."""
+    `kernel_weights` lays out (one tap, [C / 8][C][8]), in the order the
+    kernel's wgmmas carry them: one float32 sum per conv that starts at
+    the bias and takes each tap's 16-input k-steps in turn, rounded to
+    bf16 once at the conv's end; leaky and y + t in bf16; the branch sum
+    in float32."""
     bsz, t, c = x.shape
     h, length = plan.halo, tb + 2 * plan.halo
-    order = torch.tensor(fused_mrf._K_ORDER16)
-    chan = torch.cat([16 * j + order for j in range(c // 16)])  # k -> ci
     slabs = wk.reshape(-1, c // 8, c, 8).permute(0, 1, 3, 2).reshape(-1, c, c)
     nb = len(plan.kernel_sizes)
     out = torch.full((bsz, t, c), math.nan)
@@ -207,8 +233,10 @@ def emulate_bf16(x, wk, b, plan, tb):
                 src = activation.leaky_relu(y, 0.1) if cv == 0 else lt
                 acc = b[off * c:(off + 1) * c].float().expand(bsz, hi - lo, c)
                 for tap in range(k):
-                    a = src[:, lo + tap * d - pad:hi + tap * d - pad]
-                    acc = acc + a[..., chan].float() @ slabs[s].float()
+                    a = src[:, lo + tap * d - pad:hi + tap * d - pad].float()
+                    for k0 in range(0, c, 16):
+                        acc = acc + (a[..., k0:k0 + 16]
+                                     @ slabs[s, k0:k0 + 16].float())
                     s += 1
                 tv = torch.where(valid[lo:hi, None], acc, 0.0).to(BF16)
                 if cv == 0:
@@ -240,6 +268,20 @@ def test_emulated_bf16_kernel_within_the_card_gate(b, t, c, tb):
     assert torch.isfinite(got.float()).all()
     err = float((got.float() - want.float()).abs().max())
     assert err <= MRF_ULP_RTOL * float(want.float().abs().max()), err
+
+
+def test_v1_bf16_tiles():
+    """The bf16 tiles csrc/fused_mrf.cu's header states for V1's three
+    fused stages (halo 60): (tb, warpgroups, units per warpgroup, weight
+    slots, whole stage resident, shared-memory bytes)."""
+    got = {c: fused_mrf.tile_plan(fused_mrf.MRFPlan(c, KS, DS, 60),
+                                  dtype=BF16) for c in (64, 32, 16)}
+    assert {c: (t.tb, t.warpgroups, t.rounds, t.ring_slots, t.resident,
+                t.smem_bytes) for c, t in got.items()} == {
+        64: (240, 2, 3, 8, False, 230016),
+        32: (640, 3, 4, 12, False, 228096),
+        16: (944, 4, 5, 126, True, 229632)}
+    assert all(t.smem_bytes <= fused_mrf.SMEM_BYTES for t in got.values())
 
 
 def test_mrf_fused_bf16_takes_only_the_kernels_widths():

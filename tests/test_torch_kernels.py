@@ -488,7 +488,10 @@ def test_fused_mrf_matches_plain_on_card(cuda_device, b, t, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,c", [
     (2, 5120, 64), (3, 1013, 32), (1, 20480, 16), (2, 7, 16),
-    (3, 2999, 64), (3, 4001, 32), (3, 6007, 16)])
+    (3, 2999, 64), (3, 4001, 32), (3, 6007, 16),
+    # many waves of blocks, each ending on a ragged tile: (2, 327680, 16)
+    # is a 1024-code batch's C = 16 launch
+    (5, 20000, 64), (3, 100003, 32), (2, 327680, 16)])
 def test_fused_mrf_bf16_matches_plain_on_card(cuda_device, b, t, c):
     """Row 6's bf16 mode against its bf16 plain version: both round at the
     JAX kernel's points and sum in float32 in another order, so an element
@@ -508,6 +511,23 @@ def test_fused_mrf_bf16_matches_plain_on_card(cuda_device, b, t, c):
     assert got.dtype == torch.bfloat16
     err = float((got.float() - want.float()).abs().max())
     assert err <= 2.0 ** -6 * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c", [(3, 40961, 64), (2, 81923, 32),
+                                   (3, 163843, 16)])
+def test_fused_mrf_bf16_launches_are_bit_equal_on_card(cuda_device, b, t, c):
+    """Row 6's bf16 mode gives the same bits twice: every block owns its
+    rows and sums in a fixed order (no atomics), whatever the order in
+    which the weight slabs land."""
+    rng = np.random.default_rng(c)
+    x, w, bias, plan = _mrf_inputs(rng, b, t, c, cuda_device)
+    x, w, bias = x.bfloat16(), w.bfloat16(), bias.bfloat16()
+    wk = fused_mrf.kernel_weights(w, plan)
+    first = fused_mrf.mrf_fused(x, w, bias, plan, wk=wk)
+    second = fused_mrf.mrf_fused(x, w, bias, plan, wk=wk)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # ---- rows 2-5: flash attention with dropout (ops/flash_dropout.py,
