@@ -20,13 +20,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    with a valid key, all-masked rows exactly 0; kernel, plain, bound (the
    3xTF32 tensor-core bound beside the float32 CUDA-core one) and
    scaled_dot_product_attention ms (and its max |diff|) per shape; and at
-   every shape the 1-pass TF32 mode (each operand rounded to TF32 once,
-   one mma.sync per product) against its plain version, which rounds q, k,
-   P (tile by tile, against the running row max) and v where the kernel
-   does (max |diff| <= 2^-10 max |v| + 1e-5, RMS <= 1/4 of the plain
-   version's RMS distance from IEEE, all-masked rows exactly 0), more than
-   1e-5 from the IEEE version (so it rounds), its ms, its TF32 bound and
-   SDPA's ms with TF32 allowed;
+   every shape, and at (64, 2048, 128), the 1-pass TF32 mode (its own
+   kernels: a pre-pass writes K and V^T rounded to TF32 in wgmma's tile
+   layout, bit-equal to its plain version; the kernel on wgmma, both its
+   kernels' ptxas registers printed, a spill failing the phase) against
+   its plain version, which rounds q, k, P (tile by tile, against the
+   running row max) and v where the kernel does (max |diff| <= 2^-10 max
+   |v| + 1e-5, RMS <= 1/4 of the plain version's RMS distance from IEEE,
+   all-masked rows exactly 0), more than 1e-5 from the IEEE version (so it
+   rounds), the mode's ms and each kernel's alone, the TF32 bound, the
+   pre-pass's bound and SDPA's ms with TF32 allowed;
 4. serving at full width: the default TTEModelConfig (d_model 256, 4+4 FFT
    blocks, 2 heads of 128) and V1 VocoderModelConfig with seeded weights,
    through ParrotTTS.tts twice in its default decode mode,
@@ -41,7 +44,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    each mode's counts per FFT block and decode batch: no 1-pass launch in
    exact=True and "selective-high", "selective"'s decoder blocks all
    1-pass and its encoder blocks 3xTF32, the hybrid as "selective" plus
-   its re-decode; each repeatable; TTE seconds per mode over 3 warm
+   its re-decode, one 1-pass pre-pass per 1-pass launch; each repeatable;
+   TTE seconds per mode over 3 warm
    decodes, CUDA events, beside the card's name and power limit), and each
    decode batch's logits: "selective-high" bit-equal to exact=True (near-tie
    frames counted), two decodes bit-equal, its units those of the default
@@ -224,7 +228,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    row 6's bf16 mode (bf16 wgmma) against its bf16 plain version at every
    (B, T, C) of the bf16 fused serve (max |diff| <= 2^-6 max |plain|,
    mismatched elements counted; no spill in its instantiations; kernel,
-   plain, bound and the unfused cuDNN bf16 composition's ms); row 7 with
+   plain, bound and the unfused cuDNN bf16 composition's ms), and at every
+   width it takes (8 to 120 by 8) at (2, 16387), two launches bit-equal,
+   with its ms and share of the bound; the bf16 fused vocoder at V1's
+   rates and 256 channels (fused stages 64, 32, 16, 8) on phase 4's units
+   against its bf16 unfused serve (4e-3 / 33 dB) and its float32 fused
+   serve (2e-3 / 33 dB); row 7 with
    a bf16 output against its plain version, bit for bit, at every site of
    the bf16 "int8" and "int8-tail" serves (the bf16 int8-static serve's
    int8 convs write float32, phase 6's sites), with the cuDNN bf16 conv
@@ -351,6 +360,8 @@ KERNEL_SHAPES = ([(8, t, 128) for t in (64, 128, 500, 768, 2048, 3584)]
                  + [(8, 768, 64)])
 REPORT_SHAPE = (5, 2048, 128)  # whose times go in the kernels line: the
                                # serving phase's largest decode batch
+ONE_PASS_LARGE = (64, 2048, 128)   # (B, T, d) of phase 4's full decode
+                                   # batch, "selective"'s 1-pass launches
 TEXTS = [
     "Hello there, how are you today?",
     "",
@@ -488,10 +499,11 @@ def ptxas_registers(log: str) -> dict:
     out, name = {}, None
     for line in log.splitlines():
         if "entry function" in line:
-            m = re.search(r"(flash_fwd|fwd|dq|dkv)_kernelILi(\d+)E"
-                          r"(?:Lb([01])E)?", line)
-            name = m and f"{m.group(1)}_kernel<{m.group(2)}" + (
-                {"1": ", 3xTF32", "0": ", 1-pass"}.get(m.group(3), "") + ">")
+            m = re.search(r"(flash_fwd|fwd|dq|dkv)_kernelILi(\d+)E", line)
+            name = m and f"{m.group(1)}_kernel<{m.group(2)}>"
+            m = re.search(r"one_pass\d+(attn|prep)_kernelILi(\d+)E", line)
+            if m:       # row 1's 1-pass kernel and its pre-pass, at D
+                name = f"one_pass::{m.group(1)}_kernel<{m.group(2)}>"
             m = re.search(r"mrf_kernelILi(\d+)ELi(\d+)E", line)
             if m:       # <C, wgmma n>; C = 0: a runtime-C instantiation
                 name = f"mrf_kernel<{m.group(1)}, {m.group(2)}>"
@@ -529,13 +541,101 @@ def one_pass_gate(got, want, ieee, v) -> tuple[float, ...]:
             ONE_PASS_RMS_SHARE * rms(want - ieee))
 
 
+def prep_bound_ms(b: int, h: int, t: int, d: int) -> tuple[float, str]:
+    """The 1-pass pre-pass's bound: k and v read once, the mask bytes, its
+    tiles (K, the key bias and V^T, 2 * D * BK + BK floats per 32-key tile)
+    written once; its rounding is a few operations per element."""
+    from parrot_tts_tpu_torch.ops.flash_attention import BK
+
+    tiles = b * h * -(-t // BK) * (2 * d * BK + BK)
+    return bound(2.0 * b * h * t * d, FP32_PEAK,
+                 8.0 * b * h * t * d + b * t + 4.0 * tiles)
+
+
+def one_pass_readings(fa, exact_numerics, q, k, v, mask, scale, want, keep,
+                      masked_row, reps: int) -> dict:
+    """Row 1's 1-pass mode at one shape (phase 3): the pre-pass bit-equal
+    to its plain version; the mode (pre-pass and kernel) against the plain
+    version that rounds as it does (`one_pass_gate`) and against `want`,
+    the IEEE version; all-masked rows exactly 0; ms of the mode (calls
+    back to back, as a decode makes them), of each kernel alone (queued)
+    and of the plain versions, the TF32 bound and the pre-pass's, and
+    SDPA's ms with TF32 allowed."""
+    b, h, t, d = q.shape
+    with exact_numerics(True):
+        kv = fa.one_pass_operands(k, v, mask)
+        kv_want = fa.one_pass_operands_reference(k, v, mask)
+        got = fa.flash_attention(q, k, v, mask, scale, passes=1)
+        plain = fa.flash_attention_reference(q, k, v, mask, scale, passes=1)
+        torch.cuda.synchronize()
+        if not torch.equal(kv, kv_want):
+            raise AssertionError(f"B={b} T={t} d={d}: the 1-pass pre-pass "
+                                 "differs from its plain version")
+        del kv_want
+        if masked_row is not None and not torch.equal(
+                got[masked_row], torch.zeros_like(got[masked_row])):
+            raise AssertionError(f"B={b} T={t}: 1-pass all-masked row is "
+                                 "not exactly 0")
+        err, rms, ieee, tol, rms_tol = one_pass_gate(
+            got[keep], plain[keep], want[keep], v)
+        if not (err <= tol and rms <= rms_tol and ieee > ATOL):
+            raise AssertionError(
+                f"B={b} T={t} d={d}: 1-pass against its plain version "
+                f"max |diff| {err} (<= {tol}), RMS {rms} (<= {rms_tol}); "
+                f"{ieee} from IEEE (> {ATOL})")
+        del got, plain
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask, scale,
+                                                passes=1), reps)
+        # each kernel alone, queued ahead of the device (the wrappers' host
+        # time would set a small shape's pace)
+        kernel_ms = queued_ms(lambda: fa.one_pass_attention(q, kv, scale),
+                              reps)
+        prep_ms = queued_ms(lambda: fa.one_pass_operands(k, v, mask), reps)
+        plain_reps = max(2, reps // 4)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, mask, scale, passes=1), plain_reps)
+        prep_plain_ms = cuda_ms(lambda: fa.one_pass_operands_reference(
+            k, v, mask), plain_reps)
+    attend = ~mask[:, None, None, :]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=attend, scale=scale)
+
+    with exact_numerics(False):        # SDPA with TF32 allowed
+        library_ms = cuda_ms(sdpa, reps)
+        lib_err = float((sdpa()[keep] - want[keep]).abs().max())
+    bound_ms, bound_by = attention_bound_ms(b, h, t, d)["tf32"]
+    prep_bound, prep_by = prep_bound_ms(b, h, t, d)
+    print(f"  1-pass: max|diff| {err:.3e} (<= {tol:.3e}), RMS {rms:.3e} (<= "
+          f"{rms_tol:.3e}; {rms * ONE_PASS_RMS_SHARE / rms_tol:.4f} of the "
+          f"plain version's from IEEE) against its plain version, "
+          f"{ieee:.3e} from IEEE; mode {ms:.4f} ms = pre-pass "
+          f"{prep_ms:.4f} + kernel {kernel_ms:.4f} (bound TF32 "
+          f"{bound_ms:.4f} ms, {bound_by}: {100 * bound_ms / ms:.1f}% of the "
+          f"mode, {100 * bound_ms / kernel_ms:.1f}% of the kernel); plain "
+          f"{plain_ms:.4f} ms; pre-pass bit-equal to its plain version "
+          f"({prep_plain_ms:.4f} ms), bound {prep_bound:.4f} ms ({prep_by});"
+          f" sdpa TF32 {library_ms:.4f} ms (max|diff| from IEEE "
+          f"{lib_err:.3e})")
+    return {"max_abs_err": err, "ieee_err": ieee, "ms": ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "prep": {"ms": prep_ms, "plain_ms": prep_plain_ms,
+                     "bound_ms": prep_bound, "bound_by": prep_by,
+                     "max_abs_err": 0.0}}
+
+
 def phase_kernel(fa, exact_numerics, registers: dict) -> dict:
     """Row 1 against its plain version at every KERNEL_SHAPES shape, with
     its times, bounds and SDPA's, in its 3xTF32 mode and its 1-pass mode
-    (against the plain version that rounds as it does; its distance from
-    the IEEE version; SDPA with TF32 allowed beside it). `registers`:
-    ptxas_registers of the source."""
+    (`one_pass_readings`), then the 1-pass mode alone at ONE_PASS_LARGE.
+    `registers`: ptxas_registers of the source; a spill raises."""
     print_registers(registers)
+    spilled = {k: v for k, v in registers.items() if v[1] or v[2]}
+    if spilled:
+        raise AssertionError(f"row 1's kernels spill: {spilled}")
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     rows = []
@@ -580,56 +680,46 @@ def phase_kernel(fa, exact_numerics, registers: dict) -> dict:
 
             library_ms = cuda_ms(sdpa, reps)
             lib_err = float((sdpa()[keep] - want[keep]).abs().max())
-
-            # the 1-pass TF32 mode
-            got1 = fa.flash_attention(q, k, v, mask, scale, passes=1)
-            want1 = fa.flash_attention_reference(q, k, v, mask, scale,
-                                                 passes=1)
-            torch.cuda.synchronize()
-            if masked_row is not None and not torch.equal(
-                    got1[masked_row], torch.zeros_like(got1[masked_row])):
-                raise AssertionError(f"B={b} T={t}: 1-pass all-masked row is "
-                                     "not exactly 0")
-            err1, rms1, ieee1, tol1, rms_tol = one_pass_gate(
-                got1[keep], want1[keep], want[keep], v)
-            if not (err1 <= tol1 and rms1 <= rms_tol and ieee1 > ATOL):
-                raise AssertionError(
-                    f"B={b} T={t} d={d}: 1-pass against its plain version "
-                    f"max |diff| {err1} (<= {tol1}), RMS {rms1} (<= "
-                    f"{rms_tol}); {ieee1} from IEEE (> {ATOL})")
-            ms1 = cuda_ms(lambda: fa.flash_attention(q, k, v, mask, scale,
-                                                     passes=1), reps)
-        with exact_numerics(False):        # SDPA with TF32 allowed
-            library1_ms = cuda_ms(sdpa, reps)
-            lib1_err = float((sdpa()[keep] - want[keep]).abs().max())
         bounds = attention_bound_ms(b, h, t, d)
         (bound_ms, bound_by), (f32_ms, f32_by) = bounds["3xtf32"], bounds["f32"]
-        bound1_ms, bound1_by = bounds["tf32"]
-        rows.append({"B": b, "H": h, "T": t, "d": d, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "one_pass": {"max_abs_err": err1, "ieee_err": ieee1,
-                                  "ms": ms1, "bound_ms": bound1_ms,
-                                  "bound_by": bound1_by,
-                                  "library_ms": library1_ms}})
         print(f"kernel B={b} T={t:5d} d={d:3d}: max|diff| {err:.3e}  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound 3xTF32 "
               f"{bound_ms:.4f} ms ({bound_by}), float32 {f32_ms:.4f} ms "
               f"({f32_by})  sdpa {library_ms:.4f} ms (max|diff| "
               f"{lib_err:.3e})")
-        print(f"  1-pass: max|diff| {err1:.3e} (<= {tol1:.3e}), RMS "
-              f"{rms1:.3e} (<= {rms_tol:.3e}; "
-              f"{rms1 * ONE_PASS_RMS_SHARE / rms_tol:.4f} of the plain "
-              f"version's from IEEE) against its plain version, "
-              f"{ieee1:.3e} from IEEE; kernel {ms1:.4f} ms "
-              f"(3xTF32 {ms:.4f})  bound TF32 {bound1_ms:.4f} ms "
-              f"({bound1_by})  sdpa TF32 {library1_ms:.4f} ms (max|diff| "
-              f"from IEEE {lib1_err:.3e})")
-        del q, k, v, got, want, got1, want1
-    return {"rows": rows,
+        one = one_pass_readings(fa, exact_numerics, q, k, v, mask, scale,
+                                want, keep, masked_row, reps)
+        rows.append({"B": b, "H": h, "T": t, "d": d, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "one_pass": one})
+        del q, k, v, got, want
+    # the 1-pass mode at "selective"'s full decode batch (phase 4)
+    b, t, d = ONE_PASS_LARGE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn((b, 2, t, d), generator=gen, device=dev)
+               for _ in range(3))
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+    lengths[0] = t
+    mask = torch.arange(t, device=dev)[None, :] >= lengths[:, None]
+    mask[b - 1] = True
+    keep = torch.arange(b, device=dev) != b - 1
+    scale = 1.0 / math.sqrt(d)
+    with exact_numerics(True):
+        want = fa.flash_attention_reference(q, k, v, mask, scale)
+    print(f"1-pass at B={b} T={t} d={d}, H=2:")
+    large = one_pass_readings(fa, exact_numerics, q, k, v, mask, scale, want,
+                              keep, b - 1, 5)
+    large.update(B=b, T=t, d=d)
+    del q, k, v, want
+    torch.cuda.empty_cache()
+    return {"rows": rows, "large": large,
             "report": next(r for r in rows if (r["B"], r["T"], r["d"])
                            == REPORT_SHAPE),
-            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "one_pass_max_abs_err": max(
+                [r["one_pass"]["max_abs_err"] for r in rows]
+                + [large["max_abs_err"]])}
 
 
 def make_tts(tcfg, vcfg, device=None, **kw):
@@ -793,9 +883,11 @@ def phase_decode_modes(fa, base: dict, smi: str, device=None) -> dict:
             tts.exact = mode
             st: dict = {}
             fa.FLASH_FWD.launches = fa.FLASH_FWD.one_pass = 0
+            fa.ONE_PASS_PREP.launches = 0
             units[mode] = tts.predict_units(tokens, speakers, stats=st)
             launches[mode] = {3: fa.FLASH_FWD.launches - fa.FLASH_FWD.one_pass,
-                              1: fa.FLASH_FWD.one_pass}
+                              1: fa.FLASH_FWD.one_pass,
+                              "prep": fa.ONE_PASS_PREP.launches}
             stats[mode] = st
             secs[mode] = []
             for _ in range(MODE_REPEATS):
@@ -807,8 +899,9 @@ def phase_decode_modes(fa, base: dict, smi: str, device=None) -> dict:
                                          "deterministic")
     finally:
         tts.exact = default
-    print("row-1 launches per decode mode (3xTF32, 1-pass): " + ", ".join(
-        f"{m!r} ({n[3]}, {n[1]})" for m, n in launches.items()))
+    print("row-1 launches per decode mode (3xTF32, 1-pass, 1-pass "
+          "pre-pass): " + ", ".join(f"{m!r} ({n[3]}, {n[1]}, {n['prep']})"
+                                    for m, n in launches.items()))
     # one launch per FFT block per decode batch, in its section's mode; the
     # hybrid's fast decode is "selective"'s, its re-decode "selective-high"
     enc, dec = tts.tte_cfg.encoder.n_layer, tts.tte_cfg.decoder.n_layer
@@ -820,11 +913,11 @@ def phase_decode_modes(fa, base: dict, smi: str, device=None) -> dict:
             "selective": (enc * fast, dec * fast),
             "hybrid": (enc * fast + (enc + dec) * redo, dec * fast)}
     for mode, (n3, n1) in want.items():
-        if device is None and (launches[mode][3], launches[mode][1]) != (n3,
-                                                                        n1):
+        got = (launches[mode][3], launches[mode][1], launches[mode]["prep"])
+        if device is None and got != (n3, n1, n1):
             raise AssertionError(f"exact={mode!r}: row-1 launches (3xTF32, "
-                                 f"1-pass) {launches[mode][3]}, "
-                                 f"{launches[mode][1]}; want {n3}, {n1}")
+                                 f"1-pass, its pre-pass) {got}; want {n3}, "
+                                 f"{n1}, {n1}")
     if not all(map(np.array_equal, units["selective-high"], base["units"])):
         raise AssertionError("the default serve's units are not the "
                              "\"selective-high\" decode's")
@@ -938,8 +1031,9 @@ def phase_decode_modes(fa, base: dict, smi: str, device=None) -> dict:
 
 
 def mrf_stages(vcfg) -> list[tuple[int, int, int]]:
-    """(stage, channels, samples per code) of each stage the fused route
-    takes."""
+    """(stage, the kernel's channels, samples per code) of each stage the
+    fused route takes (a stage off the multiples of 8 runs zero-padded to
+    the next)."""
     from parrot_tts_tpu_torch.models.vocoder.generator import (
         FUSED_BELOW_CHANNELS)
 
@@ -948,7 +1042,7 @@ def mrf_stages(vcfg) -> list[tuple[int, int, int]]:
         hop *= u
         c = vcfg.upsample_initial_channel // 2 ** (i + 1)
         if c < FUSED_BELOW_CHANNELS:
-            out.append((i, c, hop))
+            out.append((i, -(-c // 8) * 8, hop))
     return out
 
 
@@ -3990,6 +4084,10 @@ BENCH_MODES = {"float": {}, "fused": {"fused_mrf": True},
                "int8": {"quant": "int8"}, "int8-tail": {"quant": "int8-tail"},
                "int8-static": {"quant": "int8-static"}}
 BF16_GAN_STEPS = 2
+BF16_WIDTHS = tuple(range(8, 121, 8))   # every width row 6's bf16 mode takes
+BF16_WIDTH_SHAPE = (2, 16387)           # (B, T) of its sweep: a ragged T
+NARROW_CHANNELS = 256                   # V1's rates at 256 channels: fused
+                                        # stages of 64, 32, 16 and 8
 
 
 def bf16_mrf_bounds(b: int, t: int, c: int, w, bias, plan) -> tuple:
@@ -4097,6 +4195,105 @@ def phase_bf16_mrf(fm, exact_numerics, model, vcfg, batches,
           f"of it)")
     return {"report": rep, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "checked": {(r["B"], r["T"], r["C"]) for r in rows}}
+
+
+def phase_bf16_widths(fm, exact_numerics) -> list[dict]:
+    """Row 6's bf16 mode at every width it takes (BF16_WIDTHS) on random
+    packed weights of V1's resblocks (fan-in scaled; halo 60) and x of
+    BF16_WIDTH_SHAPE (rows of two lengths): max |diff| <= BF16_MRF_RTOL *
+    max |plain| against its plain version, two launches bit-equal; per
+    width its tile, kernel and bound ms and share of the bound."""
+    rng = np.random.default_rng(SEED + 16)
+    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
+    b, t = BF16_WIDTH_SHAPE
+    dev = torch.device("cuda")
+    rows = []
+    with torch.no_grad(), exact_numerics(True):
+        for c in BF16_WIDTHS:
+            def tens(*shape, scale=1.0):
+                return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                        .astype(np.float32))
+            convs = [[(tens(k, c, c, scale=(c * k) ** -0.5),
+                       tens(c, scale=0.1), tens(k, c, c, scale=(c * k) ** -0.5),
+                       tens(c, scale=0.1)) for _ in d] for k, d in zip(ks, ds)]
+            w, bias, plan = fm.pack_mrf(convs, ks, ds)
+            w, bias = w.to(dev).bfloat16(), bias.to(dev).bfloat16()
+            wk = fm.kernel_weights(w, plan)
+            x = tens(b, t, c)
+            x[1, 2 * t // 3:] = 0.0
+            x = x.to(dev).bfloat16()
+            got = fm.mrf_fused(x, w, bias, plan, wk=wk)
+            again = fm.mrf_fused(x, w, bias, plan, wk=wk)
+            want = fm.mrf_fused_reference(x, w, bias, plan)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            lim = BF16_MRF_RTOL * float(want.float().abs().max())
+            if not (err <= lim and torch.equal(got, again)):
+                raise AssertionError(
+                    f"fused MRF bf16 C={c}: max |diff| {err} (limit {lim}), "
+                    f"two launches bit-equal: {torch.equal(got, again)}")
+            ms = cuda_ms(lambda: fm.mrf_fused(x, w, bias, plan, wk=wk), 10)
+            bound_ms, bound_by = bf16_mrf_bounds(b, t, c, w, bias, plan)
+            tile = fm.tile_plan(plan, (b, t), dtype=torch.bfloat16)
+            rows.append({"C": c, "max_abs_err": err, "ms": ms,
+                         "bound_ms": bound_ms})
+            print(f"fused MRF bf16 width C={c:3d} B={b} T={t}: max|diff| "
+                  f"{err:.3e} (limit {lim:.3e}), {int((diff > 0).sum())} of "
+                  f"{diff.numel()} elements differ, two launches bit-equal; "
+                  f"tile {tile.tb} rows, {tile.warpgroups} x {tile.rounds} "
+                  f"units, {'resident' if tile.resident else tile.ring_slots}"
+                  f" slots; kernel {ms:.4f} ms  bound {bound_ms:.4f} ms "
+                  f"({bound_by}, {100 * bound_ms / ms:.1f}%)")
+            del x, got, again, want, diff
+    return rows
+
+
+def phase_bf16_narrow_serve(fm, tcfg, vcfg, base: dict, device=None) -> int:
+    """The bf16 fused vocoder of vcfg at upsample_initial_channel
+    NARROW_CHANNELS (fused stages of 64, 32, 16 and 8 channels) on phase
+    4's units: its launches (one per fused stage per vocoder batch), held
+    to its bf16 unfused serve (BF16_FUSED_*) and its float32 fused serve
+    (BF16_MAXDEV, BF16_SNR_DB) on the same seeded weights. Returns the
+    row-6 launches of both fused serves."""
+    units, speakers = base["units"], base["speakers"]
+    narrow = dataclasses.replace(vcfg, upsample_initial_channel=NARROW_CHANNELS)
+    want = len(mrf_stages(narrow)) * len(vocoder_batches(units))
+    wavs, launches = {}, {}
+    for label, change in (("bf16 fused", dict(dtype="bfloat16",
+                                              fused_mrf=True)),
+                          ("bf16", dict(dtype="bfloat16")),
+                          ("float32 fused", dict(fused_mrf=True))):
+        synth = make_tts(tcfg, dataclasses.replace(narrow, **change),
+                         device).vocoder
+        fm.FUSED_MRF.launches = 0
+        wavs[label] = synth.synthesize(units, speakers)
+        launches[label] = fm.FUSED_MRF.launches
+        if not all(np.isfinite(w).all() and len(w) == len(u) * vcfg
+                   .total_upsample for w, u in zip(wavs[label], units)):
+            raise AssertionError(f"{label} serve at {NARROW_CHANNELS} "
+                                 "channels: wrong lengths or non-finite")
+    stages = [c for _, c, _ in mrf_stages(narrow)]
+    if device is None and launches != {"bf16 fused": want, "bf16": 0,
+                                       "float32 fused": want}:
+        raise AssertionError(f"serves at {NARROW_CHANNELS} channels: row-6 "
+                             f"launches {launches}, want {want} per fused "
+                             "serve")
+    dev = torch.device(device or "cuda")
+    unfused = wave_stats(wavs["bf16 fused"], wavs["bf16"], dev)
+    f32 = wave_stats(wavs["bf16 fused"], wavs["float32 fused"], dev)
+    print(f"bf16 fused serve at upsample_initial_channel {NARROW_CHANNELS} "
+          f"(fused stages {stages}, {launches['bf16 fused']} row-6 "
+          f"launches): against its bf16 unfused serve {stats_line(unfused)};"
+          f" against its float32 fused serve {stats_line(f32)}")
+    if not (unfused["maxdev"] <= BF16_FUSED_MAXDEV
+            and unfused["snr_db"] >= BF16_FUSED_SNR_DB
+            and f32["maxdev"] <= BF16_MAXDEV
+            and f32["snr_db"] >= BF16_SNR_DB):
+        raise AssertionError(f"bf16 fused serve at {NARROW_CHANNELS} "
+                             f"channels outside its budgets: {unfused} "
+                             f"{f32}")
+    return launches["bf16 fused"] + launches["float32 fused"]
 
 
 def wave_stats(got: list, want: list, device=None) -> dict:
@@ -4406,6 +4603,8 @@ def phase_bf16(fm, qc, quant, exact_numerics, tcfg, vcfg, base: dict,
     mrf = phase_bf16_mrf(fm, exact_numerics, fused.vocoder.model, v16,
                          batches, registers)
     del fused
+    widths = phase_bf16_widths(fm, exact_numerics)
+    narrow_launches = phase_bf16_narrow_serve(fm, tcfg, vcfg, base, device)
     q16 = phase_int8_kernel(qc, v16, batches, modes=("int8", "int8-tail"))
     serves = phase_bf16_serves(fm, qc, tcfg, vcfg, base, mrf["checked"],
                                q8["checked"] | q16["checked"], device)
@@ -4430,8 +4629,9 @@ def phase_bf16(fm, qc, quant, exact_numerics, tcfg, vcfg, base: dict,
         print(f"HubertConfig(dtype='bfloat16') refused: {e}")
     else:
         raise AssertionError("HubertConfig(dtype='bfloat16') did not raise")
-    return {"mrf": mrf, "int8": q16, "bench": bench,
+    return {"mrf": mrf, "int8": q16, "bench": bench, "widths": widths,
             "mrf_launches": serves["bf16 fused"]["launches"][0],
+            "narrow_launches": narrow_launches,
             "int8_launches": sum(s["launches"][1] for s in serves.values())}
 
 
@@ -4531,18 +4731,24 @@ def main() -> int:
               f"{r['plain_ms']:.4f}, cuDNN bf16 {r['library_ms']:.4f})"
               for m, r in q16.items()) + f"; {smi}")
     rep = kern["report"]
-    one = rep["one_pass"]
+    one, large = rep["one_pass"], kern["large"]
     print(f"row 1 at {REPORT_SHAPE} (B, T, d), H=2: 3xTF32 {rep['ms']:.4f} ms "
-          f"(bound {rep['bound_ms']:.4f}), 1-pass {one['ms']:.4f} ms (bound "
-          f"{one['bound_ms']:.4f}, {one['bound_by']}; max |diff| "
+          f"(bound {rep['bound_ms']:.4f}), 1-pass {one['ms']:.4f} ms = "
+          f"pre-pass {one['prep']['ms']:.4f} + kernel {one['kernel_ms']:.4f} "
+          f"(bound {one['bound_ms']:.4f}, {one['bound_by']}; max |diff| "
           f"{one['max_abs_err']:.3e} against its plain version, "
           f"{one['ieee_err']:.3e} from IEEE), sdpa float32 "
           f"{rep['library_ms']:.4f} ms, sdpa TF32 {one['library_ms']:.4f} ms; "
-          f"{smi}")
+          f"1-pass at {ONE_PASS_LARGE}: {large['ms']:.4f} ms = pre-pass "
+          f"{large['prep']['ms']:.4f} + kernel {large['kernel_ms']:.4f} "
+          f"(bound {large['bound_ms']:.4f}), sdpa TF32 "
+          f"{large['library_ms']:.4f} ms; {smi}")
     row1_launches += mesh["flash_attn_fwd"]
+    one_pass_launches = sum(n[1] for n in modes["launches"].values())
+    prep_launches = sum(n["prep"] for n in modes["launches"].values())
     print(f"row 1 launches: {row1_launches} (the default serve "
           f"{base['launches']}, 3xTF32; the decode modes " + ", ".join(
-              f"{m!r} {n[3]} 3xTF32 + {n[1]} 1-pass"
+              f"{m!r} {n[3]} 3xTF32 + {n[1]} 1-pass (pre-pass {n['prep']})"
               for m, n in modes["launches"].items())
           + f"; phase 18 {mesh['flash_attn_fwd']})")
     print(json.dumps({"kernels": [{
@@ -4550,7 +4756,7 @@ def main() -> int:
         "route": "cuda",
         "source": "parrot_tts_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "parrot_tts_tpu/ops/attention.py:153",
-        "launches": row1_launches,
+        "launches": row1_launches - one_pass_launches,
         "max_abs_err": kern["max_abs_err"],
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -4558,11 +4764,32 @@ def main() -> int:
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
     }, {
+        "name": "flash_attn_1pass",
+        "route": "cuda",
+        "source": "parrot_tts_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "parrot_tts_tpu/ops/attention.py:153",
+        "launches": one_pass_launches,
+        "max_abs_err": kern["one_pass_max_abs_err"],
+        "ms": one["kernel_ms"],
+        "plain_ms": one["plain_ms"],
+        "bound_ms": one["bound_ms"],
+        "bound_by": one["bound_by"],
+        "library_ms": one["library_ms"],
+    }, {
+        "name": "flash_attn_prep",
+        "route": "cuda",
+        "source": "parrot_tts_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "parrot_tts_tpu/ops/attention.py:153",
+        "launches": prep_launches,
+        **one["prep"],
+        "library_ms": None,
+    }, {
         "name": "fused_mrf",
         "route": "cuda",
         "source": "parrot_tts_tpu_torch/csrc/fused_mrf.cu",
         "replaces": "parrot_tts_tpu/ops/fused_mrf.py:115",
-        "launches": fused["launches"] + b16["mrf_launches"],
+        "launches": (fused["launches"] + b16["mrf_launches"]
+                     + b16["narrow_launches"]),
         "max_abs_err": max(mrf["max_abs_err"], b16["mrf"]["max_abs_err"]),
         **{k: mrf["report"][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by")},

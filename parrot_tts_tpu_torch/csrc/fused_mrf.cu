@@ -70,8 +70,9 @@
 // rows, in branch order (no atomics: deterministic). The ragged last tile
 // is masked; any T works.
 //
-// The bfloat16 mode (mrf_kernel_bf16; the bf16 vocoder's fused stages, C =
-// 16, 32 or 64) replaces the same JAX kernel run on a bf16 strip
+// The bfloat16 mode (mrf_kernel_bf16; the bf16 vocoder's fused stages, the
+// float32 mode's widths: every multiple of 8 up to 120) replaces the same
+// JAX kernel run on a bf16 strip
 // (_mrf_kernel, _strip_conv: fused_mrf.py:98-152) and keeps its rounding
 // points: every conv sums its bf16 products in float32 from its bf16 bias
 // and rounds the sum to bf16 once; the validity mask, the leaky ReLU
@@ -89,8 +90,13 @@
 // memory: the strips are [C / 8][rows][8] planes (8 x 16-byte core
 // matrices, the no-swizzle K-major layout; planes strip_rows apart, 4 mod
 // 8), so a tap's row shift is a descriptor 16 bytes further on, and no
-// thread loads, converts or holds A. B is a one-tap slab, [C / 8][C][8]
-// (ops/fused_mrf.py::kernel_weights of bf16 weights).
+// thread loads, converts or holds A. B is a one-tap slab, [k16(C) / 8][C]
+// [8] (ops/fused_mrf.py::kernel_weights of bf16 weights). At an odd C / 8
+// (8, 24, ..., 120) a 16-deep k-step spans one plane of 8 channels past
+// C: the Z strip the products read has that plane, zeroed once per block
+// and never written again, and the slab's last 8 input rows are zero, so
+// the step adds exact zeros; x is not padded in device memory. One wgmma
+// overload per n (WGMMA_BF16).
 // - Waits. Each conv's sums stay in the wgmma accumulators through all its
 //   taps, from the bias: no partial sums and no float32 adds. A warpgroup
 //   waits for its products only one tap behind, to free that tap's weight
@@ -113,10 +119,15 @@
 //   of a row's pairs before it stores any.
 // - Weight traffic. Every block still streams the stage's slabs from L2
 //   (at C = 64, 1008 KB per tile); the ring keeps six 8 KB copies in
-//   flight. Tiles at V1 (halo 60; tile_plan(..., dtype=torch.bfloat16)):
-//   C = 64 tb 240 (2 warpgroups x 3 units), C = 32 tb 640 (3 x 4), C = 16
-//   tb 944 (4 x 5), the strips, slots and float32 branch sum within the
-//   SM's 227 KB.
+//   flight. Tiles at V1's halo of 60 (tile_plan(..., dtype=torch.
+//   bfloat16); tests/test_torch_bf16.py::BF16_TILES), warpgroups x units
+//   and weight slots: C = 8 tb 1152 (4 x 5, resident), 16 tb 944 (4 x 5,
+//   resident), 24 tb 688 (4 x 5, 12), 32 tb 640 (3 x 4, 12), 40 / 48 tb
+//   368 / 352 (3 x 4, 12), 56 tb 240 (3 x 4, 9), 64 tb 240 (2 x 3, 8), 72
+//   / 80 tb 192 / 176 (2 x 3, 5), 88 / 96 tb 160 / 144 (2 x 3, 3), 104 /
+//   112 tb 112 / 96 (2 x 2, 3), 120 tb 64 (3 x 1, 3): the strips, slots
+//   and float32 branch sum within the SM's 227 KB, a unit's C / 2 sums a
+//   thread within its warpgroups' registers.
 //
 // Interface (plain C, loaded with ctypes):
 //   int fused_mrf_f32(x, wk, bias, out, B, T, C, n_branch, kernel_sizes,
@@ -130,8 +141,9 @@
 // (cudaErrorInvalidValue for a plan the kernel does not take).
 //   int fused_mrf_bf16(x, wk, bias, out, B, T, C, n_branch, kernel_sizes,
 //                      n_pairs, dilations, halo, tb, stream)
-// the same in bfloat16: x, out (B, T, C), wk (sum over convs of K * C * C)
-// and bias bf16, x and wk 16-byte aligned; C 16, 32 or 64.
+// the same in bfloat16: x, out (B, T, C), wk (sum over convs of K *
+// k16(C) * C) and bias bf16, x and wk 16-byte aligned; C a multiple of 8 up
+// to 120.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -145,6 +157,7 @@ namespace {
 
 using namespace tf32x3;
 using sm90::bulk_load_1d;
+using sm90::desc_hi;
 using sm90::fence_proxy_async;
 using sm90::kNoSwizzle;
 using sm90::mbar_arrive_if;
@@ -421,15 +434,38 @@ mrf_kernel(const float* __restrict__ x, const float* __restrict__ wk,
 
 constexpr float SLOPE16 = 0.10009765625f;   // bf16(0.1)
 
-// C = 16 holds the stage's whole weight stream (63 KB at V1) in place of
-// the ring
-__host__ __device__ constexpr bool resident16(int c) { return c == 16; }
+// a bf16 width's k extent: C rounded up to the wgmma's 16-deep k-step. At
+// an odd C / 8 the last k-step spans one plane of 8 channels past C, which
+// the kernel keeps zero in the Z strip and kernel_weights in the slab
+__host__ __device__ constexpr int k16(int c) { return (c + 15) / 16 * 16; }
+
+// warpgroups and 64 x C units per warpgroup of the bf16 mode, within the
+// registers (a unit's sums take C / 2 a thread): 4 x 5 up to C = 24, 3 x 4
+// up to 56, 2 x 3 up to 96, 2 x 2 up to 112, 3 x 1 at 120 (two units of 60
+// sums spilled at 255 registers; the tile, 64 rows, needs three units)
+__host__ __device__ constexpr int warpgroups16(int c) {
+  return c <= 24 ? 4 : c <= 56 ? 3 : c <= 112 ? 2 : 3;
+}
+__host__ __device__ constexpr int rounds16(int c) {
+  return c <= 24 ? 5 : c <= 56 ? 4 : c <= 96 ? 3 : c <= 112 ? 2 : 1;
+}
+
+// C = 8 and 16 hold the stage's whole weight stream (63 KB at V1 and C =
+// 16) in place of the ring
+__host__ __device__ constexpr bool resident16(int c) { return c <= 16; }
 
 // the bf16 weight slots: a ring of 8 one-tap slabs at C = 64 (8 KB each),
-// 12 at C = 32 (2 KB), copied two short of the ring ahead; at C = 16 every
-// slab of the stage
+// 12 at C = 32 (2 KB); at the other widths as many as fit in 64 KB, 3 to
+// 12 (3 of 30 KB at C = 120), copied two short of the ring ahead; at C = 8
+// and 16 every slab of the stage
+__host__ __device__ constexpr int ring16(int n) {
+  return n < 3 ? 3 : n > 12 ? 12 : n;
+}
 __host__ __device__ constexpr int slots16(int c, int n_slabs) {
-  return resident16(c) ? n_slabs : c == 64 ? 8 : 12;
+  return resident16(c) ? n_slabs
+         : c == 64     ? 8
+         : c == 32     ? 12
+                       : ring16(65536 / (2 * k16(c) * c));
 }
 
 // the bf16 weight stream's slabs: one per tap of every conv
@@ -450,8 +486,11 @@ __host__ __device__ constexpr int strip_rows(int l) {
   return (l + 3) / 8 * 8 + 4;
 }
 
-// the float32 branch-sum strip's row: C + 8 floats
-__host__ __device__ constexpr int sum_stride(int c) { return c + 8; }
+// the float32 branch-sum strip's row: C + 8 floats, C + 16 at an odd C / 8
+// (8 or 24 mod 32, so a half warp's float2 stores hit 32 banks)
+__host__ __device__ constexpr int sum_stride(int c) {
+  return c % 16 == 0 ? c + 8 : c + 16;
+}
 
 // a packed pair of bf16 (the first in the low half) and its 32 bits
 __device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
@@ -481,65 +520,70 @@ __device__ __forceinline__ uint32_t add2(uint32_t y, uint32_t t) {
 }
 
 // wgmma m64nNk16 bf16, A and B K-major in shared memory (both through
-// descriptors, no transpose), float32 d += A B
-__device__ __forceinline__ void wgmma_bf16(float (&d)[8], uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// the fixed half of a K-major no-swizzle descriptor: leading and stride
-// byte offsets (the start address, in 16-byte units, is or-ed in per use)
-__device__ __forceinline__ uint64_t desc_hi(uint32_t lbo, uint32_t sbo) {
-  return (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
-}
+// descriptors, no transpose), float32 d += A B: one overload per n, 8 to
+// 120 by 8, each written out by WGMMA_BF16 (its three operand numbers are
+// those after the N / 2 accumulators: the two descriptors and the scale)
+#define WG16_D(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WGMMA_BF16(N, DA, DB, SCALE)                                         \
+  __device__ __forceinline__ void wgmma_bf16(float(&d)[N / 2], uint64_t da, \
+                                             uint64_t db) {                 \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"         \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                     \
+                 "k16.f32.bf16.bf16 {" WG16_R##N "}, " DA ", " DB           \
+                 ", p, 1, 1, 0, 0;\n}\n"                                     \
+                 : WG16_D##N                                                \
+                 : "l"(da), "l"(db), "r"(1));                               \
+  }
+#define WG16_R8 "%0, %1, %2, %3"
+#define WG16_R16 WG16_R8 ", %4, %5, %6, %7"
+#define WG16_R24 WG16_R16 ", %8, %9, %10, %11"
+#define WG16_R32 WG16_R24 ", %12, %13, %14, %15"
+#define WG16_R40 WG16_R32 ", %16, %17, %18, %19"
+#define WG16_R48 WG16_R40 ", %20, %21, %22, %23"
+#define WG16_R56 WG16_R48 ", %24, %25, %26, %27"
+#define WG16_R64 WG16_R56 ", %28, %29, %30, %31"
+#define WG16_R72 WG16_R64 ", %32, %33, %34, %35"
+#define WG16_R80 WG16_R72 ", %36, %37, %38, %39"
+#define WG16_R88 WG16_R80 ", %40, %41, %42, %43"
+#define WG16_R96 WG16_R88 ", %44, %45, %46, %47"
+#define WG16_R104 WG16_R96 ", %48, %49, %50, %51"
+#define WG16_R112 WG16_R104 ", %52, %53, %54, %55"
+#define WG16_R120 WG16_R112 ", %56, %57, %58, %59"
+#define WG16_D8 WG16_D(0)
+#define WG16_D16 WG16_D8, WG16_D(4)
+#define WG16_D24 WG16_D16, WG16_D(8)
+#define WG16_D32 WG16_D24, WG16_D(12)
+#define WG16_D40 WG16_D32, WG16_D(16)
+#define WG16_D48 WG16_D40, WG16_D(20)
+#define WG16_D56 WG16_D48, WG16_D(24)
+#define WG16_D64 WG16_D56, WG16_D(28)
+#define WG16_D72 WG16_D64, WG16_D(32)
+#define WG16_D80 WG16_D72, WG16_D(36)
+#define WG16_D88 WG16_D80, WG16_D(40)
+#define WG16_D96 WG16_D88, WG16_D(44)
+#define WG16_D104 WG16_D96, WG16_D(48)
+#define WG16_D112 WG16_D104, WG16_D(52)
+#define WG16_D120 WG16_D112, WG16_D(56)
+WGMMA_BF16(8, "%4", "%5", "%6")
+WGMMA_BF16(16, "%8", "%9", "%10")
+WGMMA_BF16(24, "%12", "%13", "%14")
+WGMMA_BF16(32, "%16", "%17", "%18")
+WGMMA_BF16(40, "%20", "%21", "%22")
+WGMMA_BF16(48, "%24", "%25", "%26")
+WGMMA_BF16(56, "%28", "%29", "%30")
+WGMMA_BF16(64, "%32", "%33", "%34")
+WGMMA_BF16(72, "%36", "%37", "%38")
+WGMMA_BF16(80, "%40", "%41", "%42")
+WGMMA_BF16(88, "%44", "%45", "%46")
+WGMMA_BF16(96, "%48", "%49", "%50")
+WGMMA_BF16(104, "%52", "%53", "%54")
+WGMMA_BF16(112, "%56", "%57", "%58")
+WGMMA_BF16(120, "%60", "%61", "%62")
 
 // one tap's products for this warpgroup's first NA rounds, straight-line:
 // a is the shared address of its round-0 unit's first A row in plane 0
-// (planes `plane` bytes apart, a round NWG units further on), w the slab's
+// (planes `plane` bytes apart, a round NWG units further on), w the slab's;
+// k16(N) / 16 k-steps, the last at an odd N / 8 over a zero plane
 template <int NA, int R, int N, int NWG>
 __device__ __forceinline__ void tap_products(float (&acc)[R][N / 2],
                                              uint32_t a, uint32_t w,
@@ -548,7 +592,7 @@ __device__ __forceinline__ void tap_products(float (&acc)[R][N / 2],
 #pragma unroll
   for (int r = 0; r < NA; ++r)
 #pragma unroll
-    for (int ks = 0; ks < N / 16; ++ks)
+    for (int ks = 0; ks < k16(N) / 16; ++ks)
       wgmma_bf16(acc[r],
                  ha | ((a + r * NWG * UNIT_ROWS * 16 + 2 * ks * plane) >> 4),
                  hb | ((w + 2 * ks * N * 16) >> 4));
@@ -570,23 +614,23 @@ __device__ __forceinline__ void tap_rounds(int n, float (&acc)[R][N / 2],
   tap_products<NA, R, N, NWG>(acc, a, w, ha, hb, plane);
 }
 
-// one MRF stage in bf16 at C = CT (16, 32, 64): wgmma m64nCk16 with both
-// operands in shared memory; the strip walk and the tiles' rounds are
-// mrf_kernel's (header: the bfloat16 mode)
+// one MRF stage in bf16 at C = CT (a multiple of 8 up to 120): wgmma
+// m64nCk16 with both operands in shared memory; the strip walk and the
+// tiles' rounds are mrf_kernel's (header: the bfloat16 mode)
 template <int CT>
-__global__ void __launch_bounds__(128 * warpgroups(CT), 1)
+__global__ void __launch_bounds__(128 * warpgroups16(CT), 1)
 mrf_kernel_bf16(const __nv_bfloat16* __restrict__ x,
                 const __nv_bfloat16* __restrict__ wk,
                 const __nv_bfloat16* __restrict__ bias,
                 __nv_bfloat16* __restrict__ out, int T,
                 const __grid_constant__ Plan plan) {
   constexpr int C = CT, N = CT;
-  constexpr int NWG = warpgroups(CT);
+  constexpr int NWG = warpgroups16(CT);
   constexpr int THREADS = 128 * NWG;
-  constexpr int R = rounds(CT);
+  constexpr int R = rounds16(CT);
   constexpr int SM = sum_stride(C);
-  constexpr int slab = C * C;          // bf16 elements: one tap
-  constexpr int c8 = C / 8;            // 8-channel planes of a strip
+  constexpr int slab = k16(C) * C;     // bf16 elements: one tap
+  constexpr int c8 = C / 8;            // 8-channel planes of y
   const int H = plan.halo, tb = plan.tb, L = strip_rows(tb + 2 * H);
   const int n_slabs = plan_slabs(plan);
   // resident: every slab its own slot, all issued at once, none reused
@@ -597,10 +641,12 @@ mrf_kernel_bf16(const __nv_bfloat16* __restrict__ x,
   uint64_t* empty = full + nslot;      // every warpgroup done with the slot
   __nv_bfloat16* ring =
       reinterpret_cast<__nv_bfloat16*>(smem16 + barrier_bytes(nslot));
-  // the strips: [C / 8][L][8], row r's channels 8q..8q+7 at (q L + r) 8
+  // the strips: [C / 8][L][8], row r's channels 8q..8q+7 at (q L + r) 8;
+  // Z, which the products read, has k16(C) / 8 planes, its last zero at an
+  // odd C / 8
   __nv_bfloat16* Y = ring + nslot * slab;      // the branch state y
   __nv_bfloat16* Z = Y + L * C;     // leaky(y), then leaky(dilated conv)
-  float* M = reinterpret_cast<float*>(Z + L * C);   // branch sum, tb rows
+  float* M = reinterpret_cast<float*>(Z + L * k16(C));   // branch sum
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wl = warp & 3;
@@ -614,6 +660,10 @@ mrf_kernel_bf16(const __nv_bfloat16* __restrict__ x,
     mbar_init(full + j, 1);
     if (!resident16(C)) mbar_init(empty + j, NWG);
   }
+  if (c8 % 2)   // the zero plane; the first leaky pass fences it for wgmma
+    for (int r = tid; r < L; r += THREADS)
+      *reinterpret_cast<uint4*>(Z + (c8 * L + r) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
   mbar_fence_init();
   __syncthreads();
   // the first `lead` slabs, before any product is in flight
@@ -822,14 +872,14 @@ mrf_kernel_bf16(const __nv_bfloat16* __restrict__ x,
 }
 
 // shared memory of a bf16 launch: the barriers, the weight slots, the two
-// strips, the branch sum, and room past them for the rows a last round's
-// unit reads past its conv's
+// strips (Z with its zero plane at an odd C / 8), the branch sum, and room
+// past them for the rows a last round's unit reads past its conv's
 size_t smem_bytes_bf16(int tb, int halo, int C, int n_slabs) {
   const int nslot = slots16(C, n_slabs);
-  return barrier_bytes(nslot) + 2 * static_cast<size_t>(nslot) * C * C +
-         2 * 2 * static_cast<size_t>(strip_rows(tb + 2 * halo)) * C +
+  return barrier_bytes(nslot) + 2 * static_cast<size_t>(nslot) * k16(C) * C +
+         2 * static_cast<size_t>(strip_rows(tb + 2 * halo)) * (C + k16(C)) +
          4 * static_cast<size_t>(tb) * sum_stride(C) +
-         16 * UNIT_ROWS * warpgroups(C);
+         16 * UNIT_ROWS * warpgroups16(C);
 }
 
 template <int CT>
@@ -837,7 +887,7 @@ int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wk,
                 const __nv_bfloat16* bias, __nv_bfloat16* out, int B, int T,
                 const Plan& plan, cudaStream_t stream) {
   const int rows = plan.tb + 2 * plan.halo;
-  if ((rows + UNIT_ROWS - 1) / UNIT_ROWS > warpgroups(CT) * rounds(CT))
+  if ((rows + UNIT_ROWS - 1) / UNIT_ROWS > warpgroups16(CT) * rounds16(CT))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes =
       smem_bytes_bf16(plan.tb, plan.halo, CT, plan_slabs(plan));
@@ -846,7 +896,7 @@ int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wk,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + plan.tb - 1) / plan.tb, B);
-  mrf_kernel_bf16<CT><<<grid, 128 * warpgroups(CT), bytes, stream>>>(
+  mrf_kernel_bf16<CT><<<grid, 128 * warpgroups16(CT), bytes, stream>>>(
       x, wk, bias, out, T, plan);
   return static_cast<int>(cudaGetLastError());
 }
@@ -932,7 +982,7 @@ extern "C" int fused_mrf_bf16(const void* x, const void* wk, const void* bias,
                               const int* kernel_sizes, const int* n_pairs,
                               const int* dilations, int halo, int tb,
                               void* stream) {
-  if (n_branch < 1 || n_branch > MAXB || (C != 16 && C != 32 && C != 64) ||
+  if (n_branch < 1 || n_branch > MAXB || C % 8 != 0 || C < 8 || C > MAX_C ||
       tb < 16 || halo < 0 || B < 1 || B > 65535 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
@@ -945,8 +995,12 @@ extern "C" int fused_mrf_bf16(const void* x, const void* wk, const void* bias,
   auto* o = static_cast<__nv_bfloat16*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 64: return launch_bf16<64>(xb, wb, bb, o, B, T, plan, s);
-    case 32: return launch_bf16<32>(xb, wb, bb, o, B, T, plan, s);
-    default: return launch_bf16<16>(xb, wb, bb, o, B, T, plan, s);
+#define BF16_CASE(c) \
+  case c: return launch_bf16<c>(xb, wb, bb, o, B, T, plan, s);
+    BF16_CASE(8) BF16_CASE(16) BF16_CASE(24) BF16_CASE(32) BF16_CASE(40)
+    BF16_CASE(48) BF16_CASE(56) BF16_CASE(64) BF16_CASE(72) BF16_CASE(80)
+    BF16_CASE(88) BF16_CASE(96) BF16_CASE(104) BF16_CASE(112) BF16_CASE(120)
+#undef BF16_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the int8 kernels and the fused
-// MRF kernel: mbarriers, TMA tile loads and stores, 1-D bulk copies, named
+// Hopper (sm_90a) building blocks shared by the int8 kernels, the fused MRF
+// kernel and the 1-pass attention: mbarriers, TMA tile loads and stores, 1-D bulk copies, named
 // barriers, register reallocation, wgmma shared-memory descriptors and the
 // wgmma instructions the int8 kernels issue, and the tensor-map encoder. Header-only; every function is inline, so each
 // source that includes it compiles its own copy. core/kernels.py hashes this
@@ -199,6 +199,15 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
+// the same for A fragments held in registers (N k-steps of 4), whose
+// next values must not be written before the wait that frees them
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e]) :: "memory");
+}
 
 // ---- wgmma descriptors -----------------------------------------------------------
 
@@ -216,6 +225,14 @@ __device__ __forceinline__ uint64_t sdesc(const void* p, uint32_t lbo,
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// the fixed half of a K-major no-swizzle descriptor: leading and stride
+// byte offsets; the start address, in 16-byte units, is or-ed in per use
+// (smem_u32(p) >> 4, below 2^14 for any shared-memory address)
+__device__ __forceinline__ uint64_t desc_hi(uint32_t lbo, uint32_t sbo) {
+  return (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
 }
 
 // ---- wgmma: d += A B, A and B in shared memory ------------------------------------

@@ -1,7 +1,8 @@
 // float32 products on the TF32 tensor cores with a 3xTF32 split, shared by
 // the serving attention (flash_attn_fwd.cu: mma.sync m16n8k8) and the fused
 // MRF stage (fused_mrf.cu: wgmma m64nNk8, sm_90a), and the serving
-// attention's 1-pass TF32 rounding (round_tf32). Header-only;
+// attention's 1-pass TF32 rounding (round_tf32) and wgmma products (A from
+// registers or shared memory). Header-only;
 // core/kernels.py hashes it with every source that includes it.
 //
 // Each float32 operand x is split exactly as x = hi + lo (Veltkamp: hi is x
@@ -81,24 +82,6 @@ __device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a,
   mma(c, a.lo, bh0, bh1);
   mma(c, a.hi, bl0, bl1);
   mma(c, a.hi, bh0, bh1);
-}
-
-// an A fragment rounded to TF32 once, for the products it takes part in
-// (the 1-pass mode)
-struct RoundA {
-  uint32_t r[4];
-};
-
-__device__ __forceinline__ RoundA round_a(float a0, float a1, float a2,
-                                          float a3) {
-  return {{round_tf32(a0), round_tf32(a1), round_tf32(a2), round_tf32(a3)}};
-}
-
-// c += a b in one TF32 pass: b the two float32 values of a B fragment,
-// rounded here
-__device__ __forceinline__ void mma1(float (&c)[4], const RoundA& a,
-                                     float b0, float b1) {
-  mma(c, a.r, round_tf32(b0), round_tf32(b1));
 }
 
 // c += d, d a partial product summed on the tensor cores from 0: c sums
@@ -186,6 +169,63 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// ---- wgmma m64n32k8 tf32 with A in shared memory ---------------------------
+// d (64 x 32) = A B + (accumulate ? d : 0), A (64 x 8) and B (32 x 8) both
+// K-major through the descriptors da and db (the only form TF32 takes: no
+// transpose), the accumulator laid out as above
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // 16 bytes from global to shared memory, asynchronously (zero-filled when

@@ -44,6 +44,7 @@ differentiates through it into the float32 parameters.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from parrot_tts_tpu_torch.core.config import VocoderModelConfig
@@ -394,18 +395,31 @@ def _mrf_stage_fused(model: CodeGenerator, i: int, x: torch.Tensor,
         raise RuntimeError("fused_mrf=True: pack the fused stages with "
                            "model.pack_fused_mrf() once the weights are "
                            "loaded")
-    return fused_mrf.mrf_fused(x.contiguous(), getattr(model, f"mrf_w{i}"),
-                               getattr(model, f"mrf_b{i}"),
-                               model.mrf_plans[i],
-                               wk=getattr(model, f"mrf_k{i}"))
+    c, width = x.shape[-1], model.mrf_plans[i].channels
+    if width != c:
+        x = F.pad(x, (0, width - c))
+    y = fused_mrf.mrf_fused(x.contiguous(), getattr(model, f"mrf_w{i}"),
+                            getattr(model, f"mrf_b{i}"), model.mrf_plans[i],
+                            wk=getattr(model, f"mrf_k{i}"))
+    return y if width == c else y[..., :c]
 
 
 def pack_stage(model: CodeGenerator, i: int):
-    """Stage i's ResBlock1 convs as `fused_mrf.pack_mrf` takes them."""
+    """Stage i's ResBlock1 convs as `fused_mrf.pack_mrf` takes them, with
+    zero channels up to the kernel's next multiple of 8 (a C = 4 stage
+    runs at 8): padded channels have zero weights and biases, so they stay
+    0 through every conv, leaky ReLU and residual add, and the stage's own
+    channels come out as unpadded (`_mrf_stage_fused` pads x and slices
+    the output)."""
     nk = len(model.cfg.resblock_kernel_sizes)
-    convs = [[(c1.kernel().permute(2, 1, 0), c1.bias,
-               c2.kernel().permute(2, 1, 0), c2.bias)
-              for c1, c2 in zip(rb.convs1, rb.convs2)]
+    c = model.resblocks[i * nk].convs1[0].bias.shape[0]
+    pad = -c % fused_mrf.CHANNEL_QUANTUM
+
+    def wb(conv):
+        w = conv.kernel().permute(2, 1, 0)           # (K, Ci, Co)
+        return F.pad(w, (0, pad, 0, pad)), F.pad(conv.bias, (0, pad))
+
+    convs = [[(*wb(c1), *wb(c2)) for c1, c2 in zip(rb.convs1, rb.convs2)]
              for rb in model.resblocks[i * nk:(i + 1) * nk]]
     return fused_mrf.pack_mrf(convs, model.cfg.resblock_kernel_sizes,
                               model.cfg.resblock_dilation_sizes)

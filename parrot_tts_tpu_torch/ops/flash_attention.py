@@ -16,13 +16,18 @@ The kernel multiplies on the TF32 tensor cores in one of two modes:
   units (the source says how);
 - passes=1: one TF32 product of operands rounded to TF32, the TPU's
   default 1-pass precision, for the "selective" decode and exact=False.
-  Its plain version is `flash_attention_reference(..., passes=1)`, which
-  rounds q, k, P and v to TF32 where the kernel does, P tile by tile
-  against the running row max.
+  Two kernels of the same source: a pre-pass (`one_pass_operands`) writes
+  K and Vᵀ rounded to TF32, tile by tile in the layout the wgmma products
+  read, with each key's mask bias, into scratch; the 1-pass kernel reads
+  them. Its plain version is `flash_attention_reference(..., passes=1)`,
+  which rounds q, k, P and v to TF32 where the kernel does, P tile by
+  tile (BK keys) against the running row max; the pre-pass's is
+  `one_pass_operands_reference`.
 
-`FLASH_FWD.launches` counts kernel launches, and `FLASH_FWD.one_pass`
+`FLASH_FWD.launches` counts attention launches, and `FLASH_FWD.one_pass`
 those of them in 1-pass mode, so a run can show that its attention went
-through the kernel, and in which mode.
+through the kernels, and in which mode; `ONE_PASS_PREP.launches` counts
+the pre-pass.
 """
 
 from __future__ import annotations
@@ -33,33 +38,62 @@ import torch
 import torch.nn.functional as F
 
 from parrot_tts_tpu_torch.core import kernels
+# the TF32 A fragment's k order (csrc/tf32x3.cuh): logical k t of 8 holds
+# element 2t, t + 4 element 2t + 1; here the key of each logical k of a
+# V^T tile
+from parrot_tts_tpu_torch.ops.fused_mrf import _K_ORDER
 from parrot_tts_tpu_torch.ops.precision import round_tf32
 
-D_HEADS = (64, 128)        # head widths the kernel is instantiated for
-BK = 32                    # the kernel's keys per tile
+D_HEADS = (64, 128)        # head widths the kernels are instantiated for
+BK = 32                    # keys per tile of both kernels; the 1-pass mode
+                           # rounds P per BK keys against the running max
 _MAX_GRID_Y = 65535
 
 
+def _entry(name: str, argtypes: list):
+    fn = getattr(kernels.load("flash_attn_fwd"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 class _FlashForward:
-    """The loaded kernel and its launch counts (one per process): all
-    launches, and the 1-pass ones among them."""
+    """The loaded kernels and their launch counts (one per process): all
+    attention launches, and the 1-pass ones among them."""
 
     def __init__(self):
         self.launches = 0
         self.one_pass = 0
+        self._fn = {}
+
+    def fn(self, passes: int):
+        if passes not in self._fn:
+            self._fn[passes] = (
+                _entry("flash_attn_fwd_f32", [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p]) if passes == 3
+                else _entry("flash_attn_1pass_f32", [ctypes.c_void_p] * 3
+                            + [ctypes.c_int] * 4
+                            + [ctypes.c_float, ctypes.c_void_p]))
+        return self._fn[passes]
+
+
+class _Prep:
+    """The 1-pass pre-pass and its launch count (one per process)."""
+
+    def __init__(self):
+        self.launches = 0
         self._fn = None
 
     def fn(self):
         if self._fn is None:
-            fn = kernels.load("flash_attn_fwd").flash_attn_fwd_f32
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = _entry("flash_attn_prep_f32", [ctypes.c_void_p] * 4
+                              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         return self._fn
 
 
 FLASH_FWD = _FlashForward()
+ONE_PASS_PREP = _Prep()
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -102,11 +136,117 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
 
 
+def one_pass_operands_reference(k: torch.Tensor, v: torch.Tensor,
+                                key_padding_mask: torch.Tensor | None
+                                ) -> torch.Tensor:
+    """Plain PyTorch: the pre-pass's scratch for (B, H, T, D) float32 k
+    and v, (B*H, ceil(T / BK), 2*D*BK + BK) float32. Each key tile holds
+    K rounded to TF32 as [D / 4][BK][4] (key n's d at [d / 4][n][d % 4]),
+    then the key bias [BK] (0, or -inf for a masked key or one past T),
+    then Vᵀ rounded to TF32 as [BK / 4][D][4] with its keys in `_K_ORDER`
+    within every 8 (logical key p's d at [p / 4][d][p % 4]); keys past T
+    are 0."""
+    b, h, t, d = k.shape
+    n = -(-t // BK)
+    pad = (0, 0, 0, n * BK - t)
+    kr = F.pad(round_tf32(k), pad).reshape(b * h, n, BK, d // 4, 4)
+    kr = kr.permute(0, 1, 3, 2, 4).reshape(b * h, n, -1)
+    valid = (torch.ones(b, t, dtype=torch.bool, device=k.device)
+             if key_padding_mask is None else ~key_padding_mask)
+    valid = F.pad(valid, (0, n * BK - t))
+    bias = torch.where(valid, 0.0, float("-inf")).reshape(b, 1, n, BK)
+    bias = bias.expand(b, h, n, BK).reshape(b * h, n, BK)
+    order = torch.tensor(_K_ORDER, device=k.device)
+    vr = F.pad(round_tf32(v), pad).reshape(b * h, n, BK // 8, 8, d)
+    vr = vr[:, :, :, order].reshape(b * h, n, BK // 4, 4, d)
+    vr = vr.permute(0, 1, 2, 4, 3).reshape(b * h, n, -1)
+    return torch.cat([kr, bias, vr], dim=-1).contiguous()
+
+
+def one_pass_operands(k: torch.Tensor, v: torch.Tensor,
+                      key_padding_mask: torch.Tensor | None) -> torch.Tensor:
+    """The 1-pass kernel's K, bias and Vᵀ tiles
+    (`one_pass_operands_reference`): the pre-pass kernel on a CUDA
+    tensor, the plain version on a CPU one."""
+    if k.device.type == "cpu":
+        return one_pass_operands_reference(k, v, key_padding_mask)
+    if k.device.type != "cuda":
+        raise ValueError(f"one_pass_operands: unsupported device {k.device}")
+    _check(k, k, v, key_padding_mask)
+    b, h, t, d = k.shape
+    n = -(-t // BK)
+    kv = torch.empty((b * h, n, 2 * d * BK + BK), dtype=torch.float32,
+                     device=k.device)
+    if kv.numel() == 0:
+        return kv
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream(k.device).cuda_stream
+        err = ONE_PASS_PREP.fn()(
+            k.data_ptr(), v.data_ptr(),
+            key_padding_mask.data_ptr() if key_padding_mask is not None
+            else None, kv.data_ptr(), b, h, t, d, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_prep launch failed: CUDA error {err}")
+    ONE_PASS_PREP.launches += 1
+    return kv
+
+
+def one_pass_attention_reference(q: torch.Tensor, kv: torch.Tensor,
+                                 scale: float) -> torch.Tensor:
+    """Plain PyTorch: the 1-pass mode's plain version on the K, V and key
+    padding that the pre-pass's tiles kv (`one_pass_operands_reference`)
+    hold for q's (B, H, T, D)."""
+    b, h, t, d = q.shape
+    n = kv.shape[1]
+    k = kv[..., :d * BK].reshape(b * h, n, d // 4, BK, 4)
+    k = k.permute(0, 1, 3, 2, 4).reshape(b, h, n * BK, d)[:, :, :t]
+    masked = torch.isinf(kv[..., d * BK:d * BK + BK]).reshape(b, h, -1)
+    inverse = torch.argsort(torch.tensor(_K_ORDER, device=kv.device))
+    v = kv[..., d * BK + BK:].reshape(b * h, n, BK // 4, d, 4)
+    v = v.permute(0, 1, 2, 4, 3).reshape(b * h, n, BK // 8, 8, d)
+    v = v[:, :, :, inverse].reshape(b, h, n * BK, d)[:, :, :t]
+    return flash_attention_reference(q, k.contiguous(), v.contiguous(),
+                                     masked[:, 0, :t].contiguous(), scale,
+                                     passes=1)
+
+
+def one_pass_attention(q: torch.Tensor, kv: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """The 1-pass kernel on q (B, H, T, D) float32 and the pre-pass's tiles
+    kv of its k, v and key padding (`one_pass_operands`); on a CPU tensor
+    its plain version (`one_pass_attention_reference`)."""
+    if q.device.type == "cpu":
+        return one_pass_attention_reference(q, kv, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, q, q, None)
+    b, h, t, d = q.shape
+    if (kv.dtype != torch.float32 or kv.device != q.device
+            or not kv.is_contiguous()
+            or kv.shape != (b * h, -(-t // BK), 2 * d * BK + BK)):
+        raise ValueError("one_pass_attention: kv is not one_pass_operands "
+                         "of q's shape on q's device")
+    out = torch.empty_like(q)
+    if t == 0 or b * h == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = FLASH_FWD.fn(1)(q.data_ptr(), kv.data_ptr(), out.data_ptr(),
+                              b, h, t, d, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_1pass launch failed: CUDA error "
+                           f"{err}")
+    FLASH_FWD.launches += 1
+    FLASH_FWD.one_pass += 1
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: torch.Tensor | None,
                     scale: float, passes: int = 3) -> torch.Tensor:
     """q, k, v: (B, H, T, D) float32; key_padding_mask: (B, T) bool or
-    None; passes: 3 (3xTF32) or 1 (one TF32 pass)."""
+    None; passes: 3 (3xTF32) or 1 (one TF32 pass: the pre-pass, then the
+    1-pass kernel)."""
     if passes not in (1, 3):
         raise ValueError(f"flash_attention: passes {passes} not in (1, 3)")
     if q.device.type == "cpu":
@@ -116,20 +256,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, key_padding_mask)
     b, h, t, d = q.shape
+    if passes == 1 and t and b * h:
+        return one_pass_attention(
+            q, one_pass_operands(k, v, key_padding_mask), scale)
     out = torch.empty_like(q)
     if t == 0 or b * h == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = FLASH_FWD.fn()(
+        err = FLASH_FWD.fn(3)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_padding_mask.data_ptr() if key_padding_mask is not None
-            else None,
-            out.data_ptr(), b, h, t, d, float(scale), passes, stream)
+            else None, out.data_ptr(), b, h, t, d, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
     FLASH_FWD.launches += 1
-    FLASH_FWD.one_pass += passes == 1
     return out
 
 

@@ -18,16 +18,18 @@ back, and unlike the JAX `mrf_fused` the kernel takes any T.
 `FUSED_MRF.launches` counts kernel launches.
 
 In bfloat16 (x, w and b bf16: the bf16 vocoder) the kernel's bf16 mode
-runs (bf16 wgmma, both operands in shared memory; C = 16, 32 or 64) and
+runs (bf16 wgmma, both operands in shared memory; the float32 mode's
+widths, every multiple of 8 up to 120) and
 the plain version follows the JAX kernel's rounding points on a bf16
 strip: each conv sums in float32 from its bf16 bias and is rounded to
 bf16 once, the leaky ReLU (bf16(0.1)) and y + t are taken in bf16, and the
 branches are summed in float32 and the mean rounded to bf16. That differs
 from the unfused bf16 composition, which rounds each conv before its bias
 and averages in bf16, as the JAX package's two routes differ.
-`kernel_weights` of bf16 weights lays out one slab per tap ([C / 8][C][8]),
-which the kernel copies into a ring of slots, or holds whole at C = 16
-(`tile_plan`'s `ring_slots` and `resident`).
+`kernel_weights` of bf16 weights lays out one slab per tap ([k16(C) / 8]
+[C][8], zero input channels past C at an odd C / 8), which the kernel
+copies into a ring of slots, or holds whole at C = 8 and 16 (`tile_plan`'s
+`ring_slots` and `resident`).
 """
 
 from __future__ import annotations
@@ -50,13 +52,14 @@ MAX_CHANNELS = 120         # the fused route takes stages below 128 channels
 UNIT_ROWS = 64             # csrc/fused_mrf.cu UNIT_ROWS: a warpgroup's unit
 RING_SLOTS = 2             # csrc/fused_mrf.cu NS
 RING_SLOTS_BF16 = {64: 8, 32: 12}   # csrc/fused_mrf.cu slots16: the bf16
-                                    # mode's ring at each width
-RESIDENT_BF16 = (16,)      # csrc/fused_mrf.cu resident16: bf16 widths whose
+                                    # ring at V1's widths; elsewhere as many
+                                    # slabs as fit in RING_BYTES_BF16, 3-12
+RING_BYTES_BF16 = 65536
+RESIDENT_BF16 = (8, 16)    # csrc/fused_mrf.cu resident16: bf16 widths whose
                            # whole weight stream stays in shared memory
 SMEM_BYTES = 232448        # shared memory a block may take on Hopper
 H100_SMS = 132
 _MAX_GRID_Y = 65535
-BF16_CHANNELS = (16, 32, 64)   # csrc/fused_mrf.cu mrf_kernel_bf16's widths
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -140,15 +143,28 @@ def _wgmma_n(c: int) -> int:
     return 64 if c == 64 else 32 if c % 32 == 0 else 16 if c % 16 == 0 else 8
 
 
-def _warpgroups(c: int) -> int:
-    """csrc/fused_mrf.cu warpgroups: 4 at C = 8 and 16, 3 at 32, else 2."""
+def _warpgroups(c: int, dtype: torch.dtype = torch.float32) -> int:
+    """csrc/fused_mrf.cu warpgroups: 4 at C = 8 and 16, 3 at 32, else 2;
+    in bfloat16 warpgroups16: 4 up to C = 24, 3 up to 56, 2 up to 112, 3
+    at 120."""
+    if dtype == torch.bfloat16:
+        return 4 if c <= 24 else 3 if c <= 56 else 2 if c <= 112 else 3
     return 4 if c in (8, 16) else 3 if c == 32 else 2
 
 
-def _rounds(c: int) -> int:
-    """csrc/fused_mrf.cu rounds: 64 x C units a warpgroup holds through a
-    conv."""
+def _rounds(c: int, dtype: torch.dtype = torch.float32) -> int:
+    """csrc/fused_mrf.cu rounds (rounds16 in bfloat16): 64 x C units a
+    warpgroup holds through a conv."""
+    if dtype == torch.bfloat16:
+        return (5 if c <= 24 else 4 if c <= 56 else 3 if c <= 96
+                else 2 if c <= 112 else 1)
     return {8: 5, 16: 5, 32: 4, 64: 3}.get(c, 2)
+
+
+def _k16(c: int) -> int:
+    """csrc/fused_mrf.cu k16: C rounded up to the bf16 wgmma's 16-deep
+    k-step (an odd C / 8 adds one zero plane of 8 channels)."""
+    return -(-c // 16) * 16
 
 
 def _strip_stride(c: int) -> int:
@@ -165,8 +181,11 @@ def _n_slabs(plan: MRFPlan) -> int:
 
 def _slots_bf16(c: int, slabs: int) -> int:
     """Weight slots in shared memory: the whole stream at a resident
-    width, else the ring."""
-    return slabs if c in RESIDENT_BF16 else RING_SLOTS_BF16[c]
+    width, else the ring (csrc/fused_mrf.cu slots16)."""
+    if c in RESIDENT_BF16:
+        return slabs
+    return RING_SLOTS_BF16.get(
+        c, min(12, max(3, RING_BYTES_BF16 // (2 * _k16(c) * c))))
 
 
 def _strip_rows(rows: int) -> int:
@@ -177,21 +196,25 @@ def _strip_rows(rows: int) -> int:
 
 def _smem_bf16(c: int, tb: int, halo: int, slabs: int) -> int:
     """csrc/fused_mrf.cu smem_bytes_bf16: a full and an empty mbarrier per
-    weight slot (padded to 128 bytes), the slots of one-tap slabs, two bf16
-    strips ([C / 8][rows][8], tb + 2 * halo rows rounded up to 4 mod 8),
-    the float32 branch sum of tb rows of C + 8, and 16 bytes a row for one
-    unit per warpgroup (a last round's unit reads that far past the
-    strips)."""
-    nslot = _slots_bf16(c, slabs)
-    return (-(-16 * nslot // 128) * 128 + 2 * nslot * c * c
-            + 2 * 2 * _strip_rows(tb + 2 * halo) * c + 4 * tb * (c + 8)
-            + 16 * UNIT_ROWS * _warpgroups(c))
+    weight slot (padded to 128 bytes), the slots of one-tap slabs
+    ([k16(C) / 8][C][8]), two bf16 strips ([C / 8][rows][8] and, read by
+    the products, [k16(C) / 8][rows][8]; tb + 2 * halo rows rounded up to
+    4 mod 8), the float32 branch sum of tb rows of `_strip_stride(C)`, and
+    16 bytes a row for one unit per warpgroup (a last round's unit reads
+    that far past the strips)."""
+    nslot, bf16 = _slots_bf16(c, slabs), torch.bfloat16
+    return (-(-16 * nslot // 128) * 128 + 2 * nslot * _k16(c) * c
+            + 2 * _strip_rows(tb + 2 * halo) * (c + _k16(c))
+            + 4 * tb * _strip_stride(c)
+            + 16 * UNIT_ROWS * _warpgroups(c, bf16))
 
 
 def _tb_max_bf16(c: int, halo: int, slabs: int) -> int:
     """The longest bf16 tile (a multiple of 16): its strips within the
     warpgroups' rounds of units and within shared memory."""
-    tb = (UNIT_ROWS * _warpgroups(c) * _rounds(c) - 2 * halo) // 16 * 16
+    bf16 = torch.bfloat16
+    tb = (UNIT_ROWS * _warpgroups(c, bf16) * _rounds(c, bf16)
+          - 2 * halo) // 16 * 16
     while tb >= 16 and _smem_bf16(c, tb, halo, slabs) > SMEM_BYTES:
         tb -= 16
     return tb
@@ -223,10 +246,11 @@ def conv_walk(plan: MRFPlan, tb: int) -> list[tuple[int, int, int, int, int,
     return out
 
 
-def _rows_computed(plan: MRFPlan, tb: int) -> int:
+def _rows_computed(plan: MRFPlan, tb: int,
+                   dtype: torch.dtype = torch.float32) -> int:
     """Rows a block's convs compute: each conv in rounds of one 64-row
     unit per warpgroup."""
-    step = UNIT_ROWS * _warpgroups(plan.channels)
+    step = UNIT_ROWS * _warpgroups(plan.channels, dtype)
     return sum(-(-(hi - lo) // step) * step
                for *_, lo, hi in conv_walk(plan, tb))
 
@@ -255,9 +279,10 @@ def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
 
     def cost(tb):
         if shape is None:
-            return _rows_computed(plan, tb) / tb, -tb
+            return _rows_computed(plan, tb, dtype) / tb, -tb
         bsz, t = shape
-        return -(-bsz * -(-t // tb) // sms) * _rows_computed(plan, tb), -tb
+        return (-(-bsz * -(-t // tb) // sms)
+                * _rows_computed(plan, tb, dtype), -tb)
 
     floor = min(tb_max, max(16, -(-2 * halo // 16) * 16))
     tb = min(range(floor, tb_max + 1, 16), key=cost)
@@ -267,10 +292,12 @@ def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
             else 4 * (2 * (tb + 2 * halo) * _strip_stride(c)
                       + RING_SLOTS * 2 * min(n, 32) * c))
     return MRFTile(channels=c, halo=halo, tb=tb, wgmma_n=n,
-                   warpgroups=_warpgroups(c), rounds=_rounds(c),
+                   warpgroups=_warpgroups(c, dtype),
+                   rounds=_rounds(c, dtype),
                    strip_stride=c if bf16 else _strip_stride(c),
                    smem_bytes=smem,
-                   recompute=_rows_computed(plan, tb) / (n_convs * tb),
+                   recompute=(_rows_computed(plan, tb, dtype)
+                              / (n_convs * tb)),
                    dtype=dtype,
                    ring_slots=_slots_bf16(c, slabs) if bf16 else RING_SLOTS,
                    resident=bf16 and c in RESIDENT_BF16)
@@ -293,9 +320,11 @@ def kernel_weights(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
     TF32 hi half, then its lo half, each K-major [k_chunk / 4][Co][4] (the
     wgmma's no-swizzle layout), the input channels of every 8 in the order
     _K_ORDER (the A fragment's: k t holds channel 2t, k t + 4 channel
-    2t + 1). For bfloat16 w, one bf16 slab per tap: K-major [C / 8][C][8]
-    (input channel 8q + j of output channel co at [q][co][j]), the order in
-    which the strips' [C / 8][rows][8] planes give the A operand its k."""
+    2t + 1). For bfloat16 w, one bf16 slab per tap: K-major [k16(C) / 8]
+    [C][8] (input channel 8q + j of output channel co at [q][co][j]; the
+    last 8 input channels zero at an odd C / 8, where the 16-deep k-steps
+    run one plane past C), the order in which the strips' [C / 8][rows][8]
+    planes give the A operand its k."""
     c = plan.channels
     if w.dtype == torch.bfloat16:
         return _kernel_weights_bf16(w, plan)
@@ -316,11 +345,13 @@ def kernel_weights(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
 
 def _kernel_weights_bf16(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
     c = plan.channels
-    if c % 16:
+    if c % CHANNEL_QUANTUM:
         raise ValueError(f"mrf_fused: {c} channels; the bf16 kernel takes "
-                         f"{BF16_CHANNELS}")
-    # [tap][ci][co] of every conv, in pack order -> [tap][ci / 8][co][8]
-    kern = w.reshape(-1, c // 8, 8, c)
+                         f"multiples of {CHANNEL_QUANTUM}")
+    # [tap][ci][co] of every conv, in pack order -> [tap][ci / 8][co][8],
+    # with zero input channels up to k16(C)
+    kern = F.pad(w.reshape(-1, c, c), (0, 0, 0, _k16(c) - c))
+    kern = kern.reshape(-1, _k16(c) // 8, 8, c)
     return kern.permute(0, 1, 3, 2).contiguous().reshape(-1)
 
 
@@ -417,9 +448,11 @@ def mrf_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if wk is None:
         wk = kernel_weights(w, plan)
     bf16 = x.dtype == torch.bfloat16
+    c = plan.channels
     if (wk.dtype != x.dtype or wk.device != x.device
             or not wk.is_contiguous()
-            or wk.shape != ((1 if bf16 else 2) * w.numel(),)
+            or wk.shape != ((w.numel() // c * _k16(c) if bf16
+                             else 2 * w.numel()),)
             or wk.data_ptr() % 16):
         raise ValueError("mrf_fused: wk is not kernel_weights(w, plan) on "
                          "x's device")
@@ -484,9 +517,6 @@ def _check(x, w, b, plan: MRFPlan) -> None:
               for k, d in zip(plan.kernel_sizes, plan.dilations))
     if w.shape != (n_w,) or b.shape != (2 * n_pairs * c,):
         raise ValueError("mrf_fused: packed weights do not fit the plan")
-    if x.dtype == torch.bfloat16 and c not in BF16_CHANNELS:
-        raise ValueError(f"mrf_fused: {c} channels; the bf16 kernel takes "
-                         f"{BF16_CHANNELS}")
     if x.shape[0] > _MAX_GRID_Y:
         raise ValueError(f"mrf_fused: B = {x.shape[0]} > {_MAX_GRID_Y}")
     # raises for a halo the strips cannot hold

@@ -207,14 +207,17 @@ def _mrf_inputs(seed, b, t, c):
 def emulate_bf16(x, wk, b, plan, tb):
     """csrc/fused_mrf.cu's bf16 mode on x (B, T, C), in torch: the strip
     walk of `conv_walk`, each conv's products from the bf16 weight slabs
-    `kernel_weights` lays out (one tap, [C / 8][C][8]), in the order the
-    kernel's wgmmas carry them: one float32 sum per conv that starts at
-    the bias and takes each tap's 16-input k-steps in turn, rounded to
-    bf16 once at the conv's end; leaky and y + t in bf16; the branch sum
-    in float32."""
+    `kernel_weights` lays out (one tap, [k16(C) / 8][C][8]), in the order
+    the kernel's wgmmas carry them: one float32 sum per conv that starts
+    at the bias and takes each tap's 16-input k-steps in turn (at an odd
+    C / 8 the last over C - 8..C and a zero plane, against the slab's zero
+    rows), rounded to bf16 once at the conv's end; leaky and y + t in
+    bf16; the branch sum in float32."""
     bsz, t, c = x.shape
+    kc = fused_mrf._k16(c)
     h, length = plan.halo, tb + 2 * plan.halo
-    slabs = wk.reshape(-1, c // 8, c, 8).permute(0, 1, 3, 2).reshape(-1, c, c)
+    slabs = wk.reshape(-1, kc // 8, c, 8).permute(0, 1, 3, 2).reshape(
+        -1, kc, c)
     nb = len(plan.kernel_sizes)
     out = torch.full((bsz, t, c), math.nan)
     for blk in range(-(-t // tb)):
@@ -233,8 +236,9 @@ def emulate_bf16(x, wk, b, plan, tb):
                 src = activation.leaky_relu(y, 0.1) if cv == 0 else lt
                 acc = b[off * c:(off + 1) * c].float().expand(bsz, hi - lo, c)
                 for tap in range(k):
-                    a = src[:, lo + tap * d - pad:hi + tap * d - pad].float()
-                    for k0 in range(0, c, 16):
+                    a = F.pad(src[:, lo + tap * d - pad:hi + tap * d - pad]
+                              .float(), (0, kc - c))     # the zero plane
+                    for k0 in range(0, kc, 16):
                         acc = acc + (a[..., k0:k0 + 16]
                                      @ slabs[s, k0:k0 + 16].float())
                     s += 1
@@ -251,7 +255,9 @@ def emulate_bf16(x, wk, b, plan, tb):
 
 
 @pytest.mark.parametrize("b,t,c,tb", [(2, 300, 16, None), (1, 257, 32, 16),
-                                      (1, 90, 64, None)])
+                                      (1, 90, 64, None), (2, 150, 8, None),
+                                      (1, 130, 24, 32), (1, 100, 48, None),
+                                      (1, 70, 120, None)])
 def test_emulated_bf16_kernel_within_the_card_gate(b, t, c, tb):
     """The bf16 mode's walk, slabs and rounding points, emulated, stay
     within the card's gate of the kernel against its plain version
@@ -262,12 +268,43 @@ def test_emulated_bf16_kernel_within_the_card_gate(b, t, c, tb):
     assert -(-(tile.tb + 2 * plan.halo) // fused_mrf.UNIT_ROWS) <= (
         tile.warpgroups * tile.rounds)
     wk = fused_mrf.kernel_weights(w, plan)
-    assert wk.dtype == BF16 and wk.shape == w.shape
+    assert wk.dtype == BF16
+    assert wk.numel() == w.numel() // c * fused_mrf._k16(c)
     want = fused_mrf.mrf_fused_reference(x, w, bias, plan)
     got = emulate_bf16(x, wk, bias, plan, tb or tile.tb)
     assert torch.isfinite(got.float()).all()
     err = float((got.float() - want.float()).abs().max())
     assert err <= MRF_ULP_RTOL * float(want.float().abs().max()), err
+
+
+# (tb, warpgroups, units per warpgroup, weight slots, resident,
+# shared-memory bytes) of the bf16 tile at each width, halo 60 (V1's
+# resblocks): csrc/fused_mrf.cu's header
+BF16_TILES = {
+    8: (1152, 4, 5, 126, True, 210240), 16: (944, 4, 5, 126, True, 229632),
+    24: (688, 4, 5, 12, False, 223808), 32: (640, 3, 4, 12, False, 228096),
+    40: (368, 3, 4, 12, False, 218432), 48: (352, 3, 4, 12, False, 228864),
+    56: (240, 3, 4, 9, False, 224320), 64: (240, 2, 3, 8, False, 230016),
+    72: (192, 2, 3, 5, False, 223424), 80: (176, 2, 3, 5, False, 224128),
+    88: (160, 2, 3, 3, False, 223936), 96: (144, 2, 3, 3, False, 220288),
+    104: (112, 2, 2, 3, False, 227776), 112: (96, 2, 2, 3, False, 222080),
+    120: (64, 3, 1, 3, False, 223424)}
+
+
+@pytest.mark.parametrize("c", sorted(BF16_TILES))
+def test_every_bf16_width_tiles(c):
+    """At every width the bf16 tile fits the SM's shared memory, its strip
+    fits the warpgroups' rounds of 64-row units (each unit's C / 2 sums a
+    thread within the registers of its warpgroup count), and the tile is
+    the one csrc/fused_mrf.cu states."""
+    t = fused_mrf.tile_plan(fused_mrf.MRFPlan(c, KS, DS, 60), dtype=BF16)
+    assert (t.tb, t.warpgroups, t.rounds, t.ring_slots, t.resident,
+            t.smem_bytes) == BF16_TILES[c]
+    assert t.smem_bytes <= fused_mrf.SMEM_BYTES and t.tb >= 16
+    assert -(-(t.tb + 120) // fused_mrf.UNIT_ROWS) <= t.warpgroups * t.rounds
+    # a unit's sums, c / 2 floats a thread, within 65536 / threads registers
+    assert t.rounds * c // 2 <= min(255, 65536 // (128 * t.warpgroups)) - 40
+    assert t.resident or 3 <= t.ring_slots <= 12
 
 
 def test_v1_bf16_tiles():
@@ -285,18 +322,31 @@ def test_v1_bf16_tiles():
 
 
 def test_mrf_fused_bf16_takes_only_the_kernels_widths():
+    """The bf16 mode takes the float32 mode's widths, every multiple of 8
+    up to 120 (its zero plane pads an odd C / 8 to the 16-deep k-step),
+    and no other."""
     x, w, b, plan = _mrf_inputs(0, 1, 20, 16)
-    fused_mrf._check(x, w, b, plan)
     with pytest.raises(TypeError, match="bfloat16"):
         fused_mrf._check(x, w.float(), b, plan)
-    x8, w8, b8, plan8 = _mrf_inputs(0, 1, 20, 48)
-    with pytest.raises(ValueError, match="bf16 kernel"):
-        fused_mrf._check(x8, w8, b8, plan8)
+    for c in range(8, 121, 8):
+        x, w, b, plan = _mrf_inputs(c, 1, 20, c)
+        fused_mrf._check(x, w, b, plan)
+        wk = fused_mrf.kernel_weights(w, plan)
+        taps = wk.reshape(-1, fused_mrf._k16(c) // 8, c, 8)
+        assert taps.shape[0] == w.numel() // (c * c)
+        assert not taps[:, c // 8:].any()       # the zero rows, if any
+    for c in (12, 128):
+        x, w, b, plan = _mrf_inputs(c, 1, 20, c)
+        with pytest.raises(ValueError, match="channels"):
+            fused_mrf._check(x, w, b, plan)
 
 
-# (mode, fold_tail of the JAX side, fused_mrf)
+# (mode, fold_tail of the JAX side, fused_mrf); "fused-c64" is the fused
+# route at upsample_initial_channel 64, whose stages (32, 16 and 8
+# channels) JAX folds and fuses too
 MODES = [("none", False, False), ("fused", True, True), ("int8", False, False),
-         ("int8-tail", True, False), ("int8-static", False, False)]
+         ("int8-tail", True, False), ("int8-static", False, False),
+         ("fused-c64", True, True)]
 
 
 def _serve(model, code, spkr, qscales=None):
@@ -324,8 +374,10 @@ def test_generator_bf16_matches_jax(rng, mode, fold_tail, fused):
     on the same folded weights, and against the port's own float32 within
     the bf16 budgets (module docstring)."""
     static = mode == "int8-static"
-    quant_mode = "none" if mode == "fused" else mode
-    jcfg, folded, model = _build(TINY, "1", "none" if static else quant_mode,
+    quant_mode = "none" if fused else mode
+    cfg = dict(TINY, upsample_initial_channel=64) if mode == "fused-c64" \
+        else TINY
+    jcfg, folded, model = _build(cfg, "1", "none" if static else quant_mode,
                                  fold_tail, fused_mrf_=fused)
     jcfg16 = dataclasses.replace(jcfg, dtype="bfloat16", quant=quant_mode)
     code = rng.integers(0, 40, size=(2, 24)).astype(np.int32)

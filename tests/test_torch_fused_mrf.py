@@ -142,3 +142,45 @@ def test_fused_route_needs_its_packed_stages(rng):
     assert model.mrf_plans[1] == plan and plan.channels == 8
     y = gen.apply_code_generator(model, code, [0], device="cpu")
     assert y.shape == (1, 12 * 16, 1) and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("channels,widths", [(16, (8, 4)), (48, (24, 12))])
+def test_fused_route_pads_a_stage_off_the_kernels_quantum(rng, monkeypatch,
+                                                          channels, widths):
+    """A fused stage whose width is not a multiple of 8 (4 and 12 here)
+    runs the kernel at the next multiple of 8 on zero-padded weights,
+    biases and input channels, which stay 0 through the stage; the result
+    is JAX's serving forward with fused_mrf=True on the same weights (it
+    folds and fuses where its lane layout takes the length)."""
+    cfg = dict(CFG, upsample_initial_channel=channels)
+    jcfg = JaxVocoderConfig(**cfg, fused_mrf=True)
+    tcfg = VocoderModelConfig(**cfg, fused_mrf=True)
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(
+        jax_gen.init_code_generator, static_argnums=1)(jax.random.key(2),
+                                                       jcfg))
+    code = rng.integers(0, 20, size=(2, 32)).astype(np.int32)
+    spkr = np.array([1, 2], np.int32)
+    want = np.asarray(jax_gen.apply_code_generator(
+        jax_gen.fold_params(jax.tree_util.tree_map(jnp.asarray, params)),
+        jnp.asarray(code), jnp.asarray(spkr), jcfg))
+
+    model = gen.CodeGenerator(tcfg, weight_norm=False)
+    with torch.no_grad():
+        model.load_state_dict(gen.fold_params(
+            generator_state_from_jax(params, tcfg)), strict=True)
+    model.pack_fused_mrf()
+    kernel = [-(-c // 8) * 8 for c in widths]
+    assert [model.mrf_plans[i].channels for i in (0, 1)] == kernel
+    w, b, _ = gen.pack_stage(model, 1)
+    c = widths[1]
+    taps = w.reshape(-1, kernel[1], kernel[1])        # (tap, Ci, Co)
+    assert not taps[:, c:].any() and not taps[:, :, c:].any()
+    assert not b.reshape(-1, kernel[1])[:, c:].any()
+    calls = []
+    real = fused_mrf.mrf_fused_reference
+    monkeypatch.setattr(fused_mrf, "mrf_fused_reference",
+                        lambda x, *a: calls.append(x.shape) or real(x, *a))
+    got = gen.apply_code_generator(model.eval(), code, spkr,
+                                   device="cpu").numpy()
+    assert calls == [(2, 32 * 4, kernel[0]), (2, 32 * 16, kernel[1])]
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)

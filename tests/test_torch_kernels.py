@@ -19,6 +19,7 @@ from parrot_tts_tpu_torch.core.device import exact_numerics
 from parrot_tts_tpu_torch.ops import flash_attention as fa
 from parrot_tts_tpu_torch.ops import flash_dropout as fd
 from parrot_tts_tpu_torch.ops import fused_mrf, qconv, quant
+from parrot_tts_tpu_torch.ops.precision import round_tf32
 
 
 @pytest.fixture
@@ -79,12 +80,14 @@ def test_cpu_tensors_take_the_plain_version(rng):
 def test_one_pass_on_cpu_is_its_plain_version(rng):
     q, k, v, mask = _inputs(rng, 2, 2, 40, 64, all_masked_row=1)
     before = fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass
+    prep = fa.ONE_PASS_PREP.launches
     got = fa.flash_attention(q, k, v, mask, 0.125, passes=1)
     torch.testing.assert_close(
         got, fa.flash_attention_reference(q, k, v, mask, 0.125, passes=1),
         rtol=0, atol=0)
     assert torch.equal(got[1], torch.zeros_like(got[1]))
     assert (fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass) == before
+    assert fa.ONE_PASS_PREP.launches == prep
     for passes in (0, 2):
         with pytest.raises(ValueError):
             fa.flash_attention(q, k, v, mask, 0.125, passes=passes)
@@ -118,8 +121,86 @@ def test_one_pass_gate_tells_rounding_apart(rng, monkeypatch):
     assert gate(ieee)[1:] == (False, False)
 
 
+def test_one_pass_operands_are_the_kernels_layout(rng):
+    """The pre-pass's plain version lays each key tile out as
+    csrc/flash_attn_fwd.cu's 1-pass kernel reads it: K rounded to TF32 as
+    [D / 4][BK][4] (the B operand of S = Q Kᵀ, K-major), the key bias, and
+    Vᵀ rounded as [BK / 4][D][4] whose logical k of every 8 holds key
+    _K_ORDER[k], the key of the P fragment's logical k (accumulator keys
+    2t, 2t + 1 at k t, t + 4): so the products over the tile's logical k
+    are P V over its keys."""
+    b, h, t, d, bk = 2, 2, 70, 64, fa.BK
+    q, k, v, mask = _inputs(rng, b, h, t, d, all_masked_row=1)
+    kv = fa.one_pass_operands(k, v, mask)
+    n = -(-t // bk)
+    assert kv.shape == (b * h, n, 2 * d * bk + bk)
+    tiles_k = kv[..., :d * bk].reshape(b * h, n, d // 4, bk, 4)
+    bias = kv[..., d * bk:d * bk + bk]
+    tiles_v = kv[..., d * bk + bk:].reshape(b * h, n, bk // 4, d, 4)
+    keys = torch.arange(n * bk)
+    tile, key = keys // bk, keys % bk
+    dd = torch.arange(d)
+    # key j's d at [d / 4][j % BK][d % 4] of tile j / BK; 0 past T
+    got_k = tiles_k[:, tile[:, None], dd // 4, key[:, None], dd % 4]
+    want_k = torch.nn.functional.pad(
+        round_tf32(k), (0, 0, 0, n * bk - t)).reshape(b * h, -1, d)
+    assert torch.equal(got_k, want_k)
+    valid = torch.nn.functional.pad(~mask, (0, n * bk - t))
+    assert torch.equal(bias.reshape(b, h, -1),
+                       torch.where(valid, 0.0, float("-inf"))[:, None]
+                       .expand(b, h, -1))
+    # logical key p of a tile, at [p / 4][d][p % 4], is key
+    # 8 (p / 8) + _K_ORDER[p % 8]
+    p = torch.arange(bk)
+    got_v = tiles_v[:, :, p[:, None] // 4, dd, p[:, None] % 4]
+    order = 8 * (p // 8) + torch.tensor(fa._K_ORDER)[p % 8]
+    want_v = torch.nn.functional.pad(
+        round_tf32(v), (0, 0, 0, n * bk - t)).reshape(b * h, n, bk, d)
+    assert torch.equal(got_v, want_v[:, :, order])
+    # the P fragment of k-step kc (a0..a3 = accumulator elements 4kc, 4kc+2,
+    # 4kc+1, 4kc+3: rows g, g+8 at keys 8kc+2t, 8kc+2t+1) is logical k t /
+    # t + 4 of keys 8kc+2t / 8kc+2t+1: its product with the logical Vᵀ is
+    # P V over the tile's keys
+    pk = torch.rand(5, bk)
+    logical = torch.empty_like(pk)
+    for kc in range(bk // 8):
+        for tt in range(4):
+            logical[:, 8 * kc + tt] = pk[:, 8 * kc + 2 * tt]
+            logical[:, 8 * kc + tt + 4] = pk[:, 8 * kc + 2 * tt + 1]
+    torch.testing.assert_close(logical.double() @ got_v[0, 0].double(),
+                               pk.double() @ want_v[0, 0].double(),
+                               rtol=1e-12, atol=0)
+    # the tiles hold the attention's whole operands: its plain version
+    # from them is the 1-pass plain version
+    assert torch.equal(fa.one_pass_attention(q, kv, 0.125),
+                       fa.flash_attention_reference(q, k, v, mask, 0.125,
+                                                    passes=1))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,d", [(777, 128), (2048, 128), (130, 64)])
+@pytest.mark.parametrize("t,d,masked", [(1, 128, True), (1, 64, False),
+                                        (70, 64, True), (2049, 128, True)])
+def test_one_pass_prep_kernel_is_its_plain_version_on_card(cuda_device, t, d,
+                                                           masked):
+    """The pre-pass kernel writes its plain version's tiles bit for bit:
+    the same cvt.rna rounding, the same layout, zero keys past T."""
+    rng = np.random.default_rng(t + d)
+    _, k, v, mask = _inputs(rng, 3, 2, t, d, cuda_device,
+                            all_masked_row=2 if masked else None)
+    mask = mask if masked else None
+    before = fa.ONE_PASS_PREP.launches
+    got = fa.one_pass_operands(k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.ONE_PASS_PREP.launches == before + 1
+    assert torch.equal(got, fa.one_pass_operands_reference(k, v, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(777, 128), (2048, 128), (130, 64),
+                                 # T = 1, ragged against the 128-query
+                                 # blocks and 32-key tiles, both widths
+                                 (1, 128), (1, 64), (63, 64), (129, 128),
+                                 (3583, 128), (1000, 64)])
 def test_one_pass_kernel_matches_its_plain_version_on_card(cuda_device, t, d):
     """Row 1's 1-pass TF32 mode against its plain version, which rounds
     q, k, P (tile by tile, against the running row max) and v to TF32 where
@@ -131,11 +212,12 @@ def test_one_pass_kernel_matches_its_plain_version_on_card(cuda_device, t, d):
     rng = np.random.default_rng(t + d)
     q, k, v, mask = _inputs(rng, 4, 2, t, d, cuda_device, all_masked_row=2)
     scale = 1.0 / math.sqrt(d)
-    before = fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass
+    before = (fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass,
+              fa.ONE_PASS_PREP.launches)
     got = fa.flash_attention(q, k, v, mask, scale, passes=1)
     torch.cuda.synchronize()
-    assert (fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass) == (
-        before[0] + 1, before[1] + 1)
+    assert (fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass,
+            fa.ONE_PASS_PREP.launches) == tuple(n + 1 for n in before)
     with exact_numerics(True):
         want = fa.flash_attention_reference(q, k, v, mask, scale, passes=1)
         ieee = fa.flash_attention_reference(q, k, v, mask, scale)
@@ -491,7 +573,11 @@ def test_fused_mrf_matches_plain_on_card(cuda_device, b, t, c):
     (3, 2999, 64), (3, 4001, 32), (3, 6007, 16),
     # many waves of blocks, each ending on a ragged tile: (2, 327680, 16)
     # is a 1024-code batch's C = 16 launch
-    (5, 20000, 64), (3, 100003, 32), (2, 327680, 16)])
+    (5, 20000, 64), (3, 100003, 32), (2, 327680, 16),
+    # the other widths: resident at 8, a zero plane at odd C / 8 (8, 24,
+    # 120), rings of 3 to 12 slots
+    (3, 40003, 8), (2, 10007, 24), (3, 5001, 48), (2, 3001, 96),
+    (2, 2003, 120)])
 def test_fused_mrf_bf16_matches_plain_on_card(cuda_device, b, t, c):
     """Row 6's bf16 mode against its bf16 plain version: both round at the
     JAX kernel's points and sum in float32 in another order, so an element
@@ -515,7 +601,9 @@ def test_fused_mrf_bf16_matches_plain_on_card(cuda_device, b, t, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,c", [(3, 40961, 64), (2, 81923, 32),
-                                   (3, 163843, 16)])
+                                   (3, 163843, 16), (2, 163841, 8),
+                                   (2, 40963, 24), (2, 20483, 48),
+                                   (2, 10241, 96), (2, 10243, 120)])
 def test_fused_mrf_bf16_launches_are_bit_equal_on_card(cuda_device, b, t, c):
     """Row 6's bf16 mode gives the same bits twice: every block owns its
     rows and sums in a fixed order (no atomics), whatever the order in
