@@ -11,25 +11,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    per source in parallel, with each one's ptxas register and spill report
    (phases 3, 5 and 10 repeat those of the two attention forwards and of
    every fused-MRF instantiation; phase 5 fails on a fused-MRF spill);
-3. flash attention against plain: the flash-attention forward (row 1:
-   3xTF32 products on the TF32 tensor cores, mma.sync m16n8k8, cp.async
-   ring of 32-key tiles, IEEE float32 softmax) against its IEEE float32
-   plain PyTorch version, H=2, d_head=128, at B=8 and T up to 3584 (with
-   key padding, one all-masked row and a ragged T), at every (B, T) the
-   serving phase gives it, and a d_head=64 case; max |diff| <= 1e-5 on rows
-   with a valid key, all-masked rows exactly 0; kernel, plain, bound (the
-   3xTF32 tensor-core bound beside the float32 CUDA-core one) and
-   scaled_dot_product_attention ms (and its max |diff|) per shape; and at
-   every shape, and at (64, 2048, 128), the 1-pass TF32 mode (its own
-   kernels: a pre-pass writes K and V^T rounded to TF32 in wgmma's tile
-   layout, bit-equal to its plain version; the kernel on wgmma, both its
-   kernels' ptxas registers printed, a spill failing the phase) against
-   its plain version, which rounds q, k, P (tile by tile, against the
-   running row max) and v where the kernel does (max |diff| <= 2^-10 max
-   |v| + 1e-5, RMS <= 1/4 of the plain version's RMS distance from IEEE,
-   all-masked rows exactly 0), more than 1e-5 from the IEEE version (so it
-   rounds), the mode's ms and each kernel's alone, the TF32 bound, the
-   pre-pass's bound and SDPA's ms with TF32 allowed;
+3. flash attention against plain: the flash-attention forward (row 1;
+   every kernel of its source has its ptxas registers printed, and a
+   spill fails the phase) in its 3xTF32 mode (two kernels: a pre-pass
+   writes K and V^T split into TF32 hi and lo planes in wgmma's tile
+   layout, bit-equal to its plain version; the kernel on wgmma, 3xTF32
+   products summed in short partials that IEEE float32 adds, IEEE float32
+   softmax) against its IEEE float32 plain PyTorch version, H=2,
+   d_head=128, at B=8 and T up to 3584 (with key padding, one all-masked
+   row and a ragged T), at every (B, T) the serving phase gives it, a
+   d_head=64 case and (64, 2048, 128), phase 4's full decode batch; max
+   |diff| <= 1e-5 on rows with a valid key, all-masked rows exactly 0; the
+   mode's ms and each kernel's alone, plain, bound (the 3xTF32
+   tensor-core bound beside the float32 CUDA-core one), the pre-pass's
+   bound and scaled_dot_product_attention ms (and its max |diff|) per
+   shape; and at every shape the 1-pass TF32 mode (its own two kernels: a
+   pre-pass writes K and V^T rounded to TF32, bit-equal to its plain
+   version; the kernel on wgmma) against its plain version, which rounds
+   q, k, P (tile by tile, against the running row max) and v where the
+   kernel does (max |diff| <= 2^-10 max |v| + 1e-5, RMS <= 1/4 of the
+   plain version's RMS distance from IEEE, all-masked rows exactly 0),
+   more than 1e-5 from the IEEE version (so it rounds), the mode's ms and
+   each kernel's alone, the TF32 bound, the pre-pass's bound and SDPA's ms
+   with TF32 allowed;
 4. serving at full width: the default TTEModelConfig (d_model 256, 4+4 FFT
    blocks, 2 heads of 128) and V1 VocoderModelConfig with seeded weights,
    through ParrotTTS.tts twice in its default decode mode,
@@ -44,7 +48,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    each mode's counts per FFT block and decode batch: no 1-pass launch in
    exact=True and "selective-high", "selective"'s decoder blocks all
    1-pass and its encoder blocks 3xTF32, the hybrid as "selective" plus
-   its re-decode, one 1-pass pre-pass per 1-pass launch; each repeatable;
+   its re-decode, one pre-pass of its mode per launch; each repeatable;
    TTE seconds per mode over 3 warm
    decodes, CUDA events, beside the card's name and power limit), and each
    decode batch's logits: "selective-high" bit-equal to exact=True (near-tie
@@ -499,11 +503,14 @@ def ptxas_registers(log: str) -> dict:
     out, name = {}, None
     for line in log.splitlines():
         if "entry function" in line:
-            m = re.search(r"(flash_fwd|fwd|dq|dkv)_kernelILi(\d+)E", line)
+            m = re.search(r"(fwd|dq|dkv)_kernelILi(\d+)E", line)
             name = m and f"{m.group(1)}_kernel<{m.group(2)}>"
-            m = re.search(r"one_pass\d+(attn|prep)_kernelILi(\d+)E", line)
-            if m:       # row 1's 1-pass kernel and its pre-pass, at D
-                name = f"one_pass::{m.group(1)}_kernel<{m.group(2)}>"
+            m = re.search(r"(one|three)_pass\d+attn_kernelILi(\d+)E", line)
+            if m:       # row 1's kernel of a mode, at D
+                name = f"{m.group(1)}_pass::attn_kernel<{m.group(2)}>"
+            m = re.search(r"prep_kernelILi(\d+)ELi(\d)E", line)
+            if m:       # row 1's pre-pass at <D, planes>
+                name = f"prep_kernel<{m.group(1)}, {m.group(2)}>"
             m = re.search(r"mrf_kernelILi(\d+)ELi(\d+)E", line)
             if m:       # <C, wgmma n>; C = 0: a runtime-C instantiation
                 name = f"mrf_kernel<{m.group(1)}, {m.group(2)}>"
@@ -541,15 +548,81 @@ def one_pass_gate(got, want, ieee, v) -> tuple[float, ...]:
             ONE_PASS_RMS_SHARE * rms(want - ieee))
 
 
-def prep_bound_ms(b: int, h: int, t: int, d: int) -> tuple[float, str]:
-    """The 1-pass pre-pass's bound: k and v read once, the mask bytes, its
-    tiles (K, the key bias and V^T, 2 * D * BK + BK floats per 32-key tile)
-    written once; its rounding is a few operations per element."""
+def prep_bound_ms(b: int, h: int, t: int, d: int,
+                  parts: int = 1) -> tuple[float, str]:
+    """A row-1 pre-pass's bound: k and v read once, the mask bytes, its
+    tiles (`parts` planes each of K and V^T and the key bias, 2 * parts *
+    D * BK + BK floats per 32-key tile) written once; one operation per
+    element to round (parts 1), four to split (parts 2)."""
     from parrot_tts_tpu_torch.ops.flash_attention import BK
 
-    tiles = b * h * -(-t // BK) * (2 * d * BK + BK)
-    return bound(2.0 * b * h * t * d, FP32_PEAK,
+    tiles = b * h * -(-t // BK) * (2 * parts * d * BK + BK)
+    return bound((2.0 if parts == 1 else 8.0) * b * h * t * d, FP32_PEAK,
                  8.0 * b * h * t * d + b * t + 4.0 * tiles)
+
+
+def split_readings(fa, exact_numerics, q, k, v, mask, scale, want, keep,
+                   masked_row, reps: int) -> dict:
+    """Row 1's 3xTF32 mode at one shape (phase 3): its pre-pass bit-equal
+    to its plain version; the mode (pre-pass and kernel) within ATOL of
+    `want`, the IEEE float32 plain version, all-masked rows exactly 0; ms
+    of the mode (calls back to back, as a decode makes them), of each
+    kernel alone (queued) and of the plain versions, the 3xTF32, float32
+    and pre-pass bounds, and SDPA's ms and max |diff| in float32."""
+    b, h, t, d = q.shape
+    with exact_numerics(True):
+        kv = fa.split_operands(k, v, mask)
+        kv_want = fa.split_operands_reference(k, v, mask)
+        got = fa.flash_attention(q, k, v, mask, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(kv, kv_want):
+            raise AssertionError(f"B={b} T={t} d={d}: the 3xTF32 pre-pass "
+                                 "differs from its plain version")
+        del kv_want
+        if masked_row is not None and not torch.equal(
+                got[masked_row], torch.zeros_like(got[masked_row])):
+            raise AssertionError(f"B={b} T={t}: all-masked row is not "
+                                 "exactly 0")
+        err = float((got[keep] - want[keep]).abs().max())
+        if not err <= ATOL:
+            raise AssertionError(f"B={b} T={t} d={d}: max |diff| {err} > "
+                                 f"{ATOL}")
+        del got
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask, scale), reps)
+        # each kernel alone, queued ahead of the device
+        kernel_ms = queued_ms(lambda: fa.split_attention(q, kv, scale), reps)
+        prep_ms = queued_ms(lambda: fa.split_operands(k, v, mask), reps)
+        plain_reps = max(2, reps // 4)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, mask, scale), plain_reps)
+        prep_plain_ms = cuda_ms(lambda: fa.split_operands_reference(
+            k, v, mask), plain_reps)
+        attend = ~mask[:, None, None, :]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=attend, scale=scale)
+
+        library_ms = cuda_ms(sdpa, reps)
+        lib_err = float((sdpa()[keep] - want[keep]).abs().max())
+    del kv
+    bounds = attention_bound_ms(b, h, t, d)
+    (bound_ms, bound_by), (f32_ms, f32_by) = bounds["3xtf32"], bounds["f32"]
+    prep_bound, prep_by = prep_bound_ms(b, h, t, d, parts=2)
+    print(f"kernel B={b} T={t:5d} d={d:3d}: max|diff| {err:.3e}  mode "
+          f"{ms:.4f} ms = pre-pass {prep_ms:.4f} + kernel {kernel_ms:.4f} "
+          f"(queued)  plain {plain_ms:.4f} ms  bound 3xTF32 {bound_ms:.4f} ms"
+          f" ({bound_by}: {100 * bound_ms / ms:.1f}% of the mode, "
+          f"{100 * bound_ms / kernel_ms:.1f}% of the kernel), float32 "
+          f"{f32_ms:.4f} ms ({f32_by})  pre-pass bit-equal to its plain "
+          f"version ({prep_plain_ms:.4f} ms), bound {prep_bound:.4f} ms "
+          f"({prep_by})  sdpa {library_ms:.4f} ms (max|diff| {lib_err:.3e})")
+    return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "prep": {"ms": prep_ms, "plain_ms": prep_plain_ms,
+                     "bound_ms": prep_bound, "bound_by": prep_by,
+                     "max_abs_err": 0.0}}
 
 
 def one_pass_readings(fa, exact_numerics, q, k, v, mask, scale, want, keep,
@@ -628,9 +701,9 @@ def one_pass_readings(fa, exact_numerics, q, k, v, mask, scale, want, keep,
 
 
 def phase_kernel(fa, exact_numerics, registers: dict) -> dict:
-    """Row 1 against its plain version at every KERNEL_SHAPES shape, with
-    its times, bounds and SDPA's, in its 3xTF32 mode and its 1-pass mode
-    (`one_pass_readings`), then the 1-pass mode alone at ONE_PASS_LARGE.
+    """Row 1 against its plain versions at every KERNEL_SHAPES shape and
+    at ONE_PASS_LARGE, with its times, bounds and SDPA's, in its 3xTF32
+    mode (`split_readings`) and its 1-pass mode (`one_pass_readings`).
     `registers`: ptxas_registers of the source; a spill raises."""
     print_registers(registers)
     spilled = {k: v for k, v in registers.items() if v[1] or v[2]}
@@ -653,48 +726,19 @@ def phase_kernel(fa, exact_numerics, registers: dict) -> dict:
         mask = torch.from_numpy(mask_np).to(dev)
         scale = 1.0 / math.sqrt(d)
         with exact_numerics(True):
-            got = fa.flash_attention(q, k, v, mask, scale)
             want = fa.flash_attention_reference(q, k, v, mask, scale)
-            torch.cuda.synchronize()
-            keep = torch.ones(b, dtype=torch.bool, device=dev)
-            if masked_row is not None:
-                keep[masked_row] = False
-                if not torch.equal(got[masked_row],
-                                   torch.zeros_like(got[masked_row])):
-                    raise AssertionError(f"B={b} T={t}: all-masked row is "
-                                         "not exactly 0")
-            err = float((got[keep] - want[keep]).abs().max())
-            if not err <= ATOL:
-                raise AssertionError(f"B={b} T={t} d={d}: max |diff| {err} "
-                                     f"> {ATOL}")
-            reps = max(3, min(50, int(2e5 / t)))
-            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask, scale), reps)
-            plain_ms = cuda_ms(
-                lambda: fa.flash_attention_reference(q, k, v, mask, scale),
-                max(3, reps // 4))
-            attend = ~mask[:, None, None, :]
-
-            def sdpa():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=attend, scale=scale)
-
-            library_ms = cuda_ms(sdpa, reps)
-            lib_err = float((sdpa()[keep] - want[keep]).abs().max())
-        bounds = attention_bound_ms(b, h, t, d)
-        (bound_ms, bound_by), (f32_ms, f32_by) = bounds["3xtf32"], bounds["f32"]
-        print(f"kernel B={b} T={t:5d} d={d:3d}: max|diff| {err:.3e}  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound 3xTF32 "
-              f"{bound_ms:.4f} ms ({bound_by}), float32 {f32_ms:.4f} ms "
-              f"({f32_by})  sdpa {library_ms:.4f} ms (max|diff| "
-              f"{lib_err:.3e})")
+        keep = torch.ones(b, dtype=torch.bool, device=dev)
+        if masked_row is not None:
+            keep[masked_row] = False
+        reps = max(3, min(50, int(2e5 / t)))
+        three = split_readings(fa, exact_numerics, q, k, v, mask, scale,
+                               want, keep, masked_row, reps)
         one = one_pass_readings(fa, exact_numerics, q, k, v, mask, scale,
                                 want, keep, masked_row, reps)
-        rows.append({"B": b, "H": h, "T": t, "d": d, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
+        rows.append({"B": b, "H": h, "T": t, "d": d, **three,
                      "one_pass": one})
-        del q, k, v, got, want
-    # the 1-pass mode at "selective"'s full decode batch (phase 4)
+        del q, k, v, want
+    # both modes at phase 4's full decode batch
     b, t, d = ONE_PASS_LARGE
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q, k, v = (torch.randn((b, 2, t, d), generator=gen, device=dev)
@@ -707,19 +751,19 @@ def phase_kernel(fa, exact_numerics, registers: dict) -> dict:
     scale = 1.0 / math.sqrt(d)
     with exact_numerics(True):
         want = fa.flash_attention_reference(q, k, v, mask, scale)
-    print(f"1-pass at B={b} T={t} d={d}, H=2:")
-    large = one_pass_readings(fa, exact_numerics, q, k, v, mask, scale, want,
-                              keep, b - 1, 5)
-    large.update(B=b, T=t, d=d)
+    print(f"3xTF32 and 1-pass at B={b} T={t} d={d}, H=2:")
+    large = split_readings(fa, exact_numerics, q, k, v, mask, scale, want,
+                           keep, b - 1, 5)
+    large.update(B=b, T=t, d=d, one_pass=one_pass_readings(
+        fa, exact_numerics, q, k, v, mask, scale, want, keep, b - 1, 5))
     del q, k, v, want
     torch.cuda.empty_cache()
     return {"rows": rows, "large": large,
             "report": next(r for r in rows if (r["B"], r["T"], r["d"])
                            == REPORT_SHAPE),
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows + [large]),
             "one_pass_max_abs_err": max(
-                [r["one_pass"]["max_abs_err"] for r in rows]
-                + [large["max_abs_err"]])}
+                r["one_pass"]["max_abs_err"] for r in rows + [large])}
 
 
 def make_tts(tcfg, vcfg, device=None, **kw):
@@ -780,9 +824,9 @@ def phase_serving(fa, tcfg, vcfg, device=None) -> dict:
 
     runs = []
     for run in range(2):
-        fa.FLASH_FWD.launches = 0
+        fa.FLASH_FWD.launches = fa.SPLIT_PREP.launches = 0
         wavs = tts.tts(TEXTS, speakers=speakers)
-        launches = fa.FLASH_FWD.launches
+        launches, split = fa.FLASH_FWD.launches, fa.SPLIT_PREP.launches
         st = tts.last_stats
         runs.append((wavs, launches, st))
         print(f"serve {run}: {st['audio_seconds']:.3f} audio-s in "
@@ -790,8 +834,9 @@ def phase_serving(fa, tcfg, vcfg, device=None) -> dict:
               f"audio-s/s (TTE {st['tte_s']:.3f} s, vocoder "
               f"{st['vocoder_s']:.3f} s); decode batches "
               f"{st['decode_batches']}, flash launches {launches}")
-        if launches != n_blocks * st["decode_batches"]:
-            raise AssertionError(f"{launches} flash launches for "
+        if not launches == split == n_blocks * st["decode_batches"]:
+            raise AssertionError(f"{launches} flash launches ({split} "
+                                 "3xTF32 pre-pass) for "
                                  f"{st['decode_batches']} decode batches")
     (wavs, launches, _), (wavs2, _, _) = runs
     for i, (a, b) in enumerate(zip(wavs, wavs2)):
@@ -842,8 +887,8 @@ def phase_serving(fa, tcfg, vcfg, device=None) -> dict:
               f"{len(idxs)}: durations equal, codes equal off ties; "
               f"max |dlogit| {dlogit:.3e}")
     print(f"frames {frames}, near-tie frames (margin <= 1e-3) {near_ties}")
-    return {"launches": launches, "wavs": wavs, "units": units,
-            "speakers": speakers, "tts": tts,
+    return {"launches": launches, "split": split, "wavs": wavs,
+            "units": units, "speakers": speakers, "tts": tts,
             "serve": lambda: tts.tts(TEXTS, speakers=speakers)}
 
 
@@ -883,11 +928,12 @@ def phase_decode_modes(fa, base: dict, smi: str, device=None) -> dict:
             tts.exact = mode
             st: dict = {}
             fa.FLASH_FWD.launches = fa.FLASH_FWD.one_pass = 0
-            fa.ONE_PASS_PREP.launches = 0
+            fa.ONE_PASS_PREP.launches = fa.SPLIT_PREP.launches = 0
             units[mode] = tts.predict_units(tokens, speakers, stats=st)
             launches[mode] = {3: fa.FLASH_FWD.launches - fa.FLASH_FWD.one_pass,
                               1: fa.FLASH_FWD.one_pass,
-                              "prep": fa.ONE_PASS_PREP.launches}
+                              "prep": fa.ONE_PASS_PREP.launches,
+                              "split": fa.SPLIT_PREP.launches}
             stats[mode] = st
             secs[mode] = []
             for _ in range(MODE_REPEATS):
@@ -900,8 +946,9 @@ def phase_decode_modes(fa, base: dict, smi: str, device=None) -> dict:
     finally:
         tts.exact = default
     print("row-1 launches per decode mode (3xTF32, 1-pass, 1-pass "
-          "pre-pass): " + ", ".join(f"{m!r} ({n[3]}, {n[1]}, {n['prep']})"
-                                    for m, n in launches.items()))
+          "pre-pass, 3xTF32 pre-pass): " + ", ".join(
+              f"{m!r} ({n[3]}, {n[1]}, {n['prep']}, {n['split']})"
+              for m, n in launches.items()))
     # one launch per FFT block per decode batch, in its section's mode; the
     # hybrid's fast decode is "selective"'s, its re-decode "selective-high"
     enc, dec = tts.tte_cfg.encoder.n_layer, tts.tte_cfg.decoder.n_layer
@@ -913,11 +960,11 @@ def phase_decode_modes(fa, base: dict, smi: str, device=None) -> dict:
             "selective": (enc * fast, dec * fast),
             "hybrid": (enc * fast + (enc + dec) * redo, dec * fast)}
     for mode, (n3, n1) in want.items():
-        got = (launches[mode][3], launches[mode][1], launches[mode]["prep"])
-        if device is None and got != (n3, n1, n1):
+        got = tuple(launches[mode][key] for key in (3, 1, "prep", "split"))
+        if device is None and got != (n3, n1, n1, n3):
             raise AssertionError(f"exact={mode!r}: row-1 launches (3xTF32, "
-                                 f"1-pass, its pre-pass) {got}; want {n3}, "
-                                 f"{n1}, {n1}")
+                                 f"1-pass, their pre-passes) {got}; want "
+                                 f"{n3}, {n1}, {n1}, {n3}")
     if not all(map(np.array_equal, units["selective-high"], base["units"])):
         raise AssertionError("the default serve's units are not the "
                              "\"selective-high\" decode's")
@@ -3527,7 +3574,8 @@ def same_on_every_rank(meshlib, tensors) -> bool:
 
 
 def mesh_launches(fa, fd) -> dict:
-    return {"flash_attn_fwd": fa.FLASH_FWD.launches, "fwd": fd.FWD.launches,
+    return {"flash_attn_fwd": fa.FLASH_FWD.launches,
+            "flash_attn_split": fa.SPLIT_PREP.launches, "fwd": fd.FWD.launches,
             "dq": fd.DQ.launches, "dkv": fd.DKV.launches}
 
 
@@ -3866,7 +3914,7 @@ def mesh_worker(spec_path: str, rank: int, world: int, store: str) -> int:
                                    world_size=world, rank=rank,
                                    timeout_s=MESH_DEADLINE_S)
     mesh = meshlib.create_mesh([dev])
-    for k in (fa.FLASH_FWD, fd.FWD, fd.DQ, fd.DKV):
+    for k in (fa.FLASH_FWD, fa.SPLIT_PREP, fd.FWD, fd.DQ, fd.DKV):
         k.launches = 0
     t0 = time.perf_counter()
     mesh_serve(spec, mesh, rank, dev)
@@ -3910,7 +3958,7 @@ def phase_mesh(fa, fd, base: dict, tcfg, vcfg, smi: str, *, train_cfg,
     from parrot_tts_tpu_torch.train import tte as tte_train
 
     dev = torch.device(device or "cuda:0")
-    for k in (fa.FLASH_FWD, fd.FWD, fd.DQ, fd.DKV):
+    for k in (fa.FLASH_FWD, fa.SPLIT_PREP, fd.FWD, fd.DQ, fd.DKV):
         k.launches = 0
     backend = "nccl" if dev.type == "cuda" else "gloo"
     meshlib.initialize_distributed(
@@ -4730,26 +4778,37 @@ def main() -> int:
               f"{m} kernel {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain "
               f"{r['plain_ms']:.4f}, cuDNN bf16 {r['library_ms']:.4f})"
               for m, r in q16.items()) + f"; {smi}")
-    rep = kern["report"]
-    one, large = rep["one_pass"], kern["large"]
-    print(f"row 1 at {REPORT_SHAPE} (B, T, d), H=2: 3xTF32 {rep['ms']:.4f} ms "
-          f"(bound {rep['bound_ms']:.4f}), 1-pass {one['ms']:.4f} ms = "
-          f"pre-pass {one['prep']['ms']:.4f} + kernel {one['kernel_ms']:.4f} "
-          f"(bound {one['bound_ms']:.4f}, {one['bound_by']}; max |diff| "
-          f"{one['max_abs_err']:.3e} against its plain version, "
-          f"{one['ieee_err']:.3e} from IEEE), sdpa float32 "
-          f"{rep['library_ms']:.4f} ms, sdpa TF32 {one['library_ms']:.4f} ms; "
-          f"1-pass at {ONE_PASS_LARGE}: {large['ms']:.4f} ms = pre-pass "
-          f"{large['prep']['ms']:.4f} + kernel {large['kernel_ms']:.4f} "
-          f"(bound {large['bound_ms']:.4f}), sdpa TF32 "
-          f"{large['library_ms']:.4f} ms; {smi}")
+    rep, large = kern["report"], kern["large"]
+    one, one_large = rep["one_pass"], large["one_pass"]
+    print(f"row 1 at {REPORT_SHAPE} (B, T, d), H=2: 3xTF32 {rep['ms']:.4f} ms"
+          f" = pre-pass {rep['prep']['ms']:.4f} + kernel "
+          f"{rep['kernel_ms']:.4f} (bound {rep['bound_ms']:.4f}), 1-pass "
+          f"{one['ms']:.4f} ms = pre-pass {one['prep']['ms']:.4f} + kernel "
+          f"{one['kernel_ms']:.4f} (bound {one['bound_ms']:.4f}, "
+          f"{one['bound_by']}; max |diff| {one['max_abs_err']:.3e} against "
+          f"its plain version, {one['ieee_err']:.3e} from IEEE), sdpa "
+          f"float32 {rep['library_ms']:.4f} ms, sdpa TF32 "
+          f"{one['library_ms']:.4f} ms; at {ONE_PASS_LARGE}: 3xTF32 "
+          f"{large['ms']:.4f} ms = pre-pass {large['prep']['ms']:.4f} + "
+          f"kernel {large['kernel_ms']:.4f} (bound {large['bound_ms']:.4f}),"
+          f" sdpa float32 {large['library_ms']:.4f} ms; 1-pass "
+          f"{one_large['ms']:.4f} ms = pre-pass {one_large['prep']['ms']:.4f}"
+          f" + kernel {one_large['kernel_ms']:.4f} (bound "
+          f"{one_large['bound_ms']:.4f}), sdpa TF32 "
+          f"{one_large['library_ms']:.4f} ms; {smi}")
     row1_launches += mesh["flash_attn_fwd"]
     one_pass_launches = sum(n[1] for n in modes["launches"].values())
     prep_launches = sum(n["prep"] for n in modes["launches"].values())
+    split_launches = (base["split"] + mesh["flash_attn_split"] + sum(
+        n["split"] for n in modes["launches"].values()))
+    if split_launches != row1_launches - one_pass_launches:
+        raise AssertionError(f"{split_launches} 3xTF32 pre-pass launches for "
+                             f"{row1_launches - one_pass_launches} 3xTF32 "
+                             "attention launches")
     print(f"row 1 launches: {row1_launches} (the default serve "
           f"{base['launches']}, 3xTF32; the decode modes " + ", ".join(
-              f"{m!r} {n[3]} 3xTF32 + {n[1]} 1-pass (pre-pass {n['prep']})"
-              for m, n in modes["launches"].items())
+              f"{m!r} {n[3]} 3xTF32 (pre-pass {n['split']}) + {n[1]} 1-pass "
+              f"(pre-pass {n['prep']})" for m, n in modes["launches"].items())
           + f"; phase 18 {mesh['flash_attn_fwd']})")
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
@@ -4758,11 +4817,19 @@ def main() -> int:
         "replaces": "parrot_tts_tpu/ops/attention.py:153",
         "launches": row1_launches - one_pass_launches,
         "max_abs_err": kern["max_abs_err"],
-        "ms": rep["ms"],
+        "ms": rep["kernel_ms"],
         "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
+    }, {
+        "name": "flash_attn_split",
+        "route": "cuda",
+        "source": "parrot_tts_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "parrot_tts_tpu/ops/attention.py:153",
+        "launches": split_launches,
+        **rep["prep"],
+        "library_ms": None,
     }, {
         "name": "flash_attn_1pass",
         "route": "cuda",

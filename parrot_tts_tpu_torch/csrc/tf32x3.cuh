@@ -1,25 +1,29 @@
 // float32 products on the TF32 tensor cores with a 3xTF32 split, shared by
-// the serving attention (flash_attn_fwd.cu: mma.sync m16n8k8) and the fused
-// MRF stage (fused_mrf.cu: wgmma m64nNk8, sm_90a), and the serving
-// attention's 1-pass TF32 rounding (round_tf32) and wgmma products (A from
-// registers or shared memory). Header-only;
-// core/kernels.py hashes it with every source that includes it.
+// the serving attention (flash_attn_fwd.cu: the split pre-pass, and wgmma
+// m64nNk8 with Q and P split in registers) and the fused MRF stage
+// (fused_mrf.cu: wgmma m64nNk8, sm_90a), and the serving attention's
+// 1-pass TF32 rounding (round_tf32) and wgmma products (A from registers
+// or shared memory). Header-only; core/kernels.py hashes it with every
+// source that includes it.
 //
 // Each float32 operand x is split exactly as x = hi + lo (Veltkamp: hi is x
 // rounded to 11 significant bits, a TF32 value), and a * b is taken as
 // lo_a hi_b + hi_a lo_b + hi_a hi_b (the small terms first). The dropped
-// lo_a lo_b and the bits of lo that TF32 drops leave each product within
-// ~5 * 2^-22 of its float32 value. The tensor cores' float32 sums do not
-// round to nearest, so a long sum there drifts: callers sum only short
-// partials from zero on the tensor cores and add them (`add`) in IEEE
-// float32.
+// lo_a lo_b and the bits of lo that TF32 drops (the tensor cores read a
+// float32 operand's top 19 bits, lo's top 11 significant ones) leave each
+// product within ~5 * 2^-22 of its float32 value. The tensor cores' float32
+// sums do not round to nearest, so a long sum there drifts: callers sum
+// only short partials from zero on the tensor cores (at most 32 of the
+// contraction) and add them in IEEE float32.
 //
-// Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A (16 x 8) a0 (g, t),
-// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8) b0 (k t, n g),
-// b1 (k t + 4, n g); C (16 x 8) c0, c1 (g, 2t and 2t + 1), c2, c3 (g + 8,
-// the same columns). Both callers permute k inside each 8-wide step
-// (logical t <-> element 2t, t + 4 <-> 2t + 1), so an A fragment is two
-// float2 loads.
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4), the layout of a
+// wgmma's A operand from registers (each warp's 16 rows of the 64) and of
+// its accumulator (repeated over n / 8 column blocks): A (16 x 8) a0
+// (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); C (16 x 8) c0,
+// c1 (g, 2t and 2t + 1), c2, c3 (g + 8, the same columns). The fused MRF
+// permutes k inside each 8-wide step (logical t <-> element 2t, t + 4 <->
+// 2t + 1), so an A fragment is two float2 loads; the attention's P V takes
+// its keys in that order, so P's A fragment is S's accumulator fragment.
 
 #pragma once
 
@@ -48,15 +52,6 @@ __device__ __forceinline__ uint32_t round_tf32(float x) {
   return r;
 }
 
-// c += a * b: m16n8k8 TF32, a row-major 16x8, b "col" (stored n-major)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // an A fragment split once for the products it takes part in
 struct SplitA {
   uint32_t hi[4], lo[4];
@@ -70,29 +65,6 @@ __device__ __forceinline__ SplitA split_a(float a0, float a1, float a2,
   split(a2, r.hi[2], r.lo[2]);
   split(a3, r.hi[3], r.lo[3]);
   return r;
-}
-
-// c += a b in 3xTF32, the small terms first: a split, b the two float32
-// values of a B fragment
-__device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a,
-                                     float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma(c, a.lo, bh0, bh1);
-  mma(c, a.hi, bl0, bl1);
-  mma(c, a.hi, bh0, bh1);
-}
-
-// c += d, d a partial product summed on the tensor cores from 0: c sums
-// in IEEE float32 (round to nearest), the tensor cores' float32 sums are
-// not rounded to nearest, so each partial stays short
-__device__ __forceinline__ void add(float (&c)[4], float (&d)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    c[e] += d[e];
-    d[e] = 0.f;
-  }
 }
 
 // ---- wgmma m64nNk8 tf32 with A from registers ------------------------------

@@ -8,26 +8,32 @@ keys are all masked gives 0, never NaN.
 
 A CPU tensor goes to `flash_attention_reference` (plain PyTorch); a CUDA
 tensor launches `csrc/flash_attn_fwd.cu` or raises. Nothing falls back.
-The kernel multiplies on the TF32 tensor cores in one of two modes:
+The kernels multiply on the TF32 tensor cores in one of two modes, each
+a pre-pass and an attention kernel of the same source. The pre-pass
+writes K and Vᵀ once per (b, h), tile by tile (BK keys) in the layout the
+wgmma products read, with each key's mask bias, into scratch; the
+attention kernel reads those tiles:
 
 - passes=3: a 3xTF32 split (each float32 operand as a sum of two TF32
   values, three products), which keeps float32 accuracy: it stays within
   1e-5 of the IEEE float32 plain version and keeps the exact decode's
-  units (the source says how);
+  units (the source says how). The pre-pass (`split_operands`) writes K
+  and Vᵀ split into TF32 hi and lo planes; the kernel
+  (`split_attention`) splits Q and P in registers. Its plain version is
+  `flash_attention_reference(..., passes=3)`, IEEE float32; the
+  pre-pass's is `split_operands_reference`;
 - passes=1: one TF32 product of operands rounded to TF32, the TPU's
   default 1-pass precision, for the "selective" decode and exact=False.
-  Two kernels of the same source: a pre-pass (`one_pass_operands`) writes
-  K and Vᵀ rounded to TF32, tile by tile in the layout the wgmma products
-  read, with each key's mask bias, into scratch; the 1-pass kernel reads
-  them. Its plain version is `flash_attention_reference(..., passes=1)`,
-  which rounds q, k, P and v to TF32 where the kernel does, P tile by
-  tile (BK keys) against the running row max; the pre-pass's is
-  `one_pass_operands_reference`.
+  The pre-pass (`one_pass_operands`) writes K and Vᵀ rounded to TF32; the
+  kernel is `one_pass_attention`. Its plain version is
+  `flash_attention_reference(..., passes=1)`, which rounds q, k, P and v
+  to TF32 where the kernel does, P tile by tile against the running row
+  max; the pre-pass's is `one_pass_operands_reference`.
 
 `FLASH_FWD.launches` counts attention launches, and `FLASH_FWD.one_pass`
 those of them in 1-pass mode, so a run can show that its attention went
-through the kernels, and in which mode; `ONE_PASS_PREP.launches` counts
-the pre-pass.
+through the kernels, and in which mode; `SPLIT_PREP.launches` and
+`ONE_PASS_PREP.launches` count the two pre-passes.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from parrot_tts_tpu_torch.ops.fused_mrf import _K_ORDER
 from parrot_tts_tpu_torch.ops.precision import round_tf32
 
 D_HEADS = (64, 128)        # head widths the kernels are instantiated for
-BK = 32                    # keys per tile of both kernels; the 1-pass mode
+BK = 32                    # keys per tile of every kernel; the 1-pass mode
                            # rounds P per BK keys against the running max
 _MAX_GRID_Y = 65535
 
@@ -57,9 +63,14 @@ def _entry(name: str, argtypes: list):
     return fn
 
 
+# each mode's attention entry point (q, kv, o, B, H, T, D, scale, stream);
+# the pre-passes' (`_Prep`) take (k, v, mask, kv, B, H, T, D, stream)
+_ATTENTION = {3: "flash_attn_fwd_f32", 1: "flash_attn_1pass_f32"}
+
+
 class _FlashForward:
-    """The loaded kernels and their launch counts (one per process): all
-    attention launches, and the 1-pass ones among them."""
+    """The loaded attention kernels and their launch counts (one per
+    process): all attention launches, and the 1-pass ones among them."""
 
     def __init__(self):
         self.launches = 0
@@ -68,32 +79,33 @@ class _FlashForward:
 
     def fn(self, passes: int):
         if passes not in self._fn:
-            self._fn[passes] = (
-                _entry("flash_attn_fwd_f32", [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p]) if passes == 3
-                else _entry("flash_attn_1pass_f32", [ctypes.c_void_p] * 3
-                            + [ctypes.c_int] * 4
-                            + [ctypes.c_float, ctypes.c_void_p]))
+            self._fn[passes] = _entry(_ATTENTION[passes],
+                                      [ctypes.c_void_p] * 3
+                                      + [ctypes.c_int] * 4
+                                      + [ctypes.c_float, ctypes.c_void_p])
         return self._fn[passes]
 
 
 class _Prep:
-    """The 1-pass pre-pass and its launch count (one per process)."""
+    """One mode's pre-pass and its launch count (one per process)."""
 
-    def __init__(self):
+    def __init__(self, name: str):
         self.launches = 0
+        self._name = name
         self._fn = None
 
     def fn(self):
         if self._fn is None:
-            self._fn = _entry("flash_attn_prep_f32", [ctypes.c_void_p] * 4
+            self._fn = _entry(self._name, [ctypes.c_void_p] * 4
                               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         return self._fn
 
 
 FLASH_FWD = _FlashForward()
-ONE_PASS_PREP = _Prep()
+SPLIT_PREP = _Prep("flash_attn_split_f32")       # the 3xTF32 mode's
+ONE_PASS_PREP = _Prep("flash_attn_prep_f32")     # the 1-pass mode's
+_PREP = {3: SPLIT_PREP, 1: ONE_PASS_PREP}
+_PARTS = {3: 2, 1: 1}      # planes of K and of Vᵀ in a tile, per mode
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -136,117 +148,171 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
 
 
-def one_pass_operands_reference(k: torch.Tensor, v: torch.Tensor,
-                                key_padding_mask: torch.Tensor | None
-                                ) -> torch.Tensor:
-    """Plain PyTorch: the pre-pass's scratch for (B, H, T, D) float32 k
-    and v, (B*H, ceil(T / BK), 2*D*BK + BK) float32. Each key tile holds
-    K rounded to TF32 as [D / 4][BK][4] (key n's d at [d / 4][n][d % 4]),
-    then the key bias [BK] (0, or -inf for a masked key or one past T),
-    then Vᵀ rounded to TF32 as [BK / 4][D][4] with its keys in `_K_ORDER`
-    within every 8 (logical key p's d at [p / 4][d][p % 4]); keys past T
-    are 0."""
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo exactly, as csrc/tf32x3.cuh::split takes it (Veltkamp,
+    in float32 operations rounded to nearest): hi is x rounded to TF32's
+    11 significant bits, lo the rest."""
+    c = x * 8193.0                     # 2^13 + 1
+    hi = c - (c - x)
+    return hi, x - hi
+
+
+def _tiles_reference(k: torch.Tensor, v: torch.Tensor,
+                     key_padding_mask: torch.Tensor | None,
+                     passes: int) -> torch.Tensor:
+    """Plain PyTorch: a mode's pre-pass scratch for (B, H, T, D) float32 k
+    and v, (B*H, ceil(T / BK), 2*P*D*BK + BK) float32 with P planes (P = 2
+    at passes=3, 1 at passes=1). Each key tile holds P planes of K as
+    [D / 4][BK][4] (key n's d at [d / 4][n][d % 4]), then the key bias [BK]
+    (0, or -inf for a masked key or one past T), then P planes of Vᵀ as
+    [BK / 4][D][4] with its keys in `_K_ORDER` within every 8 (logical key
+    p's d at [p / 4][d][p % 4]); keys past T are 0. The planes: at
+    passes=3, `split_tf32`'s hi, then lo; at passes=1, the values rounded
+    to TF32 (`round_tf32`)."""
     b, h, t, d = k.shape
     n = -(-t // BK)
     pad = (0, 0, 0, n * BK - t)
-    kr = F.pad(round_tf32(k), pad).reshape(b * h, n, BK, d // 4, 4)
-    kr = kr.permute(0, 1, 3, 2, 4).reshape(b * h, n, -1)
+
+    def planes(x):
+        return split_tf32(x) if passes == 3 else [round_tf32(x)]
+
+    ks = [F.pad(x, pad).reshape(b * h, n, BK, d // 4, 4)
+          .permute(0, 1, 3, 2, 4).reshape(b * h, n, -1) for x in planes(k)]
     valid = (torch.ones(b, t, dtype=torch.bool, device=k.device)
              if key_padding_mask is None else ~key_padding_mask)
     valid = F.pad(valid, (0, n * BK - t))
     bias = torch.where(valid, 0.0, float("-inf")).reshape(b, 1, n, BK)
     bias = bias.expand(b, h, n, BK).reshape(b * h, n, BK)
     order = torch.tensor(_K_ORDER, device=k.device)
-    vr = F.pad(round_tf32(v), pad).reshape(b * h, n, BK // 8, 8, d)
-    vr = vr[:, :, :, order].reshape(b * h, n, BK // 4, 4, d)
-    vr = vr.permute(0, 1, 2, 4, 3).reshape(b * h, n, -1)
-    return torch.cat([kr, bias, vr], dim=-1).contiguous()
+    vs = [F.pad(x, pad).reshape(b * h, n, BK // 8, 8, d)[:, :, :, order]
+          .reshape(b * h, n, BK // 4, 4, d).permute(0, 1, 2, 4, 3)
+          .reshape(b * h, n, -1) for x in planes(v)]
+    return torch.cat(ks + [bias] + vs, dim=-1).contiguous()
 
 
-def one_pass_operands(k: torch.Tensor, v: torch.Tensor,
-                      key_padding_mask: torch.Tensor | None) -> torch.Tensor:
-    """The 1-pass kernel's K, bias and Vᵀ tiles
-    (`one_pass_operands_reference`): the pre-pass kernel on a CUDA
-    tensor, the plain version on a CPU one."""
+def split_operands_reference(k, v, key_padding_mask) -> torch.Tensor:
+    """The 3xTF32 pre-pass's plain version (`_tiles_reference`)."""
+    return _tiles_reference(k, v, key_padding_mask, 3)
+
+
+def one_pass_operands_reference(k, v, key_padding_mask) -> torch.Tensor:
+    """The 1-pass pre-pass's plain version (`_tiles_reference`)."""
+    return _tiles_reference(k, v, key_padding_mask, 1)
+
+
+def _tiles(k: torch.Tensor, v: torch.Tensor,
+           key_padding_mask: torch.Tensor | None, passes: int) -> torch.Tensor:
+    """A mode's K, bias and Vᵀ tiles (`_tiles_reference`): its pre-pass
+    kernel on a CUDA tensor, the plain version on a CPU one."""
     if k.device.type == "cpu":
-        return one_pass_operands_reference(k, v, key_padding_mask)
+        return _tiles_reference(k, v, key_padding_mask, passes)
     if k.device.type != "cuda":
-        raise ValueError(f"one_pass_operands: unsupported device {k.device}")
+        raise ValueError(f"flash_attention: unsupported device {k.device}")
     _check(k, k, v, key_padding_mask)
     b, h, t, d = k.shape
     n = -(-t // BK)
-    kv = torch.empty((b * h, n, 2 * d * BK + BK), dtype=torch.float32,
-                     device=k.device)
+    kv = torch.empty((b * h, n, 2 * _PARTS[passes] * d * BK + BK),
+                     dtype=torch.float32, device=k.device)
     if kv.numel() == 0:
         return kv
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream(k.device).cuda_stream
-        err = ONE_PASS_PREP.fn()(
+        err = _PREP[passes].fn()(
             k.data_ptr(), v.data_ptr(),
             key_padding_mask.data_ptr() if key_padding_mask is not None
             else None, kv.data_ptr(), b, h, t, d, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn_prep launch failed: CUDA error {err}")
-    ONE_PASS_PREP.launches += 1
+        raise RuntimeError(f"flash_attention pre-pass (passes={passes}) "
+                           f"launch failed: CUDA error {err}")
+    _PREP[passes].launches += 1
     return kv
 
 
-def one_pass_attention_reference(q: torch.Tensor, kv: torch.Tensor,
-                                 scale: float) -> torch.Tensor:
-    """Plain PyTorch: the 1-pass mode's plain version on the K, V and key
-    padding that the pre-pass's tiles kv (`one_pass_operands_reference`)
-    hold for q's (B, H, T, D)."""
+def split_operands(k, v, key_padding_mask) -> torch.Tensor:
+    """The 3xTF32 kernel's split K, bias and Vᵀ tiles (`_tiles`)."""
+    return _tiles(k, v, key_padding_mask, 3)
+
+
+def one_pass_operands(k, v, key_padding_mask) -> torch.Tensor:
+    """The 1-pass kernel's rounded K, bias and Vᵀ tiles (`_tiles`)."""
+    return _tiles(k, v, key_padding_mask, 1)
+
+
+def _attention_reference(q: torch.Tensor, kv: torch.Tensor, scale: float,
+                         passes: int) -> torch.Tensor:
+    """Plain PyTorch: a mode's plain version on the K, V and key padding
+    that its pre-pass's tiles kv (`_tiles_reference`) hold for q's
+    (B, H, T, D); a split tile's two planes sum to the float32 values."""
     b, h, t, d = q.shape
-    n = kv.shape[1]
-    k = kv[..., :d * BK].reshape(b * h, n, d // 4, BK, 4)
-    k = k.permute(0, 1, 3, 2, 4).reshape(b, h, n * BK, d)[:, :, :t]
-    masked = torch.isinf(kv[..., d * BK:d * BK + BK]).reshape(b, h, -1)
+    n, parts = kv.shape[1], _PARTS[passes]
+    plane = d * BK
+
+    def tiles(x, layout):
+        return sum(x[..., i * plane:(i + 1) * plane] for i in range(parts)
+                   ).reshape(b * h, n, *layout)
+
+    k = tiles(kv, (d // 4, BK, 4)).permute(0, 1, 3, 2, 4)
+    k = k.reshape(b, h, n * BK, d)[:, :, :t]
+    off = parts * plane
+    masked = torch.isinf(kv[..., off:off + BK]).reshape(b, h, -1)
     inverse = torch.argsort(torch.tensor(_K_ORDER, device=kv.device))
-    v = kv[..., d * BK + BK:].reshape(b * h, n, BK // 4, d, 4)
-    v = v.permute(0, 1, 2, 4, 3).reshape(b * h, n, BK // 8, 8, d)
-    v = v[:, :, :, inverse].reshape(b, h, n * BK, d)[:, :, :t]
+    v = tiles(kv[..., off + BK:], (BK // 4, d, 4)).permute(0, 1, 2, 4, 3)
+    v = v.reshape(b * h, n, BK // 8, 8, d)[:, :, :, inverse]
+    v = v.reshape(b, h, n * BK, d)[:, :, :t]
     return flash_attention_reference(q, k.contiguous(), v.contiguous(),
                                      masked[:, 0, :t].contiguous(), scale,
-                                     passes=1)
+                                     passes=passes)
 
 
-def one_pass_attention(q: torch.Tensor, kv: torch.Tensor,
-                       scale: float) -> torch.Tensor:
-    """The 1-pass kernel on q (B, H, T, D) float32 and the pre-pass's tiles
-    kv of its k, v and key padding (`one_pass_operands`); on a CPU tensor
-    its plain version (`one_pass_attention_reference`)."""
+def _attention(q: torch.Tensor, kv: torch.Tensor, scale: float,
+               passes: int) -> torch.Tensor:
+    """A mode's attention kernel on q (B, H, T, D) float32 and its
+    pre-pass's tiles kv of k, v and the key padding (`_tiles`); on a CPU
+    tensor its plain version (`_attention_reference`)."""
     if q.device.type == "cpu":
-        return one_pass_attention_reference(q, kv, scale)
+        return _attention_reference(q, kv, scale, passes)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, q, q, None)
     b, h, t, d = q.shape
     if (kv.dtype != torch.float32 or kv.device != q.device
             or not kv.is_contiguous()
-            or kv.shape != (b * h, -(-t // BK), 2 * d * BK + BK)):
-        raise ValueError("one_pass_attention: kv is not one_pass_operands "
-                         "of q's shape on q's device")
+            or kv.shape != (b * h, -(-t // BK),
+                            2 * _PARTS[passes] * d * BK + BK)):
+        raise ValueError(f"flash_attention: kv is not the passes={passes} "
+                         "pre-pass's tiles of q's shape on q's device")
     out = torch.empty_like(q)
     if t == 0 or b * h == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = FLASH_FWD.fn(1)(q.data_ptr(), kv.data_ptr(), out.data_ptr(),
-                              b, h, t, d, float(scale), stream)
+        err = FLASH_FWD.fn(passes)(q.data_ptr(), kv.data_ptr(),
+                                   out.data_ptr(), b, h, t, d, float(scale),
+                                   stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn_1pass launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attention kernel (passes={passes}) launch"
+                           f" failed: CUDA error {err}")
     FLASH_FWD.launches += 1
-    FLASH_FWD.one_pass += 1
+    FLASH_FWD.one_pass += int(passes == 1)
     return out
+
+
+def split_attention(q, kv, scale) -> torch.Tensor:
+    """The 3xTF32 kernel on `split_operands`' tiles (`_attention`)."""
+    return _attention(q, kv, scale, 3)
+
+
+def one_pass_attention(q, kv, scale) -> torch.Tensor:
+    """The 1-pass kernel on `one_pass_operands`' tiles (`_attention`)."""
+    return _attention(q, kv, scale, 1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: torch.Tensor | None,
                     scale: float, passes: int = 3) -> torch.Tensor:
     """q, k, v: (B, H, T, D) float32; key_padding_mask: (B, T) bool or
-    None; passes: 3 (3xTF32) or 1 (one TF32 pass: the pre-pass, then the
-    1-pass kernel)."""
+    None; passes: 3 (3xTF32) or 1 (one TF32 pass). A CUDA tensor runs the
+    mode's pre-pass, then its attention kernel."""
     if passes not in (1, 3):
         raise ValueError(f"flash_attention: passes {passes} not in (1, 3)")
     if q.device.type == "cpu":
@@ -256,22 +322,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, key_padding_mask)
     b, h, t, d = q.shape
-    if passes == 1 and t and b * h:
-        return one_pass_attention(
-            q, one_pass_operands(k, v, key_padding_mask), scale)
-    out = torch.empty_like(q)
     if t == 0 or b * h == 0:
-        return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = FLASH_FWD.fn(3)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            key_padding_mask.data_ptr() if key_padding_mask is not None
-            else None, out.data_ptr(), b, h, t, d, float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
-    FLASH_FWD.launches += 1
-    return out
+        return torch.empty_like(q)
+    return _attention(q, _tiles(k, v, key_padding_mask, passes), scale,
+                      passes)
 
 
 def _check(q, k, v, key_padding_mask) -> None:

@@ -70,11 +70,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng, bad):
 
 def test_cpu_tensors_take_the_plain_version(rng):
     q, k, v, mask = _inputs(rng, 2, 2, 8, 16)
-    before = fa.FLASH_FWD.launches
+    before = fa.FLASH_FWD.launches, fa.SPLIT_PREP.launches
     torch.testing.assert_close(
         fa.flash_attention(q, k, v, mask, 0.25),
         fa.flash_attention_reference(q, k, v, mask, 0.25), rtol=0, atol=0)
-    assert fa.FLASH_FWD.launches == before
+    assert (fa.FLASH_FWD.launches, fa.SPLIT_PREP.launches) == before
 
 
 def test_one_pass_on_cpu_is_its_plain_version(rng):
@@ -177,6 +177,85 @@ def test_one_pass_operands_are_the_kernels_layout(rng):
                                                     passes=1))
 
 
+@pytest.mark.parametrize("t,d", [(70, 64), (33, 128)])
+def test_split_operands_are_the_kernels_layout(rng, t, d):
+    """The 3xTF32 pre-pass's plain version lays each key tile out as
+    csrc/flash_attn_fwd.cu's 3xTF32 kernel reads it: K's TF32 hi plane then
+    its lo plane, each [D / 4][BK][4] (the B operand of S = Q Kᵀ,
+    K-major), the key bias, then Vᵀ's hi and lo planes, each
+    [BK / 4][D][4] with the keys of every 8 in _K_ORDER (the P fragment's
+    order, as in the 1-pass tiles). hi is a TF32 value, the split is
+    tf32x3.cuh's (Veltkamp's, which rounds to nearest, ties to even, as
+    ops/fused_mrf.py's bit split does), and hi + lo is K or V exactly."""
+    b, h, bk = 2, 2, fa.BK
+    q, k, v, mask = _inputs(rng, b, h, t, d, all_masked_row=1)
+    # ties at TF32's rounding point, both signs, as some of k's values
+    k.view(-1)[:64] = ((k.view(-1)[:64].view(torch.int32) & ~0x1FFF) | 0x1000
+                       ).view(torch.float32)
+    kv = fa.split_operands(k, v, mask)
+    n = -(-t // bk)
+    assert kv.shape == (b * h, n, 4 * d * bk + bk)
+    plane = d * bk
+    keys = torch.arange(n * bk)
+    tile, key = keys // bk, keys % bk
+    dd = torch.arange(d)
+    p = torch.arange(bk)
+    order = 8 * (p // 8) + torch.tensor(fa._K_ORDER)[p % 8]
+
+    def planes(x, off):
+        return [x[..., off + i * plane:off + (i + 1) * plane]
+                for i in range(2)]
+
+    pad = (0, 0, 0, n * bk - t)
+    for (hi, lo), src in ((planes(kv, 0), k), (planes(kv, 2 * plane + bk), v)):
+        want = torch.nn.functional.pad(src, pad).reshape(b * h, n, bk, d)
+        whi, wlo = fused_mrf.tf32_split(want)
+        if src is k:        # key j's d at [d / 4][j % BK][d % 4] of tile j / BK
+            def at(x):
+                x = x.reshape(b * h, n, d // 4, bk, 4)
+                return x[:, tile[:, None], dd // 4, key[:, None], dd % 4
+                         ].reshape(b * h, n, bk, d)
+            want_hi, want_lo = whi, wlo
+        else:               # logical key p at [p / 4][d][p % 4]
+            def at(x):
+                x = x.reshape(b * h, n, bk // 4, d, 4)
+                return x[:, :, p[:, None] // 4, dd, p[:, None] % 4]
+            want_hi, want_lo = whi[:, :, order], wlo[:, :, order]
+        assert torch.equal(at(hi), want_hi) and torch.equal(at(lo), want_lo)
+        assert torch.equal(at(hi) + at(lo), want if src is k
+                           else want[:, :, order])
+        assert not bool((hi.view(torch.int32) & 0x1FFF).any())   # TF32
+    bias = kv[..., 2 * plane:2 * plane + bk]
+    valid = torch.nn.functional.pad(~mask, (0, n * bk - t))
+    assert torch.equal(bias.reshape(b, h, -1),
+                       torch.where(valid, 0.0, float("-inf"))[:, None]
+                       .expand(b, h, -1))
+    # the tiles hold the attention's whole operands: its plain version
+    # from them is the IEEE plain version
+    assert torch.equal(fa.split_attention(q, kv, d ** -0.5),
+                       fa.flash_attention_reference(q, k, v, mask, d ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,masked", [(1, 128, True), (1, 64, False),
+                                        (70, 64, True), (2049, 128, True)])
+def test_split_prep_kernel_is_its_plain_version_on_card(cuda_device, t, d,
+                                                        masked):
+    """The 3xTF32 pre-pass kernel writes its plain version's tiles bit for
+    bit: the same Veltkamp split in float32 operations rounded to nearest,
+    the same layout, zero keys past T."""
+    rng = np.random.default_rng(t + d + 1)
+    _, k, v, mask = _inputs(rng, 3, 2, t, d, cuda_device,
+                            all_masked_row=2 if masked else None)
+    mask = mask if masked else None
+    before = fa.SPLIT_PREP.launches, fa.ONE_PASS_PREP.launches
+    got = fa.split_operands(k, v, mask)
+    torch.cuda.synchronize()
+    assert (fa.SPLIT_PREP.launches, fa.ONE_PASS_PREP.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got, fa.split_operands_reference(k, v, mask))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,d,masked", [(1, 128, True), (1, 64, False),
                                         (70, 64, True), (2049, 128, True)])
@@ -232,19 +311,25 @@ def test_one_pass_kernel_matches_its_plain_version_on_card(cuda_device, t, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,d", [(1, 128), (64, 128), (500, 128),
                                  (768, 128), (130, 64), (2048, 128)]
-                         # ragged against the 64-query blocks and 32-key
+                         # ragged against the 192-query blocks and 32-key
                          # tiles, at both head widths
                          + [(t, d) for d in (64, 128)
-                            for t in (1, 63, 65, 127, 129, 777)])
+                            for t in (1, 63, 65, 127, 129, 777, 191, 193,
+                                      385)])
 def test_kernel_matches_plain_on_card(cuda_device, t, d):
+    """Row 1's 3xTF32 mode (its pre-pass, then its kernel) against the IEEE
+    float32 plain version: within 1e-5, the all-masked row exactly 0."""
     rng = np.random.default_rng(t)
     q, k, v, mask = _inputs(rng, 4, 2, t, d, cuda_device,
                             all_masked_row=2)
     scale = 1.0 / math.sqrt(d)
-    before = fa.FLASH_FWD.launches
+    before = (fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass,
+              fa.SPLIT_PREP.launches)
     got = fa.flash_attention(q, k, v, mask, scale)
     torch.cuda.synchronize()
-    assert fa.FLASH_FWD.launches == before + 1
+    assert (fa.FLASH_FWD.launches, fa.FLASH_FWD.one_pass,
+            fa.SPLIT_PREP.launches) == (before[0] + 1, before[1],
+                                        before[2] + 1)
     with exact_numerics(True):
         want = fa.flash_attention_reference(q, k, v, mask, scale)
     assert torch.equal(got[2], torch.zeros_like(got[2]))

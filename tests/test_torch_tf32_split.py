@@ -5,7 +5,8 @@ The kernel multiplies float32 operands on the TF32 tensor cores: each x is
 split as hi + lo with hi rounded to nearest at TF32's 11 significant bits,
 the tensor cores read lo's top 11 bits, and each product is taken as
 lo_a hi_b + hi_a lo_b + hi_a hi_b, summed in short partials (32 of d for
-Q K^T, one 32-key tile for P V) that float32 adds up. `attention_3xtf32`
+Q K^T, one 32-key tile for P V) that float32 adds up, with the softmax
+online, tile by tile, against the running row max. `attention_3xtf32`
 does the same with bit operations on the float32 view; it is a model of
 the kernel's arithmetic, not a kernel's plain version. The card itself is
 held to the plain version by tests/test_torch_kernels.py and chip_smoke.py
@@ -78,16 +79,27 @@ def partial_sums(mm, a, b, chunk):
 
 
 def attention_3xtf32(q, k, v, key_padding_mask, scale, mm=mm_3xtf32):
-    """`flash_attention` with the kernel's split products: scores in
-    partials of 32 of d, P V in partials of 32 keys, the softmax in
-    float32; rows with no valid key give 0."""
+    """`flash_attention` with the kernel's split products and order of
+    sums: scores in partials of 32 of d, added in float32; then, 32-key
+    tile by tile, the online softmax in float32 (P = exp(s - m) against
+    the running row max m, the running sum and O rescaled by exp(m_old -
+    m)) and the tile's P V as one partial added to the rescaled O; rows
+    with no valid key give 0."""
     s = partial_sums(mm, q, k.transpose(-1, -2), 32) * scale
     if key_padding_mask is not None:
         s = s.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m))
-    l = p.sum(dim=-1, keepdim=True)
-    o = partial_sums(mm, p, v, 32)
+    m = torch.full(s.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros(s.shape[:-1] + (v.shape[-1],))
+    for j0 in range(0, s.shape[-1], 32):
+        tile = s[..., j0:j0 + 32]
+        m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(tile - m_use)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + mm(p, v[..., j0:j0 + 32, :])
+        m = m_new
     return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
 
 
