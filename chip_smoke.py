@@ -59,14 +59,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    "selective-high"'s units, the others "selective"'s, the flagged share
    printed;
 5. fused MRF against plain: the fused-MRF kernel (row 6: 3xTF32 products
-   on the TF32 tensor cores, wgmma m64nNk8 with A from registers, TF32
-   hi / lo weight slabs through a cp.async ring) at every (B, T, C) the
+   on the TF32 tensor cores, wgmma m64nCk8 with A from registers, TF32
+   hi / lo weight slabs of one k-step through an mbarrier ring of bulk
+   copies, sums carried in the accumulators) at every (B, T, C) the
    fused serve gives it (the 64-, 32- and 16-channel stages of each vocoder
    batch), a ragged T and a batch whose rows end at different lengths; max
-   |diff| <= 1e-5 * max |plain|; each stage's tile (rows, wgmma n, blocks
-   per SM, recompute factor); kernel, plain (cuDNN IEEE float32) and both
-   bounds (3xTF32 tensor cores, the kernels line's; float32 CUDA cores) ms
-   per launch, summed per stage C and per serve;
+   |diff| <= 1e-5 * max |plain|; each stage's tile (rows, units, weight
+   slots, taps a sum is carried over, recompute factor); kernel, plain
+   (cuDNN IEEE float32), the unfused cuDNN float32 composition of the
+   serve's own resblocks (the library yardstick) and both bounds (3xTF32
+   tensor cores, the kernels line's; float32 CUDA cores) ms per launch,
+   summed per stage C and per serve; then the float32 mode at every width
+   it takes, 8-120, at (2, 16387) (`phase_mrf_widths`: the same gate, two
+   launches bit-equal, tile, ms and share of the 3xTF32 bound);
 6. int8 conv against plain: the int8 conv kernel at every distinct site
    shape of every int8-static and "int8" vocoder batch, with that batch's
    rows (5 polyphase upsamples, the MRF convs at k 3/7/11 and dilation
@@ -499,7 +504,7 @@ def phase_build(kernels) -> dict:
 def ptxas_registers(log: str) -> dict:
     """{kernel<D>: (registers, spill store bytes, spill load bytes)} of
     each templated kernel in one source's ptxas report (the fused MRF's as
-    mrf_kernel<C, wgmma n> and, in bf16, mrf_kernel_bf16<C>)."""
+    mrf_kernel<C> and, in bf16, mrf_kernel_bf16<C>)."""
     out, name = {}, None
     for line in log.splitlines():
         if "entry function" in line:
@@ -511,9 +516,9 @@ def ptxas_registers(log: str) -> dict:
             m = re.search(r"prep_kernelILi(\d+)ELi(\d)E", line)
             if m:       # row 1's pre-pass at <D, planes>
                 name = f"prep_kernel<{m.group(1)}, {m.group(2)}>"
-            m = re.search(r"mrf_kernelILi(\d+)ELi(\d+)E", line)
-            if m:       # <C, wgmma n>; C = 0: a runtime-C instantiation
-                name = f"mrf_kernel<{m.group(1)}, {m.group(2)}>"
+            m = re.search(r"mrf_kernelILi(\d+)E", line)
+            if m:       # the float32 mode at C
+                name = f"mrf_kernel<{m.group(1)}>"
             m = re.search(r"mrf_kernel_bf16ILi(\d+)E", line)
             if m:       # the bf16 mode at C
                 name = f"mrf_kernel_bf16<{m.group(1)}>"
@@ -1130,8 +1135,11 @@ def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches,
                      registers: dict) -> dict:
     """The fused-MRF kernel against its plain version at every (B, T, C)
     the fused serve gives it, a ragged T, and rows of different lengths,
-    with its times and both bounds. `registers`: ptxas_registers of the
-    source (empty when it was built before this run)."""
+    with its times, both bounds and, per serve launch, the unfused cuDNN
+    float32 composition of the same stage (the serve's own resblocks; the
+    library yardstick). `registers`: ptxas_registers of the source (empty
+    when it was built before this run)."""
+    from parrot_tts_tpu_torch.models.vocoder import generator
     from parrot_tts_tpu_torch.models.vocoder.generator import pack_stage
 
     mrf_regs = {k: v for k, v in registers.items() if k.startswith("mrf")}
@@ -1140,6 +1148,7 @@ def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches,
     if spilled:
         raise AssertionError(f"fused MRF kernels spill: {spilled}")
     rng = np.random.default_rng(SEED + 1)
+    nk = len(vcfg.resblock_kernel_sizes)
     stages = mrf_stages(vcfg)
     shapes = [(*shape, i, "serve") for shape, i in mrf_serve_shapes(vcfg,
                                                                     batches)]
@@ -1157,10 +1166,13 @@ def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches,
                       f"{plan.halo} per side, {tile.warpgroups} warpgroups, "
                       f"1 block per SM, units of "
                       f"{fm.UNIT_ROWS} rows x {c} channels (up to "
-                      f"{tile.rounds} per warpgroup), wgmma n "
-                      f"{tile.wgmma_n}, slabs of {tile.k_chunk} input "
-                      f"channels, recompute {tile.recompute:.3f}, shared "
-                      f"memory {tile.smem_bytes} bytes")
+                      f"{tile.rounds} per warpgroup), wgmma m64n"
+                      f"{tile.wgmma_n}k8, slabs of {tile.slab_ksteps} "
+                      f"k-steps ({tile.k_chunk} inputs each) in a ring of "
+                      f"{tile.ring_slots} slots, sums carried over "
+                      f"{min(tile.sum_taps, max(plan.kernel_sizes))} taps, "
+                      f"recompute {tile.recompute:.3f}, shared memory "
+                      f"{tile.smem_bytes} bytes")
             tb = fm.tile_plan(plan, (b, t)).tb
             x = torch.from_numpy(rng.standard_normal((b, t, c))
                                  .astype(np.float32)).cuda()
@@ -1179,29 +1191,53 @@ def phase_mrf_kernel(fm, exact_numerics, model, vcfg, batches,
             ms = cuda_ms(lambda: fm.mrf_fused(x, w, bias, plan, wk=wk), reps)
             plain_ms = cuda_ms(
                 lambda: fm.mrf_fused_reference(x, w, bias, plan), reps)
+            stage = model.resblocks[i * nk:(i + 1) * nk]
+
+            def library():
+                acc = None
+                for rb in stage:
+                    y = generator.apply_resblock1(rb, x)
+                    acc = y if acc is None else acc + y
+                return acc / nk
+
+            # the stage's own resblocks take its unpadded width only
+            library_ms = (cuda_ms(library, reps) if kind == "serve" and
+                          stage[0].convs1[0].bias.shape[0] == c else None)
             bounds = mrf_bounds(b, t, c, w, bias, plan)
             (bound_ms, bound_by), (f32_ms, _) = bounds["3xtf32"], bounds["f32"]
             rows.append({"B": b, "T": t, "C": c, "kind": kind, "count": 1,
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "f32_bound_ms": f32_ms})
+                         "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "f32_bound_ms": f32_ms})
+            lib = ("" if library_ms is None else
+                   f"  cuDNN float32 composition {library_ms:.4f} ms")
             print(f"fused MRF B={b} T={t:7d} C={c:2d} ({kind}, tile {tb}): "
                   f"max|diff| {err:.3e} (limit {lim:.3e})  kernel {ms:.4f} ms"
-                  f"  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                  f"3xTF32 ({bound_by}), {f32_ms:.4f} ms float32")
+                  f"  plain {plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms "
+                  f"3xTF32 ({bound_by}, {100 * bound_ms / ms:.1f}%), "
+                  f"{f32_ms:.4f} ms float32")
             del x, got, want
     serve = [r for r in rows if r["kind"] == "serve"]
     for c in sorted({r["C"] for r in serve}, reverse=True):
         st = [r for r in serve if r["C"] == c]
+        ms, bnd = (sum(r[k] for r in st) for k in ("ms", "bound_ms"))
+        lib = [r["library_ms"] for r in st if r["library_ms"] is not None]
         print(f"fused MRF per serve C={c} ({len(st)} launches): kernel "
-              f"{sum(r['ms'] for r in st):.4f} ms  plain "
-              f"{sum(r['plain_ms'] for r in st):.4f} ms  bound "
-              f"{sum(r['bound_ms'] for r in st):.4f} ms 3xTF32, "
+              f"{ms:.4f} ms  plain "
+              f"{sum(r['plain_ms'] for r in st):.4f} ms  cuDNN float32 "
+              f"{sum(lib):.4f} ms  bound {bnd:.4f} ms 3xTF32 "
+              f"({100 * bnd / ms:.1f}% of it), "
               f"{sum(r['f32_bound_ms'] for r in st):.4f} ms float32")
     rep = total(serve)
+    libs = [r["library_ms"] for r in serve]
+    rep["library_ms"] = None if None in libs else sum(libs)
+    lib = ("not measured" if rep["library_ms"] is None
+           else f"{rep['library_ms']:.4f} ms")
     print(f"fused MRF per serve ({len(serve)} launches): kernel "
-          f"{rep['ms']:.4f} ms  plain {rep['plain_ms']:.4f} ms  bound "
-          f"{rep['bound_ms']:.4f} ms 3xTF32, "
+          f"{rep['ms']:.4f} ms  plain {rep['plain_ms']:.4f} ms  cuDNN "
+          f"float32 composition {lib}  bound "
+          f"{rep['bound_ms']:.4f} ms 3xTF32 "
+          f"({100 * rep['bound_ms'] / rep['ms']:.1f}% of it), "
           f"{sum(r['f32_bound_ms'] for r in serve):.4f} ms float32")
     return {"report": rep, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "checked": {(r["B"], r["T"], r["C"]) for r in serve}}
@@ -4132,8 +4168,8 @@ BENCH_MODES = {"float": {}, "fused": {"fused_mrf": True},
                "int8": {"quant": "int8"}, "int8-tail": {"quant": "int8-tail"},
                "int8-static": {"quant": "int8-static"}}
 BF16_GAN_STEPS = 2
-BF16_WIDTHS = tuple(range(8, 121, 8))   # every width row 6's bf16 mode takes
-BF16_WIDTH_SHAPE = (2, 16387)           # (B, T) of its sweep: a ragged T
+MRF_WIDTHS = tuple(range(8, 121, 8))    # every width row 6 takes, either mode
+MRF_WIDTH_SHAPE = (2, 16387)            # (B, T) of its sweep: a ragged T
 NARROW_CHANNELS = 256                   # V1's rates at 256 channels: fused
                                         # stages of 64, 32, 16 and 8
 
@@ -4245,19 +4281,24 @@ def phase_bf16_mrf(fm, exact_numerics, model, vcfg, batches,
             "checked": {(r["B"], r["T"], r["C"]) for r in rows}}
 
 
-def phase_bf16_widths(fm, exact_numerics) -> list[dict]:
-    """Row 6's bf16 mode at every width it takes (BF16_WIDTHS) on random
-    packed weights of V1's resblocks (fan-in scaled; halo 60) and x of
-    BF16_WIDTH_SHAPE (rows of two lengths): max |diff| <= BF16_MRF_RTOL *
-    max |plain| against its plain version, two launches bit-equal; per
-    width its tile, kernel and bound ms and share of the bound."""
-    rng = np.random.default_rng(SEED + 16)
+def phase_mrf_widths(fm, exact_numerics,
+                     dtype: torch.dtype = torch.bfloat16) -> list[dict]:
+    """Row 6 in one mode (bf16, phase 19; float32, after phase 5) at every
+    width it takes (MRF_WIDTHS) on random packed weights of V1's
+    resblocks (fan-in scaled; halo 60) and x of MRF_WIDTH_SHAPE (rows of
+    two lengths): max |diff| <= BF16_MRF_RTOL (bf16) or MRF_RTOL
+    (float32) * max |plain| against its plain version, two launches
+    bit-equal; per width its tile, kernel and bound ms and share of the
+    bound (bf16 tensor cores, or 3xTF32 on the TF32 ones)."""
+    bf16 = dtype == torch.bfloat16
+    label, rtol = ("bf16", BF16_MRF_RTOL) if bf16 else ("float32", MRF_RTOL)
+    rng = np.random.default_rng(SEED + (16 if bf16 else 18))
     ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
-    b, t = BF16_WIDTH_SHAPE
+    b, t = MRF_WIDTH_SHAPE
     dev = torch.device("cuda")
     rows = []
     with torch.no_grad(), exact_numerics(True):
-        for c in BF16_WIDTHS:
+        for c in MRF_WIDTHS:
             def tens(*shape, scale=1.0):
                 return torch.from_numpy((rng.standard_normal(shape) * scale)
                                         .astype(np.float32))
@@ -4265,34 +4306,39 @@ def phase_bf16_widths(fm, exact_numerics) -> list[dict]:
                        tens(c, scale=0.1), tens(k, c, c, scale=(c * k) ** -0.5),
                        tens(c, scale=0.1)) for _ in d] for k, d in zip(ks, ds)]
             w, bias, plan = fm.pack_mrf(convs, ks, ds)
-            w, bias = w.to(dev).bfloat16(), bias.to(dev).bfloat16()
+            w, bias = w.to(dev, dtype), bias.to(dev, dtype)
             wk = fm.kernel_weights(w, plan)
             x = tens(b, t, c)
             x[1, 2 * t // 3:] = 0.0
-            x = x.to(dev).bfloat16()
+            x = x.to(dev, dtype)
             got = fm.mrf_fused(x, w, bias, plan, wk=wk)
             again = fm.mrf_fused(x, w, bias, plan, wk=wk)
             want = fm.mrf_fused_reference(x, w, bias, plan)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
-            lim = BF16_MRF_RTOL * float(want.float().abs().max())
+            lim = rtol * float(want.float().abs().max())
             if not (err <= lim and torch.equal(got, again)):
                 raise AssertionError(
-                    f"fused MRF bf16 C={c}: max |diff| {err} (limit {lim}), "
-                    f"two launches bit-equal: {torch.equal(got, again)}")
+                    f"fused MRF {label} C={c}: max |diff| {err} (limit "
+                    f"{lim}), two launches bit-equal: "
+                    f"{torch.equal(got, again)}")
             ms = cuda_ms(lambda: fm.mrf_fused(x, w, bias, plan, wk=wk), 10)
-            bound_ms, bound_by = bf16_mrf_bounds(b, t, c, w, bias, plan)
-            tile = fm.tile_plan(plan, (b, t), dtype=torch.bfloat16)
+            bound_ms, bound_by = (
+                bf16_mrf_bounds(b, t, c, w, bias, plan) if bf16
+                else mrf_bounds(b, t, c, w, bias, plan)["3xtf32"])
+            tile = fm.tile_plan(plan, (b, t), dtype=dtype)
             rows.append({"C": c, "max_abs_err": err, "ms": ms,
                          "bound_ms": bound_ms})
-            print(f"fused MRF bf16 width C={c:3d} B={b} T={t}: max|diff| "
-                  f"{err:.3e} (limit {lim:.3e}), {int((diff > 0).sum())} of "
-                  f"{diff.numel()} elements differ, two launches bit-equal; "
-                  f"tile {tile.tb} rows, {tile.warpgroups} x {tile.rounds} "
-                  f"units, {'resident' if tile.resident else tile.ring_slots}"
+            print(f"fused MRF {label} width C={c:3d} B={b} T={t}: max|diff| "
+                  f"{err:.3e} (limit {lim:.3e}, {err / lim:.3f} of it), "
+                  f"{int((diff > 0).sum())} of {diff.numel()} elements "
+                  f"differ, two launches bit-equal; tile {tile.tb} rows, "
+                  f"{tile.warpgroups} x {tile.rounds} units, "
+                  f"{'resident' if tile.resident else tile.ring_slots}"
                   f" slots; kernel {ms:.4f} ms  bound {bound_ms:.4f} ms "
-                  f"({bound_by}, {100 * bound_ms / ms:.1f}%)")
+                  f"({bound_by}{'' if bf16 else ', 3xTF32'}, "
+                  f"{100 * bound_ms / ms:.1f}%)")
             del x, got, again, want, diff
     return rows
 
@@ -4651,7 +4697,7 @@ def phase_bf16(fm, qc, quant, exact_numerics, tcfg, vcfg, base: dict,
     mrf = phase_bf16_mrf(fm, exact_numerics, fused.vocoder.model, v16,
                          batches, registers)
     del fused
-    widths = phase_bf16_widths(fm, exact_numerics)
+    widths = phase_mrf_widths(fm, exact_numerics)
     narrow_launches = phase_bf16_narrow_serve(fm, tcfg, vcfg, base, device)
     q16 = phase_int8_kernel(qc, v16, batches, modes=("int8", "int8-tail"))
     serves = phase_bf16_serves(fm, qc, tcfg, vcfg, base, mrf["checked"],
@@ -4720,6 +4766,7 @@ def main() -> int:
     print("vocoder batches (rows, codes):", batches)
     mrf = phase_mrf_kernel(fm, exact_numerics, base["tts"].vocoder.model,
                            vcfg, batches, ptxas_registers(build["fused_mrf"]))
+    mrf_widths = phase_mrf_widths(fm, exact_numerics, torch.float32)
     q8 = phase_int8_kernel(qc, vcfg, batches)
     fused = phase_fused_serve(
         fm, tcfg, dataclasses.replace(vcfg, fused_mrf=True), base,
@@ -4857,10 +4904,10 @@ def main() -> int:
         "replaces": "parrot_tts_tpu/ops/fused_mrf.py:115",
         "launches": (fused["launches"] + b16["mrf_launches"]
                      + b16["narrow_launches"]),
-        "max_abs_err": max(mrf["max_abs_err"], b16["mrf"]["max_abs_err"]),
+        "max_abs_err": max(mrf["max_abs_err"], b16["mrf"]["max_abs_err"],
+                           *(r["max_abs_err"] for r in mrf_widths)),
         **{k: mrf["report"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by")},
-        "library_ms": None,
+                                         "bound_by", "library_ms")},
     }, {
         "name": "int8_conv",
         "route": "cuda",

@@ -1,6 +1,6 @@
 // One whole MRF stage of the HiFi-GAN vocoder in one kernel, for Hopper
 // (sm_90a): float32 convolutions on the TF32 tensor cores with a 3xTF32
-// split (wgmma m64nNk8, A from registers; csrc/tf32x3.cuh).
+// split (wgmma m64nCk8, A from registers; csrc/tf32x3.cuh).
 //
 // Replaces: parrot_tts_tpu/ops/fused_mrf.py::_mrf_kernel (driven by
 // mrf_fused, fused_mrf.py:115-193). For x (B, T, C) float32 it computes
@@ -19,15 +19,20 @@
 // 126 C^2 weights. Taken as 3xTF32 products on the tensor cores (3x the
 // operations at 494.7 TFLOP/s) or as float32 FMAs on the CUDA cores (67
 // TFLOP/s), the operations take 10-100x as long as the bytes at C = 16-64:
-// the products bound the kernel.
+// the products bound the kernel. A lone wgmma m64nNk8 with A from
+// registers, three to a unit and k-step as here, runs at 30 / 59 / 96 / 97%
+// of the TF32 rate at N = 8 / 16 / 32 / 64 (scripts/exp_wgmma_rate.py).
 //
-// Numerics: every product is 3xTF32 (tf32x3.cuh): within ~5 * 2^-22 of its
-// float32 value. The tensor cores sum one weight slab's products (one tap,
-// KC input channels: KC / 8 k-steps, 3 wgmma each) from zero; IEEE float32
-// adds each such partial to the running sum, which starts at the bias.
-// chip_smoke.py phase 5 holds the stage to 1e-5 of max |plain| against its
-// IEEE float32 plain version; plain TF32 (one product of hi parts, ~2^-11)
-// would not hold it.
+// Numerics: every product is 3xTF32 (lo_a hi_b + hi_a lo_b + hi_a hi_b):
+// within ~2^-20 of its float32 value. The tensor cores' float32 sums do
+// not round to nearest, so a sum there drifts with its length. A conv's
+// sums stay in the wgmma accumulators from the bias over at most 704 taps x
+// input channels (tap_group): the whole conv at V1's widths, C <= 64 (K <=
+// 11), where the card measured 0.36-0.48 of phase 5's gate for sums carried
+// over a whole conv; above C = 64, groups of 5-9 taps, each group's
+// partial added to the sum in IEEE float32 in shared memory. chip_smoke.py
+// phase 5 holds the stage to 1e-5 of max |plain| against its IEEE float32
+// plain version; plain TF32 (one product of hi parts, ~2^-11) would not.
 //
 // The design. A block (one per SM) owns tb output rows of one batch row and
 // computes the stage on a strip of L = tb + 2 * halo rows in shared memory,
@@ -35,40 +40,53 @@
 // (60 at V1: 5 + 15 + 25 for the k = 11 dilated convs, 3 x 5 for the plain
 // ones). Each conv is computed only on the rows that later convs still
 // need, so the recompute shrinks conv by conv to exactly tb rows at the
-// branch's end. Two strips: Y (the branch state) and LT (leaky of the
-// dilated conv's output); leaky(Y) is taken as the A fragment is loaded.
-// Rows are padded to S = C + 8 (C + 16 when C is an odd multiple of 8)
-// floats, so the float2 A-fragment loads of a half warp hit 32 banks.
-//
-// Each conv is an implicit GEMM: strip rows x C outputs, reducing over taps
-// x C inputs. A dilated tap is a row shift of the same strip: each warp
-// loads its A fragment (16 rows x 8 inputs) at a row offset of tap * dil -
-// pad, splits it in registers (hi, lo) and hands it to wgmma, so any shift
-// works. The weights come pre-split on the host (ops/fused_mrf.py::
-// kernel_weights: TF32 hi and lo halves, each K-major [KC / 4][C][4], the
-// no-swizzle layout the B descriptor reads, inputs ordered as the A
-// fragment's k) and stream through a ring of NS = 2 shared-memory slots by
-// cp.async: one slab (one tap, KC = min(n, 32) inputs, both halves) lands
-// while the previous one multiplies; one barrier per slab; slabs run in the
-// stage's order across conv and branch boundaries. A warpgroup's unit is
-// 64 rows x C outputs (C / n wgmmas of m64nNk8 per k-step, n = 64 at C =
-// 64, else the widest of 32, 16, 8 dividing C), each product lo_a hi_b +
-// hi_a lo_b + hi_a hi_b; it holds up to R units' sums in registers through
-// a conv. A round (one unit per warpgroup) runs while its first unit has
-// rows, a test the whole block agrees on: ptxas serializes wgmmas on a
-// divergent path.
-//
-// Tiles (ops/fused_mrf.py::tile_plan chooses tb and passes it; the launch
-// checks it): 4 warpgroups x R = 5 units at C = 8 and 16, 3 x 4 at 32, 2 x 3
-// at 64, 2 x 2 at the runtime widths; the strips and ring fill the SM's
-// 227 KB. At V1 (halo 60) the largest tiles with the least work per row:
-// C = 64 tb 224 (rows computed, in whole rounds, over 18 tb: 1.40), C = 32
-// tb 496 (1.20), C = 16 tb 944 (1.11); a launch takes the tb with the
-// least waves x rows.
-//
+// branch's end. Two strips, rows of S = C + 8 floats (C + 16 at an odd C /
+// 8, so the float2 A-fragment loads of a half warp hit 32 banks): Y, the
+// branch state y, which the dilated conv reads, and Z, where the dilated
+// conv sums and leaves leaky(t), which the plain conv reads; the plain conv
+// adds its t to Y. Each conv is an implicit GEMM: strip rows x C outputs,
+// reducing over taps x C inputs. A dilated tap is a row shift of the same
+// strip: each warp loads its A fragment (16 rows x 8 inputs, two float2) at
+// a row offset of tap * dil - pad, takes the leaky ReLU (the dilated conv;
+// a template parameter, so no test among the wgmmas) and splits it in two
+// instructions a value (hi: x itself, which the tensor cores read
+// truncated to TF32; lo: x minus that). A warpgroup's unit is 64 rows x C
+// outputs, one wgmma m64nCk8 per product; a warpgroup holds R units' sums.
+// - Weights. ops/fused_mrf.py::kernel_weights pre-splits them into TF32 hi
+//   and lo halves, one block per k-step (one tap, 8 input channels, ordered
+//   as the A fragment's k; each half K-major [2][C][4], the no-swizzle
+//   layout the B descriptor reads: 64 C bytes). A slab is the k-steps of a
+//   tap that fit 8 KB (slab_ksteps: the whole tap up to C = 32, 2 k-steps
+//   at 48 and 64, 1 above). The slabs arrive by bulk async copies that one
+//   thread issues (a predicate, not a branch) into a ring of slots
+//   (slots32: 3 at C = 64, whose tile shared memory binds, else about 32
+//   KB, 4 to 12) with a full and an empty mbarrier each, copied two short
+//   of the ring ahead; one thread of each warpgroup releases a slot (a
+//   predicate again) once the warpgroup's waits have retired its products
+//   on it. The slabs run in the stage's order across conv and branch
+//   boundaries. No block barrier per slab: one wait for the slab to land
+//   and one for its slot's release a slab.
+// - Waits. Each unit's three products of a k-step are one commit group,
+//   and the wait after each commit leaves only the newest group in
+//   flight. From three units a warpgroup on, the next unit's fragment is
+//   loaded and split between a group's commit and that wait, so the next
+//   products follow the wait at once. A slab's groups are issued
+//   straight-line (one block-uniform test per slab picks how many units: a
+//   round of units runs while its first unit has rows): ptxas serializes
+//   wgmmas around a branch between them.
+// - Barriers. Block barriers remain only where a strip changes hands: one
+//   per conv and one per branch.
 // The branch mean accumulates in the output, which each thread owns for its
 // rows, in branch order (no atomics: deterministic). The ragged last tile
 // is masked; any T works.
+//
+// Tiles (ops/fused_mrf.py::tile_plan chooses tb and passes it; the launch
+// checks it): warpgroups x units (warpgroups32, rounds32) 4 x 4 at C = 8
+// and 24, 3 x 5 at 16, 3 x 4 at 32 and 40, 3 x 3 at 48, 2 x 3 up to 96, 2 x
+// 2 above; the strips and ring fill the SM's 227 KB. At V1 (halo 60), with
+// the least work per output row: C = 64 tb 240, 32 tb 496, 16 tb 688 (the
+// units bind at 16); a launch takes the tb with the least waves x rows
+// computed (tests/test_torch_fused_mrf_tiles.py::test_v1_tiles).
 //
 // The bfloat16 mode (mrf_kernel_bf16; the bf16 vocoder's fused stages, the
 // float32 mode's widths: every multiple of 8 up to 120) replaces the same
@@ -159,13 +177,11 @@ using namespace tf32x3;
 using sm90::bulk_load_1d;
 using sm90::desc_hi;
 using sm90::fence_proxy_async;
-using sm90::kNoSwizzle;
 using sm90::mbar_arrive_if;
 using sm90::mbar_fence_init;
 using sm90::mbar_init;
 using sm90::mbar_wait;
 using sm90::reg_fence;
-using sm90::sdesc;
 using sm90::smem_u32;
 using sm90::wg_commit;
 using sm90::wg_fence;
@@ -173,9 +189,8 @@ using sm90::wg_wait;
 
 constexpr int MAXB = 4;         // branches
 constexpr int MAXP = 4;         // pairs per branch
-constexpr int NS = 2;           // weight ring slots
 constexpr int UNIT_ROWS = 64;   // rows of a warpgroup's unit (the wgmma m)
-constexpr int MAX_C = 120;      // the runtime-C instantiations' widest
+constexpr int MAX_C = 120;      // the widest stage either mode takes
 constexpr int SMEM_MAX = 232448;
 constexpr float SLOPE = 0.1f;
 
@@ -187,248 +202,6 @@ struct Plan {
   int halo;
   int tb;
 };
-
-// the wgmma n of a width: 64 at C = 64, else the widest of 32, 16, 8 that
-// divides C; the slab's input channels, KC = min(n, 32)
-__host__ __device__ constexpr int wg_n(int c) {
-  return c == 64 ? 64 : c % 32 == 0 ? 32 : c % 16 == 0 ? 16 : 8;
-}
-
-__host__ __device__ constexpr int k_chunk(int n) { return n < 32 ? n : 32; }
-
-// warpgroups per block: one warpgroup's wait for its products leaves the
-// tensor cores idle unless others interleave, so as many as the registers
-// allow: four at C = 8 and 16, three at C = 32, two at C = 64 and the
-// runtime widths (their accumulators need the registers)
-__host__ __device__ constexpr int warpgroups(int ct) {
-  return ct == 8 || ct == 16 ? 4 : ct == 32 ? 3 : 2;
-}
-
-// 64 x C units a warpgroup holds through a conv (enough for the longest
-// strip that fits): 5 at C = 8 and 16, 4 at C = 32, 3 at C = 64 (96
-// accumulator registers), 2 at the runtime widths (up to 120 channels)
-__host__ __device__ constexpr int rounds(int ct) {
-  return ct == 8 || ct == 16 ? 5 : ct == 32 ? 4 : ct == 64 ? 3 : 2;
-}
-
-__host__ __device__ __forceinline__ int strip_stride(int c) {
-  return c % 16 == 0 ? c + 8 : c + 16;
-}
-
-__device__ __forceinline__ float leaky(float v) { return fmaxf(v, SLOPE * v); }
-
-template <int CT, int N>
-__global__ void __launch_bounds__(128 * warpgroups(CT), 1)
-mrf_kernel(const float* __restrict__ x, const float* __restrict__ wk,
-           const float* __restrict__ bias, float* __restrict__ out, int T,
-           int c_arg, const __grid_constant__ Plan plan) {
-  constexpr int KC = k_chunk(N);       // input channels per slab
-  constexpr int KS = KC / 8;           // k-steps per slab
-  constexpr int NGM = (CT ? CT : MAX_C) / N;   // n tiles held
-  constexpr int NWG = warpgroups(CT);
-  constexpr int THREADS = 128 * NWG;
-  constexpr int R = rounds(CT);
-  const int C = CT ? CT : c_arg;
-  const int NG = C / N;
-  const int S = strip_stride(C);
-  const int H = plan.halo, tb = plan.tb, L = tb + 2 * H;
-  const int NCH = C / KC;
-  const int slab = 2 * KC * C;          // floats: the hi and lo halves
-  extern __shared__ __align__(128) float sm[];
-  float* ring = sm;                     // NS weight slabs
-  float* Y = ring + NS * slab;          // the branch state y
-  float* LT = Y + L * S;                // leaky(dilated conv output)
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wg = warp >> 2, wl = warp & 3;   // warpgroup, warp in it
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y;
-  const int g0 = blockIdx.x * tb - H;   // sequence row of strip row 0
-  const float* xb = x + static_cast<size_t>(b) * T * C;
-  float* ob = out + static_cast<size_t>(b) * T * C;
-  const int c4 = C / 4;
-
-  // every slab has the same size, so slab s of the stream is at s * slab
-  int n_slabs = 0;
-  for (int br = 0; br < plan.nb; ++br)
-    n_slabs += 2 * plan.np[br] * plan.k[br] * NCH;
-  auto issue = [&](int s) {
-    if (s < n_slabs) {
-      const float* src = wk + static_cast<size_t>(s) * slab;
-      float* dst = ring + (s % NS) * slab;
-      for (int idx = tid; idx < slab / 4; idx += THREADS)
-        cp_async16(dst + 4 * idx, src + 4 * idx, true);
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) issue(s);
-
-  float acc[R][NGM][N / 2];
-  int s = 0;          // slab index
-  int boff = 0;       // bias offset of the current conv
-  for (int br = 0; br < plan.nb; ++br) {
-    const int K = plan.k[br];
-    int rem = 0;
-    for (int p = 0; p < plan.np[br]; ++p)
-      rem += (K - 1) * plan.d[br][p] / 2 + (K - 1) / 2;
-
-    // the rows this branch needs, [H - rem, H + tb + rem), from x (zero
-    // outside [0, T)); the barrier first: the previous branch's last conv
-    // may still be updating Y
-    __syncthreads();
-    {
-      const int lo = H - rem, n = tb + 2 * rem;
-      for (int idx = tid; idx < n * c4; idx += THREADS) {
-        const int r = lo + idx / c4, q = idx % c4;
-        const int tt = g0 + r;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (tt >= 0 && tt < T)
-          v = __ldg(reinterpret_cast<const float4*>(
-                        xb + static_cast<size_t>(tt) * C) + q);
-        *reinterpret_cast<float4*>(Y + r * S + 4 * q) = v;
-      }
-    }
-
-    for (int p = 0; p < plan.np[br]; ++p) {
-      const int d = plan.d[br][p];
-      const int p1 = (K - 1) * d / 2, p2 = (K - 1) / 2;
-#pragma unroll 1
-      for (int cv = 0; cv < 2; ++cv) {
-        const int dil = cv ? 1 : d, pad = cv ? p2 : p1;
-        if (cv) rem -= p1 + p2;
-        const int lo = cv ? H - rem : H - rem + p1;
-        const int hi = cv ? H + tb + rem : H + tb + rem - p1;
-        const float* src = cv ? LT : Y;
-        // every unit's sum starts at the bias
-#pragma unroll
-        for (int ng = 0; ng < NGM; ++ng)
-#pragma unroll
-          for (int i = 0; i < N / 2; i += 2) {
-            const int co = ng * N + 8 * (i / 4) + 2 * t;
-            const float b0 = ng < NG ? __ldg(bias + boff + co) : 0.f;
-            const float b1 = ng < NG ? __ldg(bias + boff + co + 1) : 0.f;
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              acc[r][ng][i] = b0;
-              acc[r][ng][i + 1] = b1;
-            }
-          }
-        for (int tap = 0; tap < K; ++tap) {
-          const int shift = tap * dil - pad;
-          for (int ch = 0; ch < NCH; ++ch, ++s) {
-            cp_async_wait<NS - 2>();   // this thread's copies of slab s
-            fence_proxy_async();       // visible to the tensor cores' reads
-            __syncthreads();           // everyone's; slot s - 1 is free
-            issue(s + NS - 1);
-            const float* ws = ring + (s % NS) * slab;
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              // a round runs while its first unit has rows: a test the
-              // whole block agrees on, so the wgmmas are on no divergent
-              // path (ptxas serializes them there); the second warpgroup's
-              // unit past hi computes on the clamped last row, unstored
-              if (lo + r * NWG * UNIT_ROWS >= hi) continue;
-              const int m0 = lo + (wg + r * NWG) * UNIT_ROWS;
-              // this warp's 16 rows (ragged rows read the last row)
-              const int ra = min(m0 + 16 * wl + g, hi - 1);
-              const int rb = min(m0 + 16 * wl + g + 8, hi - 1);
-              const float* pa = src + (ra + shift) * S + ch * KC + 2 * t;
-              const float* pb = src + (rb + shift) * S + ch * KC + 2 * t;
-              SplitA a[KS];
-#pragma unroll
-              for (int ks = 0; ks < KS; ++ks) {
-                float2 x0 = *reinterpret_cast<const float2*>(pa + 8 * ks);
-                float2 x1 = *reinterpret_cast<const float2*>(pb + 8 * ks);
-                if (cv == 0) {
-                  x0 = make_float2(leaky(x0.x), leaky(x0.y));
-                  x1 = make_float2(leaky(x1.x), leaky(x1.y));
-                }
-                a[ks] = split_a(x0.x, x1.x, x0.y, x1.y);
-              }
-#pragma unroll
-              for (int ng = 0; ng < NGM; ++ng) {
-                if (ng >= NG) break;
-                float part[N / 2];
-                wg_fence();
-#pragma unroll
-                for (int ks = 0; ks < KS; ++ks) {
-                  // k-step ks: 16-byte k groups 2ks, 2ks + 1 of the slab's
-                  // [KC / 4][C][4] halves; n tile ng starts ng * N rows down
-                  const float* wh = ws + (2 * ks * C + ng * N) * 4;
-                  const uint64_t dh = sdesc(wh, C * 16, 128, kNoSwizzle);
-                  const uint64_t dl = sdesc(wh + KC * C, C * 16, 128,
-                                            kNoSwizzle);
-                  wgmma_tf32(part, a[ks].lo, dh, ks > 0);
-                  wgmma_tf32(part, a[ks].hi, dl, 1);
-                  wgmma_tf32(part, a[ks].hi, dh, 1);
-                }
-                wg_commit();
-                wg_wait<0>();
-                reg_fence(part);
-#pragma unroll
-                for (int i = 0; i < N / 2; ++i) acc[r][ng][i] += part[i];
-              }
-            }
-          }
-        }
-        boff += C;
-
-        // epilogue: the dilated conv stores leaky(t) in LT; the plain one
-        // adds t to Y and, on the branch's last pair, folds y into out
-        const bool last = cv == 1 && p == plan.np[br] - 1;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int m0 = lo + (wg + r * NWG) * UNIT_ROWS;
-          if (m0 >= hi) continue;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = m0 + 16 * wl + 8 * h + g;
-            if (row >= hi) continue;
-            const int tt = g0 + row;
-            const bool valid = tt >= 0 && tt < T;
-#pragma unroll
-            for (int ng = 0; ng < NGM; ++ng) {
-              if (ng >= NG) break;
-#pragma unroll
-              for (int i = 2 * h; i < N / 2; i += 4) {
-                const int co = ng * N + 8 * (i / 4) + 2 * t;
-                const float v0 = valid ? acc[r][ng][i] : 0.f;
-                const float v1 = valid ? acc[r][ng][i + 1] : 0.f;
-                if (cv == 0) {
-                  *reinterpret_cast<float2*>(LT + row * S + co) =
-                      make_float2(leaky(v0), leaky(v1));
-                } else {
-                  float2* yp = reinterpret_cast<float2*>(Y + row * S + co);
-                  float2 y = *yp;
-                  y.x += v0;
-                  y.y += v1;
-                  *yp = y;
-                  if (last && valid) {   // rows [H, H + tb) by construction
-                    float2* o = reinterpret_cast<float2*>(
-                        ob + static_cast<size_t>(tt) * C + co);
-                    float2 m = y;
-                    if (br > 0) {
-                      const float2 prev = *o;
-                      m.x = prev.x + y.x;
-                      m.y = prev.y + y.y;
-                    }
-                    if (br == plan.nb - 1) {
-                      m.x *= 1.0f / plan.nb;
-                      m.y *= 1.0f / plan.nb;
-                    }
-                    *o = m;
-                  }
-                }
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
 
 // ---- the bfloat16 mode ---------------------------------------------------
 
@@ -901,6 +674,467 @@ int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wk,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the float32 mode -----------------------------------------------------
+
+// warpgroups and 64 x C units per warpgroup of the float32 mode, within the
+// registers (a unit holds C / 2 sums and its A fragment, 8 registers, a
+// thread): 4 x 4 at C = 8 and 24, 3 x 5 at 16, 3 x 4 at 32 and 40, 3 x 3 at
+// 48, 2 x 3 up to 96, 2 x 2 above (4 x 5 at C = 8 spilled at the 128
+// registers of four warpgroups)
+__host__ __device__ constexpr int warpgroups32(int c) {
+  return c == 16 ? 3 : c <= 24 ? 4 : c <= 48 ? 3 : 2;
+}
+__host__ __device__ constexpr int rounds32(int c) {
+  return c == 16 ? 5 : c <= 40 ? 4 : c <= 96 ? 3 : 2;
+}
+
+// k-steps a weight slab holds (one k-step: 8 input channels x C outputs,
+// hi and lo halves, 64 C bytes): the most that divide a tap's C / 8 within
+// 8 KB (a whole tap up to C = 32, 2 at C = 48 and 64, else 1)
+__host__ __device__ constexpr int slab_ksteps(int c, int k = 0) {
+  return k == 0 ? slab_ksteps(c, c / 8)
+         : (c / 8) % k == 0 && 64 * c * k <= 8192 ? k
+                                                  : slab_ksteps(c, k - 1);
+}
+
+// weight slots: 3 at C = 64 (its tile is bound by shared memory), else
+// about 32 KB of slabs, 4 to 12
+__host__ __device__ constexpr int slots32(int c) {
+  return c == 64                                  ? 3
+         : 32768 / (64 * c * slab_ksteps(c)) < 4  ? 4
+         : 32768 / (64 * c * slab_ksteps(c)) > 12 ? 12
+                                                  : 32768 / (64 * c *
+                                                             slab_ksteps(c));
+}
+
+// taps a partial sum covers: at most 704 taps x input channels, the whole
+// conv at C <= 64 (K <= 11), 5 to 9 taps above
+__host__ __device__ constexpr int tap_group(int c) { return 704 / c; }
+
+__host__ __device__ constexpr int strip_stride(int c) {
+  return c % 16 == 0 ? c + 8 : c + 16;
+}
+
+// x split for the tensor cores in two instructions: hi is x itself, of
+// which they read the top 19 bits (x truncated to TF32), and lo = x - that,
+// exact, of which they read the top 11 significant bits
+__device__ __forceinline__ void split2(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi & 0xFFFFE000u)));
+}
+
+__device__ __forceinline__ float leaky(float v) { return fmaxf(v, SLOPE * v); }
+
+// wgmma m64nNk8 tf32, A from registers (the m16n8k8 fragment of this warp's
+// 16 rows), B K-major through a descriptor, d = A B + (scale ? d : 0): one
+// overload per n, 8 to 120 by 8 (the bf16 mode's accumulator lists; the
+// operand numbers are those after the N / 2 accumulators)
+#define WGMMA_TF32(N, A, DB, SCALE)                                          \
+  __device__ __forceinline__ void mma_tf32(float(&d)[N / 2],                  \
+                                           const uint32_t(&a)[4],             \
+                                           uint64_t db, int scale) {          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                      \
+                 "k8.f32.tf32.tf32 {" WG16_R##N "}, {" A "}, " DB            \
+                 ", p, 1, 1;\n}\n"                                            \
+                 : WG16_D##N                                                 \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                   "r"(scale));                                              \
+  }
+WGMMA_TF32(8, "%4, %5, %6, %7", "%8", "%9")
+WGMMA_TF32(16, "%8, %9, %10, %11", "%12", "%13")
+WGMMA_TF32(24, "%12, %13, %14, %15", "%16", "%17")
+WGMMA_TF32(32, "%16, %17, %18, %19", "%20", "%21")
+WGMMA_TF32(40, "%20, %21, %22, %23", "%24", "%25")
+WGMMA_TF32(48, "%24, %25, %26, %27", "%28", "%29")
+WGMMA_TF32(56, "%28, %29, %30, %31", "%32", "%33")
+WGMMA_TF32(64, "%32, %33, %34, %35", "%36", "%37")
+WGMMA_TF32(72, "%36, %37, %38, %39", "%40", "%41")
+WGMMA_TF32(80, "%40, %41, %42, %43", "%44", "%45")
+WGMMA_TF32(88, "%44, %45, %46, %47", "%48", "%49")
+WGMMA_TF32(96, "%48, %49, %50, %51", "%52", "%53")
+WGMMA_TF32(104, "%52, %53, %54, %55", "%56", "%57")
+WGMMA_TF32(112, "%56, %57, %58, %59", "%60", "%61")
+WGMMA_TF32(120, "%60, %61, %62, %63", "%64", "%65")
+
+// keeps a fragment's registers live up to here (the wait that retires the
+// products reading them): the compiler may not give them to other values
+// while an asynchronous wgmma still reads them
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[e]) :: "memory");
+}
+
+// this warp's unit A fragment: rows ro of the strip from za (two float2
+// loads), the leaky ReLU where LEAKY (the dilated conv's input), split. a0
+// (g, t) = channel 2t, a1 (g + 8, t), a2 (g, t + 4) = channel 2t + 1, a3
+// (g + 8, t + 4): kernel_weights orders B's k the same way
+template <bool LEAKY>
+__device__ __forceinline__ void load_frag(uint32_t (&ah)[4],
+                                          uint32_t (&al)[4], const float* za,
+                                          const int (&ro)[2]) {
+  float2 x0 = *reinterpret_cast<const float2*>(za + ro[0]);
+  float2 x1 = *reinterpret_cast<const float2*>(za + ro[1]);
+  if constexpr (LEAKY) {
+    x0 = make_float2(leaky(x0.x), leaky(x0.y));
+    x1 = make_float2(leaky(x1.x), leaky(x1.y));
+  }
+  split2(x0.x, ah[0], al[0]);
+  split2(x1.x, ah[1], al[1]);
+  split2(x0.y, ah[2], al[2]);
+  split2(x1.y, ah[3], al[3]);
+}
+
+// one slab's products (KSL k-steps, 8 input channels each) for this
+// warpgroup's first NA units, each unit's three of a k-step its own commit
+// group, straight-line; the wait after each commit leaves only the newest
+// group in flight (none at NA = 1). From three units on, the next group's
+// fragment (the next slab's first, from zn, after the last) is loaded and
+// split before that wait, so the wait is followed at once by the next
+// products: its registers are free by then, since the groups in flight
+// are the two before it. With fewer units each fragment is loaded after
+// the wait that frees its registers. w: the slab's shared address; scale 0
+// starts the sums from zero at its first k-step
+template <int NA, int R, int C, int KSL, bool LEAKY>
+__device__ __forceinline__ void slab_products(
+    float (&acc)[R][C / 2], uint32_t (&ah)[R][4], uint32_t (&al)[R][4],
+    const float* za, const float* zn, const int (&roff)[R][2], uint32_t w,
+    int scale) {
+  constexpr bool AHEAD = NA >= 3;
+  const uint64_t hb = desc_hi(C * 16, 128);
+#pragma unroll
+  for (int ks = 0; ks < KSL; ++ks) {
+    // k-step ks: its hi half [2][C][4], its lo half 32 C bytes on
+    const uint64_t dh = hb | ((w + 64 * C * ks) >> 4);
+    const uint64_t dl = hb | ((w + 64 * C * ks + 32 * C) >> 4);
+#pragma unroll
+    for (int r = 0; r < NA; ++r) {
+      if (!AHEAD) load_frag<LEAKY>(ah[r], al[r], za + 8 * ks, roff[r]);
+      wg_fence();
+      mma_tf32(acc[r], al[r], dh, ks > 0 || scale);
+      mma_tf32(acc[r], ah[r], dl, 1);
+      mma_tf32(acc[r], ah[r], dh, 1);
+      wg_commit();
+      if (AHEAD) {
+        if (r + 1 < NA)
+          load_frag<LEAKY>(ah[r + 1], al[r + 1], za + 8 * ks, roff[r + 1]);
+        else if (ks + 1 < KSL)
+          load_frag<LEAKY>(ah[0], al[0], za + 8 * (ks + 1), roff[0]);
+        else
+          load_frag<LEAKY>(ah[0], al[0], zn, roff[0]);
+      }
+      wg_wait<(NA > 1 ? 1 : 0)>();
+      // the group that wait retired: unit r - 1's (the previous k-step's
+      // last unit's at r = 0), or this one's at NA = 1
+      const int done = NA > 1 ? (r + NA - 1) % NA : r;
+      reg_fence(ah[done]);
+      reg_fence(al[done]);
+    }
+  }
+}
+
+// slab_products for the conv's n active units (1 <= n <= NA) and input
+// (the dilated conv's, leaky, or the plain one's): tests the block agrees
+// on, once per slab, none between the wgmmas
+template <int NA, int R, int C, int KSL>
+__device__ __forceinline__ void slab_rounds(
+    int n, bool leaky_in, float (&acc)[R][C / 2], uint32_t (&ah)[R][4],
+    uint32_t (&al)[R][4], const float* za, const float* zn,
+    const int (&roff)[R][2], uint32_t w, int scale) {
+  if constexpr (NA > 1) {
+    if (n < NA) {
+      slab_rounds<NA - 1, R, C, KSL>(n, leaky_in, acc, ah, al, za, zn, roff,
+                                     w, scale);
+      return;
+    }
+  }
+  if (leaky_in)
+    slab_products<NA, R, C, KSL, true>(acc, ah, al, za, zn, roff, w, scale);
+  else
+    slab_products<NA, R, C, KSL, false>(acc, ah, al, za, zn, roff, w, scale);
+}
+
+// one MRF stage in float32 at C = CT (a multiple of 8 up to 120), 3xTF32
+// on wgmma m64nCk8 (header)
+template <int CT>
+__global__ void __launch_bounds__(128 * warpgroups32(CT), 1)
+mrf_kernel(const float* __restrict__ x, const float* __restrict__ wk,
+           const float* __restrict__ bias, float* __restrict__ out, int T,
+           const __grid_constant__ Plan plan) {
+  constexpr int C = CT;
+  constexpr int NWG = warpgroups32(C);
+  constexpr int THREADS = 128 * NWG;
+  constexpr int R = rounds32(C);
+  constexpr int S = strip_stride(C);
+  constexpr int KSL = slab_ksteps(C);   // k-steps a slab holds
+  constexpr int SLAB = 16 * C * KSL;    // floats: KSL k-steps, hi and lo
+  constexpr int NSLOT = slots32(C);
+  constexpr int NSL = C / 8 / KSL;      // slabs a tap
+  constexpr int TG = tap_group(C);
+  constexpr int c4 = C / 4, NP = C / 8;
+  const int H = plan.halo, tb = plan.tb, L = tb + 2 * H;
+  const int n_slabs = plan_slabs(plan) * NSL;
+  constexpr int lead = NSLOT - 2;
+  extern __shared__ __align__(128) unsigned char smem32[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem32);   // slab landed
+  uint64_t* empty = full + NSLOT;      // every warpgroup done with the slot
+  float* ring = reinterpret_cast<float*>(smem32 + barrier_bytes(NSLOT));
+  float* Y = ring + NSLOT * SLAB;      // the branch state y
+  float* Z = Y + L * S;                // the dilated conv's sum, leaky(t)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wl = warp & 3;   // warpgroup, warp in it
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y;
+  const int g0 = blockIdx.x * tb - H;   // sequence row of strip row 0
+  const float* xb = x + static_cast<size_t>(b) * T * C;
+  float* ob = out + static_cast<size_t>(b) * T * C;
+
+  for (int j = tid; j < NSLOT; j += THREADS) {
+    mbar_init(full + j, 1);
+    mbar_init(empty + j, NWG);
+  }
+  mbar_fence_init();
+  __syncthreads();
+  // the first `lead` slabs, before any product is in flight
+  if (tid == 0)
+    for (int j = 0; j < lead && j < n_slabs; ++j)
+      bulk_load_1d(ring + j * SLAB, wk + static_cast<size_t>(j) * SLAB,
+                   4 * SLAB, full + j, true);
+  // then the next slab q into slot qs (its use qp-th mod 2), once every
+  // warpgroup has released the slot's previous slab q - NSLOT: all threads
+  // wait, thread 0 copies (a predicate, so no divergent path sits among the
+  // wgmmas)
+  int q = lead, qs = lead % NSLOT;
+  uint32_t qp = (lead / NSLOT) & 1;
+  auto issue = [&]() {
+    if (q >= n_slabs) return;
+    mbar_wait(empty + qs, qp ^ 1);
+    bulk_load_1d(ring + qs * SLAB, wk + static_cast<size_t>(q) * SLAB,
+                 4 * SLAB, full + qs, tid == 0);
+    ++q;
+    if (++qs == NSLOT) qs = 0, qp ^= 1;
+  };
+  // one thread of each warpgroup releases its slots
+  const bool releaser = (tid & 127) == 0;
+  const uint32_t ring_s = smem_u32(ring);
+
+  float acc[R][C / 2];
+  uint32_t ah[R][4], al[R][4];
+  int roff[R][2];
+  int ss = 0;         // the slot of the slab in use, across convs and
+  uint32_t sp = 0;    // branches, and its use mod 2
+  int boff = 0;       // bias offset of the current conv
+  for (int br = 0; br < plan.nb; ++br) {
+    const int K = plan.k[br];
+    int rem = 0;
+    for (int p = 0; p < plan.np[br]; ++p)
+      rem += (K - 1) * plan.d[br][p] / 2 + (K - 1) / 2;
+
+    // the rows this branch needs, [H - rem, H + tb + rem), from x (zero
+    // outside [0, T)); the previous branch's last conv ended on a barrier
+    {
+      const int lo = H - rem, n = tb + 2 * rem;
+      for (int idx = tid; idx < n * c4; idx += THREADS) {
+        const int r = lo + idx / c4, qd = idx % c4;
+        const int tt = g0 + r;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (tt >= 0 && tt < T)
+          v = __ldg(reinterpret_cast<const float4*>(
+                        xb + static_cast<size_t>(tt) * C) + qd);
+        *reinterpret_cast<float4*>(Y + r * S + 4 * qd) = v;
+      }
+    }
+    __syncthreads();
+
+    for (int p = 0; p < plan.np[br]; ++p) {
+      const int d = plan.d[br][p];
+      const int p1 = (K - 1) * d / 2, p2 = (K - 1) / 2;
+#pragma unroll 1
+      for (int cv = 0; cv < 2; ++cv) {
+        const int dil = cv ? 1 : d, pad = cv ? p2 : p1;
+        if (cv) rem -= p1 + p2;
+        const int lo = cv ? H - rem : H - rem + p1;
+        const int hi = cv ? H + tb + rem : H + tb + rem - p1;
+        // the dilated conv reads leaky(y) from Y, the plain one leaky(t)
+        // from Z as it is
+        const float* src = cv ? Z : Y;
+        const bool leaky_in = cv == 0;
+        // every unit's sum starts at the bias
+#pragma unroll
+        for (int i = 0; i < C / 2; i += 2) {
+          const int co = 8 * (i / 4) + 2 * t;
+          const float b0 = __ldg(bias + boff + co);
+          const float b1 = __ldg(bias + boff + co + 1);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[r][i] = b0;
+            acc[r][i + 1] = b1;
+          }
+        }
+        // a round (one unit per warpgroup) runs while its first unit has
+        // rows, so n rounds, a number the whole block agrees on (ptxas
+        // serializes wgmmas on a divergent path); a later warpgroup's unit
+        // past hi reads the conv's last row, and its sums are not stored
+        const int n = min(R, (hi - lo + NWG * UNIT_ROWS - 1) /
+                                 (NWG * UNIT_ROWS));
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            roff[r][h] = min(lo + (wg + r * NWG) * UNIT_ROWS + 16 * wl +
+                                 8 * h + g, hi - 1) * S + 2 * t;
+        // from three units on, the first fragment comes ahead of the loop
+        if (n >= 3) {
+          if (leaky_in)
+            load_frag<true>(ah[0], al[0], src - pad * S, roff[0]);
+          else
+            load_frag<false>(ah[0], al[0], src - pad * S, roff[0]);
+        }
+        int prev = 0;       // the slot of the previous slab
+#pragma unroll 1
+        for (int tap = 0; tap < K; ++tap) {
+          const float* zt = src + (tap * dil - pad) * S;
+          // the next tap's rows (this tap's at the conv's last)
+          const float* zu = tap + 1 < K ? zt + dil * S : zt;
+          // a later group of taps starts its partial from zero
+          const int fresh = tap % TG == 0 && tap > 0;
+#pragma unroll 1
+          for (int sl = 0; sl < NSL; ++sl) {
+            // the slab `lead` ahead; its slot's last reader, the slab two
+            // before this one, was released after the previous slab
+            issue();
+            mbar_wait(full + ss, sp);
+            // slab sl: input channels 8 KSL sl on; the next slab's rows
+            // follow
+            slab_rounds<R, R, C, KSL>(
+                n, leaky_in, acc, ah, al, zt + 8 * KSL * sl,
+                sl + 1 < NSL ? zt + 8 * KSL * (sl + 1) : zu, roff,
+                ring_s + ss * SLAB * 4, !(fresh && sl == 0));
+            // the previous slab's products are done
+            mbar_arrive_if(empty + prev, releaser && (tap > 0 || sl > 0));
+            prev = ss;
+            if (++ss == NSLOT) ss = 0, sp ^= 1;
+          }
+          if (tap % TG != TG - 1 && tap != K - 1) continue;
+
+          // a sum or, above C = 64, a partial is done: the epilogue on the
+          // rows this thread owns (rows past hi are not stored). The
+          // dilated conv sums into Z and leaves leaky(t) there, t zero
+          // outside [0, T); the plain conv adds its partials to y on the
+          // rows of [0, T) and, on the branch's last pair, folds y into out
+          wg_wait<0>();
+#pragma unroll
+          for (int r = 0; r < R; ++r) reg_fence(acc[r]);
+          reg_fence(ah);
+          reg_fence(al);
+          const bool first = tap < TG, end = tap == K - 1;
+          const bool fold = end && cv == 1 && p == plan.np[br] - 1;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int m0 = lo + (wg + r * NWG) * UNIT_ROWS;
+            if (m0 >= hi) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0 + 16 * wl + 8 * h + g;
+              if (row >= hi) continue;
+              const int tt = g0 + row;
+              const bool valid = tt >= 0 && tt < T;
+              // the row's C / 8 pairs: j holds channels 8j + 2t, 8j + 2t + 1
+              // (accumulators 2h + 4j, 2h + 4j + 1)
+              float2 v[NP];
+#pragma unroll
+              for (int j = 0; j < NP; ++j)
+                v[j] = make_float2(acc[r][2 * h + 4 * j],
+                                   acc[r][2 * h + 4 * j + 1]);
+              if (cv == 0) {
+                float2* zr = reinterpret_cast<float2*>(Z + row * S + 2 * t);
+                if (!first) {   // every load before the stores
+                  float2 z[NP];
+#pragma unroll
+                  for (int j = 0; j < NP; ++j) z[j] = zr[4 * j];
+#pragma unroll
+                  for (int j = 0; j < NP; ++j)
+                    v[j] = make_float2(z[j].x + v[j].x, z[j].y + v[j].y);
+                }
+                if (end) {
+#pragma unroll
+                  for (int j = 0; j < NP; ++j)
+                    v[j] = valid ? make_float2(leaky(v[j].x), leaky(v[j].y))
+                                 : make_float2(0.f, 0.f);
+                }
+#pragma unroll
+                for (int j = 0; j < NP; ++j) zr[4 * j] = v[j];
+                continue;
+              }
+              if (!valid) continue;
+              float2* yr = reinterpret_cast<float2*>(Y + row * S + 2 * t);
+              float2 y[NP];
+#pragma unroll
+              for (int j = 0; j < NP; ++j) y[j] = yr[4 * j];
+#pragma unroll
+              for (int j = 0; j < NP; ++j) {
+                y[j].x += v[j].x;
+                y[j].y += v[j].y;
+                yr[4 * j] = y[j];
+              }
+              if (!fold) continue;   // rows [H, H + tb) by construction
+              float2* o = reinterpret_cast<float2*>(
+                  ob + static_cast<size_t>(tt) * C + 2 * t);
+#pragma unroll
+              for (int j = 0; j < NP; ++j) {
+                float2 m = y[j];
+                if (br > 0) {
+                  const float2 prior = o[4 * j];
+                  m.x = prior.x + m.x;
+                  m.y = prior.y + m.y;
+                }
+                if (br == plan.nb - 1) {
+                  m.x *= 1.0f / plan.nb;
+                  m.y *= 1.0f / plan.nb;
+                }
+                o[4 * j] = m;
+              }
+            }
+          }
+        }
+        mbar_arrive_if(empty + prev, releaser);   // the conv's last slab
+        boff += C;
+        // Z (the dilated conv's leaky(t)) or Y (the plain conv's y) is
+        // complete before the next conv reads it, and no one reads the
+        // strip the next conv writes
+        __syncthreads();
+      }
+    }
+  }
+}
+
+// shared memory of a float32 launch: the barriers, the weight slots and the
+// two strips
+size_t smem_bytes(int tb, int halo, int C) {
+  const int nslot = slots32(C);
+  return barrier_bytes(nslot) +
+         64 * static_cast<size_t>(nslot) * C * slab_ksteps(C) +
+         8 * static_cast<size_t>(tb + 2 * halo) * strip_stride(C);
+}
+
+template <int CT>
+int launch(const float* x, const float* wk, const float* bias, float* out,
+           int B, int T, const Plan& plan, cudaStream_t stream) {
+  const int rows = plan.tb + 2 * plan.halo;
+  if ((rows + UNIT_ROWS - 1) / UNIT_ROWS > warpgroups32(CT) * rounds32(CT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = smem_bytes(plan.tb, plan.halo, CT);
+  cudaError_t err = cudaFuncSetAttribute(
+      mrf_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + plan.tb - 1) / plan.tb, B);
+  mrf_kernel<CT><<<grid, 128 * warpgroups32(CT), bytes, stream>>>(
+      x, wk, bias, out, T, plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the plan of a launch from its host arrays (false: one the kernels do not
 // take)
 bool make_plan(Plan& plan, int n_branch, const int* kernel_sizes,
@@ -924,29 +1158,6 @@ bool make_plan(Plan& plan, int n_branch, const int* kernel_sizes,
   return true;
 }
 
-size_t smem_bytes(int tb, int halo, int C) {
-  return sizeof(float) *
-         (2 * static_cast<size_t>(tb + 2 * halo) * strip_stride(C) +
-          static_cast<size_t>(NS) * 2 * k_chunk(wg_n(C)) * C);
-}
-
-template <int CT, int N>
-int launch(const float* x, const float* wk, const float* bias, float* out,
-           int B, int T, int C, const Plan& plan, cudaStream_t stream) {
-  const int rows = plan.tb + 2 * plan.halo;
-  if ((rows + UNIT_ROWS - 1) / UNIT_ROWS > warpgroups(CT) * rounds(CT))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_bytes(plan.tb, plan.halo, C);
-  cudaError_t err = cudaFuncSetAttribute(
-      mrf_kernel<CT, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + plan.tb - 1) / plan.tb, B);
-  mrf_kernel<CT, N><<<grid, 128 * warpgroups(CT), bytes, stream>>>(
-      x, wk, bias, out, T, C, plan);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int fused_mrf_f32(const float* x, const float* wk,
@@ -958,22 +1169,18 @@ extern "C" int fused_mrf_f32(const float* x, const float* wk,
       tb < 16 || halo < 0 || B < 1 || B > 65535 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
-  if (!make_plan(plan, n_branch, kernel_sizes, n_pairs, dilations, halo, tb))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (smem_bytes(tb, halo, C) > SMEM_MAX)
+  if (!make_plan(plan, n_branch, kernel_sizes, n_pairs, dilations, halo, tb) ||
+      smem_bytes(tb, halo, C) > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 64: return launch<64, 64>(x, wk, bias, out, B, T, C, plan, s);
-    case 32: return launch<32, 32>(x, wk, bias, out, B, T, C, plan, s);
-    case 16: return launch<16, 16>(x, wk, bias, out, B, T, C, plan, s);
-    case 8: return launch<8, 8>(x, wk, bias, out, B, T, C, plan, s);
-    default:
-      switch (wg_n(C)) {
-        case 32: return launch<0, 32>(x, wk, bias, out, B, T, C, plan, s);
-        case 16: return launch<0, 16>(x, wk, bias, out, B, T, C, plan, s);
-        default: return launch<0, 8>(x, wk, bias, out, B, T, C, plan, s);
-      }
+#define F32_CASE(c) \
+  case c: return launch<c>(x, wk, bias, out, B, T, plan, s);
+    F32_CASE(8) F32_CASE(16) F32_CASE(24) F32_CASE(32) F32_CASE(40)
+    F32_CASE(48) F32_CASE(56) F32_CASE(64) F32_CASE(72) F32_CASE(80)
+    F32_CASE(88) F32_CASE(96) F32_CASE(104) F32_CASE(112) F32_CASE(120)
+#undef F32_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -9,8 +9,13 @@ which replaces the TPU's Pallas `_mrf_kernel`. The TPU kernel works on the
 folded block-Toeplitz layout; here the activations stay (B, T, C) and the
 weights are plain (K, Ci, Co) kernels, so the halo is counted in samples.
 `kernel_weights` lays the packed weights out for the kernel (split into
-TF32 hi and lo halves, K-major slabs); `tile_plan` chooses the kernel's
-time tile; `conv_walk` lists the rows each conv computes in it.
+TF32 hi and lo halves, one K-major block per k-step of 8 input channels;
+the kernel copies `slab_ksteps` of them at a time into a ring of
+`ring_slots`); `tile_plan` chooses the kernel's time tile; `conv_walk`
+lists the rows each conv computes in it. The kernel carries a conv's
+sums in the wgmma accumulators over at most `SUM_SPAN` taps x input
+channels (`MRFTile.sum_taps` taps: the whole conv at C <= 64) and adds
+such partials in float32.
 
 A CPU tensor goes to `mrf_fused_reference` (the averaged `apply_resblock1`
 composition); a CUDA tensor launches the kernel or raises. Nothing falls
@@ -50,7 +55,12 @@ MAX_PAIRS = 4              # csrc/fused_mrf.cu MAXP
 CHANNEL_QUANTUM = 8        # the wgmma's n and k: channels come in eights
 MAX_CHANNELS = 120         # the fused route takes stages below 128 channels
 UNIT_ROWS = 64             # csrc/fused_mrf.cu UNIT_ROWS: a warpgroup's unit
-RING_SLOTS = 2             # csrc/fused_mrf.cu NS
+RING_BYTES = 32768         # csrc/fused_mrf.cu slots32: the float32 ring's
+                           # bytes, 4-12 slots (3 at C = 64)
+SLAB_BYTES = 8192          # csrc/fused_mrf.cu slab_ksteps: a float32 slab's
+                           # k-steps (64 C bytes each) within this
+SUM_SPAN = 704             # csrc/fused_mrf.cu tap_group: taps x inputs a
+                           # float32 partial sum covers on the tensor cores
 RING_SLOTS_BF16 = {64: 8, 32: 12}   # csrc/fused_mrf.cu slots16: the bf16
                                     # ring at V1's widths; elsewhere as many
                                     # slabs as fit in RING_BYTES_BF16, 3-12
@@ -105,16 +115,18 @@ def pack_mrf(convs: list[list[tuple]], kernel_sizes, dilation_sizes
 @dataclass(frozen=True)
 class MRFTile:
     """The kernel's launch tile for one stage (one block per SM): the
-    wgmma's n (`wgmma_n` output channels per product; k_chunk = min(n, 32)
-    input channels per weight slab), `warpgroups` per block, `rounds`
-    64-row units each warpgroup holds through a conv, tb output rows per
-    block on a strip of tb + 2 * halo rows, the strips' row stride
-    (floats), the shared memory and the recompute factor (rows the convs
-    compute, in whole rounds, over n_convs * tb); `dtype` the kernel's
-    mode (in bfloat16 the strips hold bf16 in [C / 8][rows][8] planes, a
-    row's C elements, and a float32 strip of tb rows holds the branch
-    sum); `ring_slots` the weight slabs shared memory holds at once, all
-    of the stage's when `resident`."""
+    wgmma's n (`wgmma_n` output channels per product: C), `warpgroups` per
+    block, `rounds` 64-row units each warpgroup holds through a conv, tb
+    output rows per block on a strip of tb + 2 * halo rows, the strips'
+    row stride (floats), the shared memory and the recompute factor (rows
+    the convs compute, in whole rounds, over n_convs * tb); `dtype` the
+    kernel's mode (in bfloat16 the strips hold bf16 in [C / 8][rows][8]
+    planes, a row's C elements, and a float32 strip of tb rows holds the
+    branch sum); `ring_slots` the weight slabs shared memory holds at
+    once, all of the stage's when `resident`; in float32 `slab_ksteps`
+    the k-steps (8 input channels each) of a slab and `sum_taps` the taps
+    over which the tensor cores carry a conv's sums before they are added
+    in float32."""
 
     channels: int
     halo: int
@@ -126,39 +138,56 @@ class MRFTile:
     smem_bytes: int
     recompute: float
     dtype: torch.dtype = torch.float32
-    ring_slots: int = RING_SLOTS
+    ring_slots: int = 0
     resident: bool = False
+    slab_ksteps: int = 1
+    sum_taps: int = 0
 
     @property
     def k_chunk(self) -> int:
-        """Input channels per weight slab: one tap's C in bfloat16."""
+        """Input channels of the weight layout's slab: one tap's C in
+        bfloat16, one k-step's 8 in float32 (`slab_ksteps` of which share
+        a ring slot)."""
         if self.dtype == torch.bfloat16:
             return self.channels
-        return min(self.wgmma_n, 32)
-
-
-def _wgmma_n(c: int) -> int:
-    """csrc/fused_mrf.cu wg_n: 64 at C = 64, else the widest of 32, 16, 8
-    that divides C."""
-    return 64 if c == 64 else 32 if c % 32 == 0 else 16 if c % 16 == 0 else 8
+        return CHANNEL_QUANTUM
 
 
 def _warpgroups(c: int, dtype: torch.dtype = torch.float32) -> int:
-    """csrc/fused_mrf.cu warpgroups: 4 at C = 8 and 16, 3 at 32, else 2;
-    in bfloat16 warpgroups16: 4 up to C = 24, 3 up to 56, 2 up to 112, 3
-    at 120."""
+    """csrc/fused_mrf.cu warpgroups32: 3 at C = 16, 4 at 8 and 24, 3 up to
+    48, else 2; in bfloat16 warpgroups16: 4 up to C = 24, 3 up to 56, 2 up
+    to 112, 3 at 120."""
     if dtype == torch.bfloat16:
         return 4 if c <= 24 else 3 if c <= 56 else 2 if c <= 112 else 3
-    return 4 if c in (8, 16) else 3 if c == 32 else 2
+    return 3 if c == 16 else 4 if c <= 24 else 3 if c <= 48 else 2
 
 
 def _rounds(c: int, dtype: torch.dtype = torch.float32) -> int:
-    """csrc/fused_mrf.cu rounds (rounds16 in bfloat16): 64 x C units a
+    """csrc/fused_mrf.cu rounds32 (rounds16 in bfloat16): 64 x C units a
     warpgroup holds through a conv."""
     if dtype == torch.bfloat16:
         return (5 if c <= 24 else 4 if c <= 56 else 3 if c <= 96
                 else 2 if c <= 112 else 1)
-    return {8: 5, 16: 5, 32: 4, 64: 3}.get(c, 2)
+    return 5 if c == 16 else 4 if c <= 40 else 3 if c <= 96 else 2
+
+
+def _slab_ksteps(c: int) -> int:
+    """csrc/fused_mrf.cu slab_ksteps: the most k-steps dividing a tap's
+    C / 8 whose slab stays within SLAB_BYTES."""
+    return max(k for k in range(1, c // 8 + 1)
+               if (c // 8) % k == 0 and 64 * c * k <= SLAB_BYTES)
+
+
+def _slots(c: int) -> int:
+    """csrc/fused_mrf.cu slots32: the float32 ring's slots."""
+    if c == 64:
+        return 3
+    return min(12, max(4, RING_BYTES // (64 * c * _slab_ksteps(c))))
+
+
+def _barrier_bytes(nslot: int) -> int:
+    """A full and an empty mbarrier per slot, padded to 128 bytes."""
+    return -(-16 * nslot // 128) * 128
 
 
 def _k16(c: int) -> int:
@@ -203,7 +232,7 @@ def _smem_bf16(c: int, tb: int, halo: int, slabs: int) -> int:
     16 bytes a row for one unit per warpgroup (a last round's unit reads
     that far past the strips)."""
     nslot, bf16 = _slots_bf16(c, slabs), torch.bfloat16
-    return (-(-16 * nslot // 128) * 128 + 2 * nslot * _k16(c) * c
+    return (_barrier_bytes(nslot) + 2 * nslot * _k16(c) * c
             + 2 * _strip_rows(tb + 2 * halo) * (c + _k16(c))
             + 4 * tb * _strip_stride(c)
             + 16 * UNIT_ROWS * _warpgroups(c, bf16))
@@ -220,11 +249,17 @@ def _tb_max_bf16(c: int, halo: int, slabs: int) -> int:
     return tb
 
 
+def _smem(c: int, rows: int) -> int:
+    """csrc/fused_mrf.cu smem_bytes: the barriers, the float32 ring and two
+    strips of `rows` rows."""
+    return (_barrier_bytes(_slots(c)) + 64 * _slots(c) * c * _slab_ksteps(c)
+            + 8 * rows * _strip_stride(c))
+
+
 def max_strip_rows(c: int) -> int:
-    """The longest strip: two strips and the ring in shared memory, and
-    ceil(rows / 64) units within the warpgroups' rounds."""
-    ring = 4 * RING_SLOTS * 2 * min(_wgmma_n(c), 32) * c
-    by_smem = (SMEM_BYTES - ring) // (2 * 4 * _strip_stride(c))
+    """The longest float32 strip: two strips and the ring in shared
+    memory, and ceil(rows / 64) units within the warpgroups' rounds."""
+    by_smem = (SMEM_BYTES - _smem(c, 0)) // (8 * _strip_stride(c))
     return min(by_smem, UNIT_ROWS * _warpgroups(c) * _rounds(c))
 
 
@@ -264,10 +299,10 @@ def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
     units), a launch of shape = (B, T) as its waves of blocks (one block
     per SM) times a block's; with no shape, the least work per output row.
     No tb below 2 * halo where a longer one fits: every block streams the
-    stage's weights (in float32 with a barrier per slab), which the rows do
-    not count. Raises ValueError when no tile of 16 rows fits (a halo too
-    long for the strips). dtype: the kernel's mode (bfloat16: bf16 strips,
-    the weight slots and the float32 branch-sum strip, `_smem_bf16`)."""
+    stage's weights, which the rows do not count. Raises ValueError when
+    no tile of 16 rows fits (a halo too long for the strips). dtype: the
+    kernel's mode (bfloat16: bf16 strips, the weight slots and the float32
+    branch-sum strip, `_smem_bf16`)."""
     c, halo = plan.channels, plan.halo
     bf16 = dtype == torch.bfloat16
     slabs = _n_slabs(plan)
@@ -286,12 +321,10 @@ def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
 
     floor = min(tb_max, max(16, -(-2 * halo // 16) * 16))
     tb = min(range(floor, tb_max + 1, 16), key=cost)
-    n = c if bf16 else _wgmma_n(c)
     n_convs = 2 * sum(len(d) for d in plan.dilations)
     smem = (_smem_bf16(c, tb, halo, slabs) if bf16
-            else 4 * (2 * (tb + 2 * halo) * _strip_stride(c)
-                      + RING_SLOTS * 2 * min(n, 32) * c))
-    return MRFTile(channels=c, halo=halo, tb=tb, wgmma_n=n,
+            else _smem(c, tb + 2 * halo))
+    return MRFTile(channels=c, halo=halo, tb=tb, wgmma_n=c,
                    warpgroups=_warpgroups(c, dtype),
                    rounds=_rounds(c, dtype),
                    strip_stride=c if bf16 else _strip_stride(c),
@@ -299,8 +332,10 @@ def tile_plan(plan: MRFPlan, shape: tuple[int, int] | None = None,
                    recompute=(_rows_computed(plan, tb, dtype)
                               / (n_convs * tb)),
                    dtype=dtype,
-                   ring_slots=_slots_bf16(c, slabs) if bf16 else RING_SLOTS,
-                   resident=bf16 and c in RESIDENT_BF16)
+                   ring_slots=_slots_bf16(c, slabs) if bf16 else _slots(c),
+                   resident=bf16 and c in RESIDENT_BF16,
+                   slab_ksteps=1 if bf16 else _slab_ksteps(c),
+                   sum_taps=0 if bf16 else SUM_SPAN // c)
 
 
 def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -316,19 +351,19 @@ _K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)   # element k of an 8-wide k-step
 
 def kernel_weights(w: torch.Tensor, plan: MRFPlan) -> torch.Tensor:
     """`pack_mrf`'s weights as the kernel streams them: for each conv (in
-    pack order), tap and chunk of k_chunk input channels, one slab: its
-    TF32 hi half, then its lo half, each K-major [k_chunk / 4][Co][4] (the
-    wgmma's no-swizzle layout), the input channels of every 8 in the order
-    _K_ORDER (the A fragment's: k t holds channel 2t, k t + 4 channel
-    2t + 1). For bfloat16 w, one bf16 slab per tap: K-major [k16(C) / 8]
-    [C][8] (input channel 8q + j of output channel co at [q][co][j]; the
-    last 8 input channels zero at an odd C / 8, where the 16-deep k-steps
-    run one plane past C), the order in which the strips' [C / 8][rows][8]
-    planes give the A operand its k."""
+    pack order), tap and k-step of 8 input channels, one slab: its TF32 hi
+    half, then its lo half, each K-major [2][Co][4] (the wgmma's
+    no-swizzle layout), the 8 input channels in the order _K_ORDER (the A
+    fragment's: k t holds channel 2t, k t + 4 channel 2t + 1). For
+    bfloat16 w, one bf16 slab per tap: K-major [k16(C) / 8][C][8] (input
+    channel 8q + j of output channel co at [q][co][j]; the last 8 input
+    channels zero at an odd C / 8, where the 16-deep k-steps run one plane
+    past C), the order in which the strips' [C / 8][rows][8] planes give
+    the A operand its k."""
     c = plan.channels
     if w.dtype == torch.bfloat16:
         return _kernel_weights_bf16(w, plan)
-    kc = min(_wgmma_n(c), 32)
+    kc = CHANNEL_QUANTUM
     order = torch.tensor(_K_ORDER)
     slabs, off = [], 0
     for k, dils in zip(plan.kernel_sizes, plan.dilations):

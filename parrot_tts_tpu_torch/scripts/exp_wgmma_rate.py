@@ -1,5 +1,5 @@
-"""The bf16 wgmma rate on the card by the wgmma's n, the number of
-warpgroups and the shared-memory layout of its operands.
+"""The bf16 and tf32 wgmma rates on the card by the wgmma's n, the number
+of warpgroups and where the operands come from.
 
     python -m parrot_tts_tpu_torch.scripts.exp_wgmma_rate [--iters N]
 
@@ -15,10 +15,17 @@ memory, read through descriptors, in the no-swizzle layout (8 x 16-byte
 core matrices, the fused MRF's) or the 128-byte swizzle. "branch" puts
 each unit's products behind a test the block agrees on (always taken),
 as the fused MRF skips rounds past a conv's rows; "branch1" does so with
-one k-step per unit, as the fused MRF at C = 16. Printed per
-case: ms (CUDA events), TFLOP/s against the 989 TFLOP/s peak, and SM
-cycles per wgmma (at the card's maximum SM clock). The source is written
-and built under build/ at run time.
+one k-step per unit, as the fused MRF at C = 16. The tf32 cases are row
+6's float32 mode (`mrf_kernel`, 3xTF32): m64nNk8 with N = 8, 16, 32 and
+64, three products per unit and step (lo_a hi_b, hi_a lo_b, hi_a hi_b,
+each into the unit's accumulator), B K-major without swizzle in shared
+memory, A either from registers ("rs": one commit group per step, all
+units; "rs1": one commit group per unit, a wgmma fence before it and a
+wait for all but the last group after it, as the kernel issues them) or
+from shared memory ("ss", both operands through descriptors). Printed per
+case: ms (CUDA events), TFLOP/s against the peak of its type (989 bf16,
+494.7 tf32), and SM cycles per wgmma (at the card's maximum SM clock).
+The source is written and built under build/ at run time.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from parrot_tts_tpu_torch.core import kernels
 
 BF16_PEAK = 989e12
+TF32_PEAK = 494.7e12
 # (n, warpgroups, units, layout); "branch": the no-swizzle layout with
 # each unit's products behind a test the block agrees on (taken), as the
 # fused MRF skips rounds past a conv's rows
@@ -43,7 +51,119 @@ CASES += [(n, w, min(4, 256 // n), "sw128") for n in (16, 64, 256)
           for w in ((2, 4) if n <= 64 else (2,))]
 # "branch1": as "branch", one k-step per unit (the fused MRF at C = 16)
 CASES += [(16, 4, 4, "branch1"), (16, 4, 5, "branch1")]
-LAYOUTS = {"none": 0, "sw128": 1, "branch": 2, "branch1": 3}
+# tf32 m64nNk8, three products per unit and step (row 6's float32 mode)
+CASES += [(n, w, u, form) for form in ("rs1", "rs", "ss")
+          for n, us in ((8, (4,)), (16, (4,)), (32, (4,)), (64, (2, 3)))
+          for w in (2, 3, 4) for u in us]
+LAYOUTS = {"none": 0, "sw128": 1, "branch": 2, "branch1": 3, "rs1": 4,
+           "rs": 5, "ss": 6}
+TF32 = ("rs1", "rs", "ss")
+
+
+def mma_tf32(n: int) -> str:
+    """wgmma m64n{n}k8 tf32, d += A B: A from registers (mma_r) or through
+    a descriptor (mma_s), B through a descriptor."""
+    regs = ", ".join(f"%{i}" for i in range(n // 2))
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(n // 2))
+    h = n // 2
+    return f"""
+__device__ __forceinline__ void mma_r{n}(float (&d)[{h}],
+                                        const uint32_t (&a)[4], uint64_t db) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{h + 5}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 "
+      "{{{regs}}}, {{%{h}, %{h + 1}, %{h + 2}, %{h + 3}}}, %{h + 4}, p, 1, 1;"
+      "\\n}}\\n"
+      : {outs}
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}}
+__device__ __forceinline__ void mma_s{n}(float (&d)[{h}], uint64_t da,
+                                        uint64_t db) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{h + 2}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 "
+      "{{{regs}}}, %{h}, %{h + 1}, p, 1, 1;\\n}}\\n"
+      : {outs}
+      : "l"(da), "l"(db), "r"(1));
+}}
+"""
+
+
+def kernel_tf32(n: int, w: int, u: int, form: str) -> str:
+    """One tf32 case: W warpgroups, each with U accumulators of 64 x n; A
+    hi and lo (registers, or 2 KB planes per unit), B hi and lo (n x 8
+    each, K-major no-swizzle: two 16-byte k groups n * 16 bytes apart)."""
+    lay = LAYOUTS[form]
+    a_bytes = w * u * 2 * 2048
+    b_bytes = 2 * n * 32
+    if form == "ss":
+        prods = f"""      const uint32_t at =
+          smem_u32(sm) + (wg * {u} + v) * 4096;
+      mma_s{n}(acc[v], sdesc_u(at + 2048), dh);
+      mma_s{n}(acc[v], sdesc_u(at), dl);
+      mma_s{n}(acc[v], sdesc_u(at), dh);"""
+    else:
+        prods = f"""      mma_r{n}(acc[v], al[v], dh);
+      mma_r{n}(acc[v], ah[v], dl);
+      mma_r{n}(acc[v], ah[v], dh);"""
+    if form == "rs1":
+        body = f"""#pragma unroll
+    for (int v = 0; v < {u}; ++v) {{
+      wg_fence();
+{prods}
+      wg_commit();
+      wg_wait<1>();
+    }}"""
+    else:
+        body = f"""#pragma unroll
+    for (int v = 0; v < {u}; ++v) {{
+{prods}
+    }}
+    wg_commit();
+    wg_wait<1>();"""
+    return f"""
+__global__ void __launch_bounds__({128 * w}, 1)
+rate_{n}_{w}_{u}_{lay}(float* out, int iters, int rows) {{
+  extern __shared__ __align__(1024) unsigned char sm[];
+  const int tid = threadIdx.x, wg = tid / 128;
+  for (int i = tid * 4; i < {a_bytes + b_bytes}; i += {128 * w * 4})
+    *reinterpret_cast<float*>(sm + i) = 1.0f + (i % 97) * 0.0078125f;
+  fence_proxy_async();
+  __syncthreads();
+  auto sdesc_u = [](uint32_t a) {{
+    return desc_hi(128, 256) | (a >> 4);   // [2][8 rows][4]: lbo 128, sbo 256
+  }};
+  const uint32_t bs = smem_u32(sm + {a_bytes});
+  const uint64_t dh = desc_hi({n} * 16, 128) | (bs >> 4);
+  const uint64_t dl = desc_hi({n} * 16, 128) | ((bs + {n * 32}) >> 4);
+  uint32_t ah[{u}][4], al[{u}][4];
+#pragma unroll
+  for (int v = 0; v < {u}; ++v)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {{
+      ah[v][i] = __float_as_uint(1.0f + 0.125f * (tid % 7) + v);
+      al[v][i] = __float_as_uint(0.0009765625f * (i + 1));
+    }}
+  float acc[{u}][{n // 2}];
+#pragma unroll
+  for (int v = 0; v < {u}; ++v)
+#pragma unroll
+    for (int i = 0; i < {n // 2}; ++i) acc[v][i] = 0.f;
+  wg_fence();
+  for (int it = 0; it < iters; ++it) {{
+    {body}
+  }}
+  wg_wait<0>();
+  float s = 0.f;
+#pragma unroll
+  for (int v = 0; v < {u}; ++v) {{
+    reg_fence(acc[v]);
+#pragma unroll
+    for (int i = 0; i < {n // 2}; ++i) s += acc[v][i];
+  }}
+  out[blockIdx.x * blockDim.x + tid] = s;
+}}
+"""
 
 
 def mma(n: int) -> str:
@@ -121,8 +241,13 @@ def source() -> str:
     src = "\n".join(['#include <cuda_runtime.h>', '#include <stdint.h>',
                      f'#include "{kernels.CSRC / "sm90.cuh"}"',
                      "using namespace sm90;"])
-    src += "".join(mma(n) for n in sorted({c[0] for c in CASES}))
-    src += "".join(kernel(n, w, u, LAYOUTS[lay]) for n, w, u, lay in CASES)
+    src += "".join(mma(n) for n in sorted({c[0] for c in CASES
+                                           if c[3] not in TF32}))
+    src += "".join(mma_tf32(n) for n in sorted({c[0] for c in CASES
+                                                if c[3] in TF32}))
+    src += "".join(kernel_tf32(n, w, u, lay) if lay in TF32
+                   else kernel(n, w, u, LAYOUTS[lay])
+                   for n, w, u, lay in CASES)
     src += """
 extern "C" int run(int n, int w, int u, int sw, int iters, float* out,
                    float* ms) {
@@ -134,8 +259,10 @@ extern "C" int run(int n, int w, int u, int sw, int iters, float* out,
     for n, w, u, lay in CASES:
         sw = LAYOUTS[lay]
         k = f"rate_{n}_{w}_{u}_{sw}"
+        nbytes = (w * u * 4096 + n * 64 if lay in TF32
+                  else w * u * 8192 + n * 128)
         src += f"""  if (n == {n} && w == {w} && u == {u} && sw == {sw}) {{
-    const int bytes = {w * u * 8192 + n * 128};
+    const int bytes = {nbytes};
     cudaFuncSetAttribute({k}, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          bytes);
     {k}<<<132, {128 * w}, bytes>>>(out, 2, 1 << 20);
@@ -192,13 +319,16 @@ def main() -> int:
                      ctypes.c_void_p(out.data_ptr()), ctypes.byref(ms))
         if err:
             raise RuntimeError(f"n={n} W={w} U={u} {lay}: CUDA error {err}")
+        tf32 = lay in TF32
         count = (132 * w * u * args.iters         # wgmmas
-                 * (1 if lay == "branch1" else 4))
-        flops = 2.0 * 64 * n * 16 * count
+                 * (1 if lay == "branch1" else 3 if tf32 else 4))
+        flops = 2.0 * 64 * n * (8 if tf32 else 16) * count
         secs = ms.value / 1e3
-        print(f"m64n{n}k16 {lay:6s} W={w} U={u}: {ms.value:.4f} ms  "
+        peak = TF32_PEAK if tf32 else BF16_PEAK
+        print(f"m64n{n}k{8 if tf32 else 16} {'tf32' if tf32 else 'bf16'} "
+              f"{lay:6s} W={w} U={u}: {ms.value:.4f} ms  "
               f"{flops / secs / 1e12:.1f} TFLOP/s "
-              f"({100 * flops / secs / BF16_PEAK:.1f}% of peak)  "
+              f"({100 * flops / secs / peak:.1f}% of peak)  "
               f"{secs * clock_hz * 132 / count:.1f} SM cycles per wgmma")
     return 0
 

@@ -7,21 +7,26 @@ streams: TF32 hi and lo halves, K-major, k permuted), `tile_plan` (time
 tile, wgmma n, units per warpgroup, strides, shared memory) and
 `conv_walk` (the strip rows each conv computes). `emulate` repeats the
 kernel's walk on that plan: a block's strip of tb + 2 * halo rows loaded
-from x with zeros outside [0, T), each conv on its rows only, every conv's
-output re-zeroed outside [0, T), the ragged last tile, the branch mean in
-branch order; and its arithmetic: 3xTF32 products (the split of
-tests/test_torch_tf32_split.py) summed per weight slab (one tap, k_chunk
-input channels) and added in float32 to a sum that starts at the bias.
-Rows the kernel never writes are NaN in the emulation, so a walk that read
-one would show. It is a model of the kernel, not its plain
-version: the card holds the kernel to `mrf_fused_reference`
-(tests/test_torch_kernels.py, chip_smoke.py phase 5).
+from x with zeros outside [0, T), each conv on its rows only (the dilated
+conv sums into the Z strip and leaves leaky(t) there, the plain conv adds
+to y), every conv's output re-zeroed outside [0, T), the ragged last
+tile, the branch mean in branch order; and its arithmetic: 3xTF32 products
+(the split of tests/test_torch_tf32_split.py) of one k-step (8 input
+channels) at a time, summed from the bias over `sum_taps` taps (the whole
+conv at C <= 64), each later group of taps from zero, and each group's
+partial added in float32 to the strip. The emulation sums in IEEE
+float32 where the tensor cores truncate (`scripts/model_fused_mrf.py
+--numerics` models that). Rows the kernel never writes are NaN in the
+emulation, so a walk that read one would show. It is a model of the
+kernel, not its plain version: the card holds the kernel to
+`mrf_fused_reference` (tests/test_torch_kernels.py, chip_smoke.py phase
+5).
 
 Checked here: the emulation stays within the 1e-5 * max |plain| the card's
 kernel is held to, against the port's plain version and against the JAX
 package's fused kernel (interpret mode, folded layout); one TF32 product
-does not; the plan fits every channel count the fused route sends; `_check`
-refuses the others.
+does not; the plan fits every channel count the fused route sends, in
+shared memory and registers; `_check` refuses the others.
 """
 
 import math
@@ -50,7 +55,8 @@ def leaky(v):
 def emulate(x, w, b, plan, tb, mm=mm_3xtf32):
     """csrc/fused_mrf.cu on x (B, T, C) with time tile tb, in torch."""
     bsz, t, c = x.shape
-    kc = fm.tile_plan(plan).k_chunk
+    tile = fm.tile_plan(plan)
+    kc, group = fm.CHANNEL_QUANTUM, tile.sum_taps
     h, length = plan.halo, tb + 2 * plan.halo
     pairs = {(i, j): (w1, b1, w2, b2)
              for i, j, w1, b1, w2, b2, _, _ in fm._unpack(w, b, plan)}
@@ -67,25 +73,30 @@ def emulate(x, w, b, plan, tb, mm=mm_3xtf32):
             rem = sum(p1 + p2 for p1, p2 in plan.pads(i))
             y = torch.full((bsz, length, c), math.nan)  # never-written rows
             y[:, h - rem:h + tb + rem] = strip[:, h - rem:h + tb + rem]
-            lt = torch.full((bsz, length, c), math.nan)
+            z = torch.full((bsz, length, c), math.nan)
             for br, j, cv, d, pad, lo, hi in walk:
                 if br != i:
                     continue
                 w1, b1, w2, b2 = pairs[(i, j)]
                 wk, bias = (w1, b1) if cv == 0 else (w2, b2)
-                src = leaky(y) if cv == 0 else lt
-                acc = bias.expand(bsz, hi - lo, c)
-                for tap in range(k):
-                    shift = tap * d - pad
-                    a = src[:, lo + shift:hi + shift]
-                    for ci in range(0, c, kc):
-                        acc = acc + mm(a[..., ci:ci + kc],
-                                       wk[tap, ci:ci + kc])
-                acc = torch.where(valid[lo:hi, None], acc, 0.0)
+                src = leaky(y) if cv == 0 else z
+                keep = valid[lo:hi, None]
+                for g0 in range(0, k, group):      # a partial per group
+                    acc = (bias.expand(bsz, hi - lo, c) if g0 == 0
+                           else torch.zeros(bsz, hi - lo, c))
+                    for tap in range(g0, min(k, g0 + group)):
+                        shift = tap * d - pad
+                        a = src[:, lo + shift:hi + shift]
+                        for ci in range(0, c, kc):
+                            acc = acc + mm(a[..., ci:ci + kc],
+                                           wk[tap, ci:ci + kc])
+                    if cv == 1:
+                        y[:, lo:hi] = torch.where(keep, y[:, lo:hi] + acc,
+                                                  y[:, lo:hi])
+                    else:
+                        z[:, lo:hi] = acc if g0 == 0 else z[:, lo:hi] + acc
                 if cv == 0:
-                    lt[:, lo:hi] = leaky(acc)
-                else:
-                    y[:, lo:hi] = y[:, lo:hi] + acc
+                    z[:, lo:hi] = torch.where(keep, leaky(z[:, lo:hi]), 0.0)
             assert (lo, hi) == (h, h + tb)              # the branch's end
             mean = y[:, h:h + tb] if mean is None else mean + y[:, h:h + tb]
         mean = mean * (1.0 / nb)
@@ -114,20 +125,21 @@ def _inputs(seed, b, t, c):
 def test_tile_plan_fits_every_routed_channel_count(c):
     """At V1's halo every channel count the fused route sends gets a tile:
     the strips and the ring in shared memory, the units within the
-    warpgroups' rounds, a wgmma n and slab that divide C, a stride that
-    keeps the A fragment loads off shared bank conflicts; a launch's tile
-    does no more work (its waves of blocks times a block's rows) than the
-    largest tile would."""
+    warpgroups' rounds, one wgmma n of C and slabs of one k-step, a stride
+    that keeps the A fragment loads off shared bank conflicts; a launch's
+    tile does no more work (its waves of blocks times a block's rows) than
+    the largest tile would."""
     plan = fm.MRFPlan(c, KS, DS, 60)
     tile = fm.tile_plan(plan)
     length = tile.tb + 2 * plan.halo
     assert tile.tb >= 16 and tile.tb % 16 == 0
     assert tile.smem_bytes <= fm.SMEM_BYTES
-    assert c % tile.wgmma_n == 0 and tile.wgmma_n % tile.k_chunk == 0
-    assert tile.wgmma_n in (8, 16, 32, 64)
+    assert tile.wgmma_n == c and tile.k_chunk == 8
     assert -(-length // fm.UNIT_ROWS) <= tile.warpgroups * tile.rounds
-    # 64 x C accumulators per unit: at most 96 registers of them, or 2 units
-    assert tile.rounds * c // 2 <= 96 or tile.rounds == 2
+    # a unit's C / 2 sums and 8 registers of split A fragment a thread,
+    # within what 128 threads a warpgroup leave of the SM's 64K registers
+    assert tile.rounds * (c // 2 + 8) <= {4: 88, 3: 128,
+                                          2: 192}[tile.warpgroups]
     # A: float2 loads at row * S + 2t by a half warp (g 0-3, t 0-3)
     assert tile.strip_stride % 32 in (8, 24)
     assert tile.recompute >= 1.0
@@ -147,14 +159,45 @@ def test_tile_plan_fits_every_routed_channel_count(c):
 
 def test_v1_tiles():
     """The tiles the kernel's header states for V1's three fused stages:
-    (tb, wgmma n, warpgroups, units per warpgroup) and the recompute."""
+    (tb, wgmma n, warpgroups, units per warpgroup, weight slots, taps a
+    partial sum covers) and the recompute."""
     got = {c: fm.tile_plan(fm.MRFPlan(c, KS, DS, 60)) for c in (64, 32, 16)}
-    assert {c: (t.tb, t.wgmma_n, t.warpgroups, t.rounds)
-            for c, t in got.items()} == {64: (224, 64, 2, 3),
-                                         32: (496, 32, 3, 4),
-                                         16: (944, 16, 4, 5)}
-    assert [round(got[c].recompute, 2) for c in (64, 32, 16)] == [1.4, 1.2,
-                                                                  1.11]
+    assert {c: (t.tb, t.wgmma_n, t.warpgroups, t.rounds, t.slab_ksteps,
+                t.ring_slots, t.sum_taps)
+            for c, t in got.items()} == {64: (240, 64, 2, 3, 2, 3, 11),
+                                         32: (496, 32, 3, 4, 4, 4, 22),
+                                         16: (688, 16, 3, 5, 2, 12, 44)}
+    assert [round(got[c].recompute, 2) for c in (64, 32, 16)] == [1.36, 1.2,
+                                                                  1.15]
+    # sums carried over whole convs at V1 (kernel sizes up to 11)
+    assert all(t.sum_taps >= max(KS) for t in got.values())
+
+
+@pytest.mark.parametrize("c", range(8, 121, 8))
+def test_shared_memory_plan_fits_every_width(c):
+    """csrc/fused_mrf.cu's float32 shared memory at every width: a full
+    and an empty mbarrier per weight slot (padded to 128 bytes), the ring
+    of slabs of whole k-steps of a tap (hi and lo halves, 64 C bytes a
+    k-step, at most 8 KB a slab), two strips of tb + 2 * halo rows of the
+    padded stride, within the 227 KB a block may take at the longest
+    tile, and no longer tile fits both shared memory and the warpgroups'
+    units."""
+    plan = fm.MRFPlan(c, KS, DS, 60)
+    tile = fm.tile_plan(plan)
+    slots, slab = tile.ring_slots, 64 * c * tile.slab_ksteps
+    assert (c // 8) % tile.slab_ksteps == 0 and slab <= fm.SLAB_BYTES
+    assert 3 <= slots <= 12 and slab * slots <= max(fm.RING_BYTES, 4 * slab)
+    tb_max = (fm.max_strip_rows(c) - 2 * plan.halo) // 16 * 16
+
+    def smem(tb):
+        return (-(-16 * slots // 128) * 128 + slab * slots
+                + 8 * (tb + 2 * plan.halo) * tile.strip_stride)
+
+    assert tile.tb <= tb_max and tile.smem_bytes == smem(tile.tb)
+    assert smem(tb_max) <= fm.SMEM_BYTES == 232448
+    longer = tb_max + 16 + 2 * plan.halo
+    assert (smem(tb_max + 16) > fm.SMEM_BYTES or -(-longer // fm.UNIT_ROWS)
+            > tile.warpgroups * tile.rounds)
 
 
 def test_conv_walk_reads_only_rows_it_wrote():
@@ -207,12 +250,13 @@ def test_kernel_weights_are_the_slabs_the_kernel_streams(c):
 
 
 @pytest.mark.parametrize("b,t,c,tb", [(2, 300, 16, None), (1, 257, 8, 16),
-                                      (3, 100, 16, 48), (1, 40, 8, None)])
+                                      (3, 100, 16, 48), (1, 40, 8, None),
+                                      (1, 70, 72, 32)])
 def test_emulated_kernel_within_the_card_gate(b, t, c, tb):
-    """The kernel's walk and 3xTF32 slabs stay within MRF_RTOL of the IEEE
-    float32 plain version (ragged last tiles, tiles shorter than the halo,
-    a tile longer than T, a row that ends early); one TF32 product does
-    not."""
+    """The kernel's walk and 3xTF32 k-steps stay within MRF_RTOL of the
+    IEEE float32 plain version (ragged last tiles, tiles shorter than the
+    halo, a tile longer than T, a row that ends early, a width whose sums
+    are added in groups of taps); one TF32 product does not."""
     x, w, bias, plan = _inputs(t + c, b, t, c)
     tb = tb or fm.tile_plan(plan, (b, t)).tb
     want = fm.mrf_fused_reference(x, w, bias, plan)

@@ -634,8 +634,10 @@ def test_fused_mrf_cpu_tensors_take_the_plain_version(rng):
     (2, 5120, 64), (3, 1013, 32), (1, 20480, 16), (2, 7, 16), (1, 300, 8),
     # V1's three stage widths at a ragged T with rows of three lengths
     (3, 2999, 64), (3, 4001, 32), (3, 6007, 16),
-    # widths the route may send that take the runtime-C instantiations
-    (2, 1000, 24), (2, 700, 48), (2, 333, 96), (1, 400, 120)])
+    # other widths the route may send; above C = 64 the sums are added in
+    # float32 per group of taps
+    (2, 1000, 24), (2, 700, 48), (2, 333, 96), (1, 400, 120),
+    (2, 10243, 80), (2, 20483, 112)])
 def test_fused_mrf_matches_plain_on_card(cuda_device, b, t, c):
     rng = np.random.default_rng(t)
     x, w, bias, plan = _mrf_inputs(rng, b, t, c, cuda_device)
@@ -696,6 +698,24 @@ def test_fused_mrf_bf16_launches_are_bit_equal_on_card(cuda_device, b, t, c):
     rng = np.random.default_rng(c)
     x, w, bias, plan = _mrf_inputs(rng, b, t, c, cuda_device)
     x, w, bias = x.bfloat16(), w.bfloat16(), bias.bfloat16()
+    wk = fused_mrf.kernel_weights(w, plan)
+    first = fused_mrf.mrf_fused(x, w, bias, plan, wk=wk)
+    second = fused_mrf.mrf_fused(x, w, bias, plan, wk=wk)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c", [(3, 40961, 64), (2, 81923, 32),
+                                   (3, 163843, 16), (2, 163841, 8),
+                                   (2, 40963, 24), (2, 20483, 48),
+                                   (2, 10241, 96), (2, 10243, 120)])
+def test_fused_mrf_launches_are_bit_equal_on_card(cuda_device, b, t, c):
+    """Row 6's float32 mode gives the same bits twice: every block owns its
+    rows and sums in a fixed order (no atomics), whatever the order in
+    which the weight slabs land."""
+    rng = np.random.default_rng(c)
+    x, w, bias, plan = _mrf_inputs(rng, b, t, c, cuda_device)
     wk = fused_mrf.kernel_weights(w, plan)
     first = fused_mrf.mrf_fused(x, w, bias, plan, wk=wk)
     second = fused_mrf.mrf_fused(x, w, bias, plan, wk=wk)
