@@ -83,8 +83,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the device, and the launch-to-launch time, both from CUDA events), the
    kernel's share of its bound and the plan's branch ("tma", or
    "padded" where an operand goes through a workspace), tile and ring per
-   site; per serve of each mode the kernel's total beside the mma.sync
-   kernel's it replaced (INT8_SERVE_MS_BEFORE);
+   site; the same at every distinct site of bench.py's batch as the int8
+   serves launch it (64 x 256 codes); per serve of each mode the kernel's
+   total beside the kernel's it replaced (INT8_SERVE_MS_BEFORE), and by
+   stage (Ci) against its bound; a launch's fixed cost (INT8_FIXED_SITES
+   at T_out = 1, queued);
 7. fused serve: ParrotTTS with VocoderModelConfig(fused_mrf=True) on the
    same requests and weights: waveforms within 1e-5 of phase 4's, 3 fused
    launches per vocoder batch, each at a shape phase 5 checked;
@@ -323,10 +326,21 @@ SNR_MIN_DB = 15.0            # int8-static serve against the float serve: the
 # conv_post; "int8-tail" only the 64-, 32- and 16-channel stages' MRF convs
 # (3 x 18) and the two upsamples after the first of them
 INT8_SITES = {"int8-static": 95, "int8": 95, "int8-tail": 56}
-# row 7's ms per serve of each mode with the mma.sync kernel it replaced
-# (PERF.md section 6, the same phase on the same card)
-INT8_SERVE_MS_BEFORE = {"int8-static": 29.7722, "int8": 29.9788,
-                        "int8-tail": 16.1821}
+# row 7's ms per serve of each mode, float32 and bf16 output, with the
+# kernel design this one replaced (PERF.md section 6, the same phase on
+# the same card)
+INT8_SERVE_MS_BEFORE = {"int8-static": 8.3341, "int8": 8.5889,
+                        "int8-tail": 5.5775}
+INT8_SERVE_MS_BEFORE_BF16 = {"int8": 9.0351, "int8-tail": 5.9908}
+# bench.py's vocoder batch as the int8 serves launch it: 64 rows in the
+# 256-code bucket (BENCH_BATCH's 250 codes, padded); phase 6 gates its
+# sites too
+INT8_BENCH_BATCH = (64, 256)
+# the sites whose fixed cost phase 6 reads (a launch at T_out = 1, queued):
+# (Ci, Co, K, dilation) of a narrow MRF conv, a 64-channel one, a wide one
+# and the first upsample
+INT8_FIXED_SITES = ((16, 16, 3, 1), (64, 64, 11, 5), (256, 256, 11, 5),
+                    (512, 1280, 3, 1))
 INT8_CONV_KERNEL = "::conv_kernel<"   # csrc/int8_conv.cu's kernels, by name
 MRF_KERNEL = "::mrf_kernel"           # csrc/fused_mrf.cu's kernels, by name
 INT8_WARMUP, INT8_TIMED = 2, 10       # phase 6's launches per site
@@ -1302,13 +1316,16 @@ def phase_int8_kernel(qc, vcfg, batches, modes=tuple(INT8_SITES)) -> dict:
     """The int8 conv kernel against its plain version, bit for bit, at
     every distinct site shape of every vocoder batch of the serves of
     `modes` in vcfg.dtype (the int8-static and "int8" serves' sites cover
-    "int8-tail"'s), with the scale each serve passes and its output type
-    (bfloat16 at the dynamic sites of a bf16 serve). A site's "ms" is the
-    device time per launch of launches queued ahead of the device
-    (queued_ms): back to back, the launches of the small sites are paced by
-    the host, whose launch-to-launch time (cuda_ms) is printed beside it.
-    At a bf16 site "library_ms" is the same conv in bf16 through cuDNN
-    (F.conv1d with its bias), the yardstick no PyTorch int8 conv gives."""
+    "int8-tail"'s) and of bench.py's batch (INT8_BENCH_BATCH), with the
+    scale each serve passes and its output type (bfloat16 at the dynamic
+    sites of a bf16 serve). A site's "ms" is the device time per launch of
+    launches queued ahead of the device (queued_ms): back to back, the
+    launches of the small sites are paced by the host, whose
+    launch-to-launch time (cuda_ms) is printed beside it. At a bf16 site
+    "library_ms" is the same conv in bf16 through cuDNN (F.conv1d with
+    its bias), the yardstick no PyTorch int8 conv gives. Then, per serve,
+    the time by stage (the sites' Ci) against its bound, and a launch's
+    fixed cost: INT8_FIXED_SITES at T_out = 1, queued."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
     def ints(*shape):
@@ -1319,20 +1336,26 @@ def phase_int8_kernel(qc, vcfg, batches, modes=tuple(INT8_SITES)) -> dict:
     if "int8" in serves and not set(serves["int8-tail"]) <= set(
             serves["int8"]):
         raise AssertionError("int8-tail sites outside the int8 sites")
+    bench = {mode: int8_sites(vcfg, *INT8_BENCH_BATCH, mode)
+             for mode in modes}
     sites = {}
-    for site_counts in serves.values():
+    for site_counts in (*serves.values(), *bench.values()):
         sites.update(site_counts)
     rows = []
-    for key in sites:
-        n, t, ci, co, k, d, pads, leaky, per_row, bf16 = key
-        out_dtype = torch.bfloat16 if bf16 else torch.float32
+
+    def inputs(n, t, ci, co, k, per_row):
         xq, wt = ints(n, t, ci), ints(k, co, ci)
         # the serve's scale: per row (B, Co), or one (Co,) vector broadcast
         # over the batch
         scale = torch.rand(*((n,) if per_row else ()), co, generator=gen,
                            device="cuda") * 1e-4 + 1e-6
-        scale = scale.expand(n, -1)
         bias = torch.randn(co, generator=gen, device="cuda") * 0.1
+        return xq, wt, scale.expand(n, -1), bias
+
+    for key in sites:
+        n, t, ci, co, k, d, pads, leaky, per_row, bf16 = key
+        out_dtype = torch.bfloat16 if bf16 else torch.float32
+        xq, wt, scale, bias = inputs(n, t, ci, co, k, per_row)
 
         def kern():
             return qc.int8_conv(xq, wt, scale, bias, pads=pads, dilation=d,
@@ -1382,7 +1405,8 @@ def phase_int8_kernel(qc, vcfg, batches, modes=tuple(INT8_SITES)) -> dict:
               + (f"  cuDNN bf16 conv {library_ms:.4f} ms" if bf16 else "")
               + f"  branch {plan['branch']} (tile {plan['bm']} x "
               f"{plan['bn']}, {'resident' if plan['resident'] else 'streamed'}"
-              f" weights, {plan['stages']} stages)")
+              f" weights, chunks of {plan.get('ck', 32)} B, "
+              f"{plan['stages']} stages, grid {plan['grid']})")
         del xq, wt, got, want
     by_key = {r["key"]: r for r in rows}
 
@@ -1397,24 +1421,41 @@ def phase_int8_kernel(qc, vcfg, batches, modes=tuple(INT8_SITES)) -> dict:
         return out
 
     label = "" if vcfg.dtype == "float32" else f" ({vcfg.dtype})"
+    before = INT8_SERVE_MS_BEFORE_BF16 if label else INT8_SERVE_MS_BEFORE
     for mode in modes:
-        for n, t_codes in batches:
+        for n, t_codes in (*batches, INT8_BENCH_BATCH):
             r = report(int8_sites(vcfg, n, t_codes, mode))
-            print(f"int8 conv per {mode}{label} vocoder batch of {n} x "
-                  f"{t_codes} codes ({INT8_SITES[mode]} launches): kernel "
-                  f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-                  f"{r['bound_ms']:.4f} ms")
+            print(f"int8 conv per {mode}{label} "
+                  f"{'bench' if (n, t_codes) == INT8_BENCH_BATCH else 'vocoder'}"
+                  f" batch of {n} x {t_codes} codes ({INT8_SITES[mode]} "
+                  f"launches): kernel {r['ms']:.4f} ms  plain "
+                  f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                  f"({100 * r['bound_ms'] / r['ms']:.1f}%)")
         r = report(serves[mode])
-        before = ("" if label else "; the mma.sync kernel before it: "
-                  f"{INT8_SERVE_MS_BEFORE[mode]} ms")
         lib = (f"  cuDNN bf16 convs {r['library_ms']:.4f} ms"
                if "library_ms" in r else "")
         print(f"int8 conv per {mode}{label} serve ({len(serves[mode])} "
               f"distinct shapes, {INT8_SITES[mode] * len(batches)} launches):"
               f" kernel {r['ms']:.4f} ms device "
               f"({100 * r['bound_ms'] / r['ms']:.1f}% of the bound; launch to "
-              f"launch {r['launch_ms']:.4f} ms{before})  plain "
+              f"launch {r['launch_ms']:.4f} ms; the kernel before it: "
+              f"{before[mode]} ms)  plain "
               f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms{lib}")
+        for ci in sorted({key[2] for key in serves[mode]}):
+            r = report({key: c for key, c in serves[mode].items()
+                        if key[2] == ci})
+            print(f"int8 conv stage Ci={ci:3d} per {mode}{label} serve: "
+                  f"kernel {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                  f"({100 * r['bound_ms'] / r['ms']:.1f}%)")
+    out_dtype = torch.bfloat16 if label else torch.float32
+    for ci, co, k, d in INT8_FIXED_SITES:
+        pad = d * (k - 1) // 2
+        xq, wt, scale, bias = inputs(1, 1, ci, co, k, True)
+        ms = queued_ms(lambda: qc.int8_conv(
+            xq, wt, scale, bias, pads=(pad, pad), dilation=d, leaky=0.1,
+            out_dtype=out_dtype), INT8_TIMED, warmup=INT8_WARMUP)
+        print(f"int8 conv fixed cost{label} (B=1, T_out=1, Ci={ci}, Co={co},"
+              f" K={k}, d={d}): {ms:.4f} ms per launch, queued")
     # the three serves together, whose launches the kernels line counts
     all_serves: dict = {}
     for site_counts in serves.values():

@@ -59,11 +59,28 @@ from parrot_tts_tpu_torch.ops.activation import leaky_relu
 INT8_MAX_K = 133_144       # the largest K with 127^2 * K < 2^31
 SMEM_MAX = 232_448         # dynamic shared memory a block may use (H100)
 H100_SMS = 132             # streaming multiprocessors of an H100 SXM
-# csrc/int8_conv.cu: tile widths, weights kept resident, ring depths (a
-# deeper ring measured slower on the card)
-CONV_TILE_N = (16, 32, 64, 128, 256)
-CONV_RESIDENT_MAX = 96 * 1024     # all weights of a launch kept in the block
-CONV_STAGES = {True: 3, False: 4}     # resident weights: 3; streamed: 4
+# csrc/int8_conv.cu: tile widths (channels), the most rows of a tile at each
+# width (its accumulators: 64 registers at most; its float32 output tile:
+# 32 KB at most), the chunks of Ci a ring stage carries (bytes), the
+# ring's depth at most (even: half of it for each consumer)
+CONV_TILE_N = (16, 32, 64, 128)
+CONV_TILE_ROWS = {16: 512, 32: 256, 64: 128, 128: 64}
+CONV_CHUNKS = (128, 64, 32)
+CONV_STAGES = 8
+# conv_plan's launch model, in SM cycles: a wgmma m64nNk32 by N (s8, both
+# operands in shared memory, scripts/exp_wgmma_rate.py --only s8 on the
+# H100); a ring slot's reload (release to full), one row of a TMA
+# box and the cost of a tile beyond its bytes and products (fitted to
+# scripts/time_int8_conv.py's V1 sites on the H100); the bytes an
+# SM moves per cycle from memory (3.35 TB/s over 132 SMs at 1.755 GHz)
+# and from L2 (a third of the 5.5 TB/s L2 reads lost to contention: an
+# assumption)
+CONV_WGMMA_CYCLES = {16: 22.0, 32: 26.4, 64: 35.3, 128: 70.5}
+CONV_RELOAD_CYCLES = 2500
+CONV_ROW_CYCLES = 10
+CONV_TILE_CYCLES = 1500
+CONV_SM_BYTES = 14.5
+CONV_L2_BYTES = 16.0
 # csrc/int8_gemm.cu: output tile and grouped order
 GEMM_BM, GEMM_BN, GEMM_GROUP = 128, 256, 8
 _MM_CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -89,7 +106,7 @@ class _Kernel:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 INT8_CONV = _Kernel("int8_conv", "int8_conv_s8",
                     [_P] * 3 + [_I] + [_P] * 2 + [_I] * 10 + [ctypes.c_float]
-                    + [_I] * 6 + [_P])
+                    + [_I] * 7 + [_P])
 OUT_DTYPES = (torch.float32, torch.bfloat16)   # int8_conv's outputs
 MATMUL = _Kernel("int8_gemm", "int8_gemm",
                  [_I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P])
@@ -128,15 +145,26 @@ def _padded(x: torch.Tensor, shape: tuple) -> torch.Tensor:
     return ws
 
 
-def _conv_smem(plan: dict, stages: int) -> int:
-    """Shared memory of csrc/int8_conv.cu's Plan::smem() at `stages`."""
-    epi = 64 * min(plan["bn"], 32) * 4
-    wbox = plan["k"] * plan["bn"] * 16
-    a_bytes = 2 * plan["slab"] * 16
-    stage = _round_up(a_bytes + (0 if plan["resident"] else 2 * wbox), 1024)
-    resident = (_round_up(plan["n_chunks"] * 2 * wbox, 1024)
-                if plan["resident"] else 0)
-    return 4 * epi + resident + stages * stage + (2 * stages + 1) * 8 + 1024
+def _slab(rows: int, k: int, dilation: int) -> tuple[int, int]:
+    """(n_rbox, box_rows): a tile's activation slab, rows + (k-1)*dilation
+    rows in n_rbox TMA boxes of box_rows <= 256 rows, each a multiple of 8."""
+    need = rows + (k - 1) * dilation
+    n_rbox = _ceil(need, 256)
+    return n_rbox, _round_up(_ceil(need, n_rbox), 8)
+
+
+def _conv_smem(k: int, bn: int, rows: int, ck: int, slab: int,
+               n_chunks: int, resident: bool, out_bytes: int,
+               stages: int) -> int:
+    """Shared memory of csrc/int8_conv.cu's Plan::smem(): two output tiles
+    (one per consumer), the resident weights of a channel tile, `stages`
+    ring stages (a slab of ck-byte rows, and the chunk's weights when they
+    stream), the mbarriers and the alignment slack."""
+    wchunk = k * bn * ck
+    stage = _round_up(slab * ck + (0 if resident else wchunk), 1024)
+    wres = _round_up(n_chunks * wchunk, 1024) if resident else 0
+    return (2 * rows * bn * out_bytes + wres + stages * stage
+            + (2 * stages + n_chunks) * 8 + 1024)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -151,18 +179,30 @@ def conv_plan(b: int, t: int, ci: int, k: int, co: int,
       dimension); the output through (b, t_out, co_p) when its rows are
       not a multiple of 16 bytes (co not a multiple of 4 in float32, 8 in
       bfloat16: out_bytes 4 or 2); "tma" when nothing is padded;
-    - resident: the tile covers co (bn the smallest of CONV_TILE_N that
-      does) and all weights fit CONV_RESIDENT_MAX, so the block loads them
-      once; else they stream with the activations, in tiles of bn = 64
-      channels (at most), which keeps a stage small;
-    - mb: m64 blocks per consumer warpgroup (4 at bn <= 32, 2 at 64, else
-      1), bm = 128 * mb the tile's rows; a streamed launch with fewer
-      tiles than SMs takes mb = 1 (those launches are bound by latency);
-    - slab: activation rows per chunk (bm + (k-1)*dilation, in n_rbox TMA
-      boxes of box_rows <= 256 rows, each a multiple of 8);
-    - stages: the ring's depth, CONV_STAGES[resident] or as many as fit;
-    - tiles (b * tiles_m * tiles_n) and grid = min(tiles, sms).
-    Raises ValueError when the slab leaves no room for two stages. The
+    - bn (channels), bm (= 64 * mb, output rows), ck (bytes of ci per
+      chunk: one ring stage and one weight box of {ck, bn, k} in the
+      ck-byte swizzle) and stages (as many as fit, even: half for each
+      consumer warpgroup, which needs two, since it frees a slot after
+      the next one's products are issued; at least 4, at most
+      CONV_STAGES): the tile that fits shared memory (SMEM_MAX) with the
+      least modelled time (from the CONV_* constants: per SM, its share
+      of the tiles, each the largest of its products, bytes, L2 reads,
+      box rows and ring reloads plus a fixed cost), bn from CONV_TILE_N up to the width
+      that covers co and down to 32 (16 where co needs no more), bm from
+      CONV_TILE_ROWS[bn] down to 64, ck from CONV_CHUNKS up to ci_p
+      rounded to 32; ties go to the widest, then the longest tile. The
+      weights of a channel tile (every tap, ci_p, bn channels) stay
+      resident in the block beside the ring; where no width lets them,
+      they stream through the ring (resident False) in 64-channel tiles;
+      n_chunks;
+    - n_rbox, box_rows, slab: the tile's activation rows (_slab); planes:
+      ci_p = 16, whose slab rows are the input's own 16-byte rows, so a
+      slab inside the batch row is one 1-d copy (boxes of {16, rows} at
+      the edges), beside a zero plane that pads the 32-byte k-step;
+    - tiles = b * tiles_m * tiles_n, walked by conv_tile; grid: tiles_n
+      blocks for each of min(b * tiles_m, sms // tiles_n) groups, so that a
+      block keeps one channel tile (at least one group).
+    Raises ValueError when the slab leaves no room for four ring stages. The
     plan is cached per argument list (the wrapper computes it at every
     launch), so it is read-only."""
     t_out = out_len(t, k, pads, dilation)
@@ -170,34 +210,72 @@ def conv_plan(b: int, t: int, ci: int, k: int, co: int,
                        max(t, 1))
     plan = {"t_out": t_out, "ci_p": ci_p, "co_p": co_p, "t_x": t_x, "k": k,
             "pad_x": ci_p != ci or t_x != t or not x_aligned,
-            "pad_w": ci_p != ci or not w_aligned, "pad_out": co_p != co,
-            "n_chunks": _ceil(ci_p, 32)}
+            "pad_w": ci_p != ci or not w_aligned, "pad_out": co_p != co}
     plan["branch"] = ("padded" if plan["pad_x"] or plan["pad_w"]
                       or plan["pad_out"] else "tma")
-    bn = next(n for n in CONV_TILE_N if n >= min(co, CONV_TILE_N[-1]))
-    resident = (_ceil(co, bn) == 1
-                and plan["n_chunks"] * 32 * k * bn <= CONV_RESIDENT_MAX)
-    if not resident:
-        bn = min(bn, 64)
-    mb = 4 if bn <= 32 else (2 if bn == 64 else 1)
-    if not resident and b * _ceil(t_out, 128 * mb) * _ceil(co, bn) < sms:
-        mb = 1
-    bm = 128 * mb
-    need = bm + (k - 1) * dilation
-    n_rbox = _ceil(need, 256)
-    box_rows = _round_up(_ceil(need, n_rbox), 8)
-    plan.update(bn=bn, mb=mb, bm=bm, resident=resident, n_rbox=n_rbox,
-                box_rows=box_rows, slab=n_rbox * box_rows,
-                tiles_m=_ceil(t_out, bm), tiles_n=_ceil(co, bn))
-    stages = CONV_STAGES[resident]
-    while stages >= 2 and _conv_smem(plan, stages) > SMEM_MAX:
-        stages -= 1
-    if stages < 2:
+    cover = next(n for n in CONV_TILE_N if n >= min(co, CONV_TILE_N[-1]))
+    chunks = [c for c in CONV_CHUNKS if c <= _round_up(ci_p, 32)]
+
+    def candidates(resident: bool, widths):
+        """(cycles, order, config) of every tile that fits with four
+        stages or more: the launch model, the largest of a tile's
+        products, its bytes from memory and from L2, its TMA box rows
+        and half its ring's reloads (two consumers), plus
+        CONV_TILE_CYCLES, times the tiles an SM takes."""
+        for bn in widths:
+            tiles_n = _ceil(co, bn)
+            rows = CONV_TILE_ROWS[bn]
+            while rows >= 64:
+                n_rbox, box_rows = _slab(rows, k, dilation)
+                tiles_m = _ceil(t_out, rows)
+                groups = min(b * tiles_m, max(1, sms // tiles_n))
+                for ck in chunks:
+                    n_chunks = _ceil(ci_p, ck)
+                    args = (k, bn, rows, ck, n_rbox * box_rows, n_chunks,
+                            resident, out_bytes)
+                    stages = max((s for s in range(4, CONV_STAGES + 1, 2)
+                                  if _conv_smem(*args, s) <= SMEM_MAX),
+                                 default=0)
+                    if not stages:
+                        continue
+                    products = (n_chunks * k * ck // 32 * rows // 64
+                                * CONV_WGMMA_CYCLES[bn])
+                    moved = rows * bn * out_bytes + rows * ci_p / tiles_n
+                    fetched = n_chunks * (n_rbox * box_rows * ck + (
+                        0 if resident else k * bn * ck))
+                    boxes = n_chunks * n_rbox * box_rows * (ci_p != 16)
+                    reload = n_chunks * CONV_RELOAD_CYCLES / (stages // 2 - 1)
+                    tile = max(products, moved / CONV_SM_BYTES,
+                               fetched / CONV_L2_BYTES,
+                               boxes * CONV_ROW_CYCLES,
+                               reload / 2) + CONV_TILE_CYCLES
+                    waves = _ceil(b * tiles_m, groups)
+                    yield (waves * tile, -bn, -rows, -ck,
+                           (bn, rows, ck, n_rbox, box_rows, stages))
+                rows //= 2
+
+    # resident weights wherever some width fits (down to 32 channels, or
+    # 16 where co needs no more); streamed in 64-channel tiles otherwise
+    found = min(candidates(True, [n for n in CONV_TILE_N
+                                  if min(cover, 32) <= n <= cover]),
+                default=None)
+    resident = found is not None
+    if found is None:
+        found = min(candidates(False, [min(cover, 64)]), default=None)
+    if found is None:
         raise ValueError(f"int8_conv: K = {k}, dilation = {dilation}: the "
-                         "input slab leaves no room for two ring stages")
-    plan.update(stages=stages, smem=_conv_smem(plan, stages),
-                tiles=b * plan["tiles_m"] * plan["tiles_n"])
-    plan["grid"] = min(plan["tiles"], sms)
+                         "input slab leaves no room for four ring stages")
+    bn, rows, ck, n_rbox, box_rows, stages = found[-1]
+    plan.update(bn=bn, mb=rows // 64, bm=rows, ck=ck, planes=ci_p == 16,
+                n_chunks=_ceil(ci_p, ck), resident=resident, n_rbox=n_rbox,
+                box_rows=box_rows, slab=n_rbox * box_rows,
+                tiles_m=_ceil(t_out, rows), tiles_n=_ceil(co, bn),
+                stages=stages)
+    plan["smem"] = _conv_smem(k, bn, rows, ck, plan["slab"],
+                              plan["n_chunks"], resident, out_bytes, stages)
+    plan["tiles"] = b * plan["tiles_m"] * plan["tiles_n"]
+    plan["grid"] = plan["tiles_n"] * min(b * plan["tiles_m"],
+                                         max(1, sms // plan["tiles_n"]))
     plan["workspace_bytes"] = (
         (b * t_x * ci_p if plan["pad_x"] else 0)
         + (k * co * ci_p if plan["pad_w"] else 0)
@@ -208,7 +286,10 @@ def conv_plan(b: int, t: int, ci: int, k: int, co: int,
 def conv_tile(plan: dict, tile: int) -> tuple[int, int, int]:
     """(batch row, first output row, first channel) of tile `tile`: the
     kernel's walk, channels fastest, then time tiles, then batch rows.
-    Block i of the plan's grid takes tiles i, i + grid, i + 2*grid, ..."""
+    Block i of the plan's grid takes tiles i, i + grid, i + 2*grid, ...
+    (all of one channel tile, since the grid is a multiple of tiles_n),
+    its consumer warpgroups taking them in turn: the block's j-th tile
+    belongs to consumer j % 2."""
     nt, r = tile % plan["tiles_n"], tile // plan["tiles_n"]
     mt, b = r % plan["tiles_m"], r // plan["tiles_m"]
     return b, mt * plan["bm"], nt * plan["bn"]
@@ -280,7 +361,8 @@ def int8_conv(xq: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
             bias.data_ptr() if bias is not None else None, y.data_ptr(),
             b, plan["t_x"], plan["ci_p"], k, co, plan["co_p"], t_out, pads[0],
             dilation, int(leaky is not None), float(leaky or 0.0),
-            plan["bn"], plan["mb"], plan["stages"], int(plan["resident"]),
+            plan["bn"], plan["mb"], plan["ck"], plan["stages"],
+            int(plan["resident"]),
             plan["grid"], int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"int8_conv launch failed: CUDA error {err}")

@@ -1,7 +1,8 @@
-"""The bf16 and tf32 wgmma rates on the card by the wgmma's n, the number
-of warpgroups and where the operands come from.
+"""The bf16, tf32 and s8 wgmma rates on the card by the wgmma's n, the
+number of warpgroups and where the operands come from.
 
     python -m parrot_tts_tpu_torch.scripts.exp_wgmma_rate [--iters N]
+        [--only bf16|tf32|s8] [--list]
 
 Run from the root of the checkout, on a machine with a CUDA card and
 nvcc. Row 6's bf16 mode (`csrc/fused_mrf.cu::mrf_kernel_bf16`) issues
@@ -25,6 +26,11 @@ wait for all but the last group after it, as the kernel issues them) or
 from shared memory ("ss", both operands through descriptors). Printed per
 case: ms (CUDA events), TFLOP/s against the peak of its type (989 bf16,
 494.7 tf32), and SM cycles per wgmma (at the card's maximum SM clock).
+The s8 cases are row 7's (`csrc/int8_conv.cu`): m64nNk32 with N = 16,
+32, 64, 128 and 256, both operands K-major in shared memory (A as the
+conv's unswizzled slab, B as its weights in the 128-byte swizzle), 4
+k-steps per unit and step, TOP/s against 1,979. `--only` runs one type's
+cases; `--list` prints the cases and measures nothing (no card needed).
 The source is written and built under build/ at run time.
 """
 
@@ -55,9 +61,65 @@ CASES += [(16, 4, 4, "branch1"), (16, 4, 5, "branch1")]
 CASES += [(n, w, u, form) for form in ("rs1", "rs", "ss")
           for n, us in ((8, (4,)), (16, (4,)), (32, (4,)), (64, (2, 3)))
           for w in (2, 3, 4) for u in us]
+# s8 m64nNk32, both operands from shared memory (row 7)
+CASES += [(n, w, min(4, 256 // n), "s8") for n in (16, 32, 64, 128, 256)
+          for w in (1, 2)]
 LAYOUTS = {"none": 0, "sw128": 1, "branch": 2, "branch1": 3, "rs1": 4,
-           "rs": 5, "ss": 6}
+           "rs": 5, "ss": 6, "s8": 7}
 TF32 = ("rs1", "rs", "ss")
+INT8_PEAK = 1979e12
+
+
+def kind(lay: str) -> str:
+    return "s8" if lay == "s8" else "tf32" if lay in TF32 else "bf16"
+
+
+def kernel_s8(n: int, w: int, u: int) -> str:
+    """One s8 case: W warpgroups, each with U int32 accumulators of 64 x n;
+    A: W x U tiles of 64 rows x 128 bytes of K as [8 k groups][64 rows][16
+    bytes] (row 7's slab), B: n rows x 128 bytes in the 128-byte swizzle
+    (row 7's weights), 4 k-steps of 32 bytes a step."""
+    return f"""
+__global__ void __launch_bounds__({128 * w}, 1)
+rate_{n}_{w}_{u}_7(float* out, int iters, int rows) {{
+  extern __shared__ __align__(1024) unsigned char sm[];
+  unsigned char* b = sm;
+  unsigned char* a = sm + {n * 128};
+  const int tid = threadIdx.x, wg = tid / 128;
+  for (int i = tid * 4; i < {w * u * 8192 + n * 128}; i += {128 * w * 4})
+    *reinterpret_cast<uint32_t*>(sm + i) = i * 2654435761u;
+  fence_proxy_async();
+  __syncthreads();
+  int acc[{u}][{n // 2}];
+#pragma unroll
+  for (int v = 0; v < {u}; ++v)
+#pragma unroll
+    for (int i = 0; i < {n // 2}; ++i) acc[v][i] = 0;
+  wg_fence();
+  for (int it = 0; it < iters; ++it) {{
+#pragma unroll
+    for (int v = 0; v < {u}; ++v) {{
+      const unsigned char* at = a + (wg * {u} + v) * 8192;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_s8<{n}>(acc[v], sdesc(at + 2 * ks * 64 * 16, 64 * 16, 128,
+                                    kNoSwizzle),
+                      sdesc(b + 32 * ks, 16, 1024, kSwizzle128));
+    }}
+    wg_commit();
+    wg_wait<1>();
+  }}
+  wg_wait<0>();
+  float s = 0.f;
+#pragma unroll
+  for (int v = 0; v < {u}; ++v) {{
+    reg_fence(acc[v]);
+#pragma unroll
+    for (int i = 0; i < {n // 2}; ++i) s += acc[v][i];
+  }}
+  out[blockIdx.x * blockDim.x + tid] = s;
+}}
+"""
 
 
 def mma_tf32(n: int) -> str:
@@ -242,10 +304,11 @@ def source() -> str:
                      f'#include "{kernels.CSRC / "sm90.cuh"}"',
                      "using namespace sm90;"])
     src += "".join(mma(n) for n in sorted({c[0] for c in CASES
-                                           if c[3] not in TF32}))
+                                           if kind(c[3]) == "bf16"}))
     src += "".join(mma_tf32(n) for n in sorted({c[0] for c in CASES
                                                 if c[3] in TF32}))
-    src += "".join(kernel_tf32(n, w, u, lay) if lay in TF32
+    src += "".join(kernel_s8(n, w, u) if lay == "s8"
+                   else kernel_tf32(n, w, u, lay) if lay in TF32
                    else kernel(n, w, u, LAYOUTS[lay])
                    for n, w, u, lay in CASES)
     src += """
@@ -260,7 +323,7 @@ extern "C" int run(int n, int w, int u, int sw, int iters, float* out,
         sw = LAYOUTS[lay]
         k = f"rate_{n}_{w}_{u}_{sw}"
         nbytes = (w * u * 4096 + n * 64 if lay in TF32
-                  else w * u * 8192 + n * 128)
+                  else w * u * 8192 + n * 128)   # s8: as bf16
         src += f"""  if (n == {n} && w == {w} && u == {u} && sw == {sw}) {{
     const int bytes = {nbytes};
     cudaFuncSetAttribute({k}, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -297,10 +360,24 @@ def build() -> ctypes.CDLL:
     return so
 
 
-def main() -> int:
+def label(n: int, w: int, u: int, lay: str) -> str:
+    k = {"s8": 32, "tf32": 8, "bf16": 16}[kind(lay)]
+    return f"m64n{n}k{k} {kind(lay)} {lay:6s} W={w} U={u}"
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=4000)
-    args = ap.parse_args()
+    ap.add_argument("--only", choices=("bf16", "tf32", "s8"), default=None,
+                    help="run only this type's cases")
+    ap.add_argument("--list", action="store_true",
+                    help="print the cases; measure nothing")
+    args = ap.parse_args(argv)
+    cases = [c for c in CASES if args.only in (None, kind(c[3]))]
+    if args.list:
+        for case in cases:
+            print(f"{label(*case)}: not measured")
+        return 0
     if not torch.cuda.is_available():
         raise SystemExit("exp_wgmma_rate: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -314,7 +391,7 @@ def main() -> int:
     so = build()
     out = torch.empty(132 * 512, device="cuda")
     ms = ctypes.c_float()
-    for n, w, u, lay in CASES:
+    for n, w, u, lay in cases:
         err = so.run(n, w, u, LAYOUTS[lay], args.iters,
                      ctypes.c_void_p(out.data_ptr()), ctypes.byref(ms))
         if err:
@@ -322,12 +399,14 @@ def main() -> int:
         tf32 = lay in TF32
         count = (132 * w * u * args.iters         # wgmmas
                  * (1 if lay == "branch1" else 3 if tf32 else 4))
-        flops = 2.0 * 64 * n * (8 if tf32 else 16) * count
+        depth = 32 if lay == "s8" else 8 if tf32 else 16
+        flops = 2.0 * 64 * n * depth * count
         secs = ms.value / 1e3
-        peak = TF32_PEAK if tf32 else BF16_PEAK
-        print(f"m64n{n}k{8 if tf32 else 16} {'tf32' if tf32 else 'bf16'} "
-              f"{lay:6s} W={w} U={u}: {ms.value:.4f} ms  "
-              f"{flops / secs / 1e12:.1f} TFLOP/s "
+        peak = {"s8": INT8_PEAK, "tf32": TF32_PEAK,
+                "bf16": BF16_PEAK}[kind(lay)]
+        unit = "TOP/s" if lay == "s8" else "TFLOP/s"
+        print(f"{label(n, w, u, lay)}: {ms.value:.4f} ms  "
+              f"{flops / secs / 1e12:.1f} {unit} "
               f"({100 * flops / secs / peak:.1f}% of peak)  "
               f"{secs * clock_hz * 132 / count:.1f} SM cycles per wgmma")
     return 0

@@ -48,14 +48,15 @@ SMALL_SITES = v1_sites(2, 2)          # T = 10 .. 640 rows: 1-2 time tiles
 FULL_SITES = v1_sites(3, 1024)        # the serve's largest vocoder batch
 
 
-def emulate_conv(xq, wt, scale, bias, *, pads, dilation, leaky, plan):
+def emulate_conv(xq, wt, scale, bias, *, pads, dilation, leaky, plan,
+                 out_dtype=torch.float32):
     """csrc/int8_conv.cu's arithmetic on `plan`, in torch: returns the
-    (B, T_out, co_p) output buffer and how often each element was
-    stored."""
+    (B, T_out, co_p) output buffer, how often each element was stored and
+    which consumer warpgroup stored it."""
     b, t, ci = xq.shape
     k, co, _ = wt.shape
-    ci_p, t_x, bn, bm = plan["ci_p"], plan["t_x"], plan["bn"], plan["bm"]
-    mb_rows = 64 * plan["mb"]                     # rows per consumer
+    ci_p, t_x, bn, rows, ck = (plan["ci_p"], plan["t_x"], plan["bn"],
+                               plan["bm"], plan["ck"])
     # the buffers the kernel's tensor maps describe: (ci_p, t_x, B) and
     # (ci_p, Co, K); a padded operand is the zeroed workspace
     x = torch.zeros((b, t_x, ci_p), dtype=torch.int64)
@@ -64,41 +65,63 @@ def emulate_conv(xq, wt, scale, bias, *, pads, dilation, leaky, plan):
         assert (t_x, ci_p) == (t, ci)
     w = torch.zeros((k, co, ci_p), dtype=torch.int64)
     w[:, :, :ci] = wt.long()
-    out = torch.full((b, plan["t_out"], plan["co_p"]), float("nan"))
+    out = torch.full((b, plan["t_out"], plan["co_p"]), float("nan"),
+                     dtype=out_dtype)
     stores = torch.zeros(out.shape, dtype=torch.int64)
+    owner = torch.full(out.shape, -1, dtype=torch.int64)
+    assert plan["grid"] % plan["tiles_n"] == 0
 
-    def box(rows, cols, src_rows, src_cols, src):
-        """A TMA box: rows x cols of src at signed coordinates, zero
+    def box(rows_, cols, src_rows, src_cols, src):
+        """A TMA box: rows_ x cols of src at signed coordinates, zero
         outside the tensor."""
-        r = torch.arange(rows) + src_rows
+        r = torch.arange(rows_) + src_rows
         c = torch.arange(cols) + src_cols
         ok = ((r >= 0) & (r < src.shape[0]))[:, None] & (c < src.shape[1])
         vals = src[r.clamp(0, src.shape[0] - 1)][:, c.clamp(max=src.shape[1]
                                                            - 1)]
         return torch.where(ok, vals, torch.zeros_like(vals))
 
+    def weights(n0, c):
+        """A chunk's weight box {ck, bn, K} at (c * ck, n0, 0): (K, bn, ck),
+        channels past Co and Ci zero."""
+        return torch.stack([box(bn, ck, n0, c * ck, w[tap])
+                            for tap in range(k)])
+
     for block in range(plan["grid"]):
-        for tile in range(block, plan["tiles"], plan["grid"]):
-            bb, t0, n0 = qconv.conv_tile(plan, tile)
-            acc = torch.zeros((bm, bn), dtype=torch.int64)
+        n0 = block % plan["tiles_n"] * bn      # the block's channel tile
+        # resident: loaded once per block, chunk by chunk
+        wres = ([weights(n0, c) for c in range(plan["n_chunks"])]
+                if plan["resident"] else None)
+        for local, tile in enumerate(range(block, plan["tiles"],
+                                           plan["grid"])):
+            bb, t0, tn0 = qconv.conv_tile(plan, tile)
+            assert tn0 == n0
+            acc = torch.zeros((rows, bn), dtype=torch.int64)
             for c in range(plan["n_chunks"]):
-                # the slab: two 16-byte columns of n_rbox boxes each
-                slab = torch.zeros((plan["slab"], 32), dtype=torch.int64)
-                for j in range(2):
+                # the slab: rows of ck bytes, n_rbox boxes {ck, box_rows};
+                # at ci_p = 16 one copy of the input's rows where they lie
+                # inside the batch row, and a zero plane beside them
+                slab = torch.zeros((plan["slab"], ck), dtype=torch.int64)
+                row0 = t0 - pads[0]
+                assert plan["planes"] == (ci_p == 16)
+                if plan["planes"] and 0 <= row0 <= t_x - plan["slab"]:
+                    slab[:, :16] = x[bb, row0:row0 + plan["slab"]]
+                else:
                     for q in range(plan["n_rbox"]):
                         r0 = q * plan["box_rows"]
-                        slab[r0:r0 + plan["box_rows"], 16 * j:16 * j + 16] = box(
-                            plan["box_rows"], 16, t0 - pads[0] + r0,
-                            16 * (2 * c + j), x[bb])
+                        slab[r0:r0 + plan["box_rows"]] = box(
+                            plan["box_rows"], ck, row0 + r0, c * ck, x[bb])
+                wch = wres[c] if plan["resident"] else weights(n0, c)
                 for tap in range(k):
-                    wtap = box(bn, 32, n0, 32 * c, w[tap])   # rows past Co: 0
-                    for cw in range(2):
+                    for ks in range(ck // 32):
+                        kk = slice(32 * ks, 32 * ks + 32)
                         for mb in range(plan["mb"]):
-                            row = cw * mb_rows + mb * 64
-                            start = row + tap * dilation
+                            start = mb * 64 + tap * dilation
                             assert start + 64 <= plan["slab"]
-                            acc[row:row + 64] += slab[start:start + 64] @ wtap.T
-            # the epilogue: the same two float32 roundings, then the leaky
+                            acc[mb * 64:mb * 64 + 64] += (
+                                slab[start:start + 64, kk] @ wch[tap][:, kk].T)
+            # the epilogue: the same two float32 roundings; in float32 the
+            # leaky, in bf16 the packed pair's rounding and leaky
             cols = n0 + torch.arange(bn)
             inside = cols < co
             sc = torch.where(inside, scale[bb, cols.clamp(max=co - 1)],
@@ -107,21 +130,35 @@ def emulate_conv(xq, wt, scale, bias, *, pads, dilation, leaky, plan):
             if bias is not None:
                 y = y + torch.where(inside, bias[cols.clamp(max=co - 1)],
                                     torch.zeros(()))
-            if leaky is not None:
+            if out_dtype == torch.bfloat16:
+                y = y.bfloat16()
+                if leaky is not None:
+                    y = packed_leaky_bf16(y, leaky)
+            elif leaky is not None:
                 y = torch.maximum(y, leaky * y)
-            # the store: 64-row boxes of min(bn, 32) channels, clipped at
-            # T_out and at Co
-            ec = min(bn, 32)
-            for r0 in range(0, bm, 64):
-                for c0 in range(0, bn, ec):
-                    rows = slice(t0 + r0, min(t0 + r0 + 64, plan["t_out"]))
+            # the stores: boxes of EC channels x up to 256 of the tile's
+            # rows, clipped at T_out and at Co
+            ec = min(bn, 128 // out.element_size())
+            box_rows = min(rows, 256)
+            for c0 in range(0, bn, ec):
+                for r0 in range(0, rows, box_rows):
+                    rows_ = slice(t0 + r0, min(t0 + r0 + box_rows,
+                                               plan["t_out"]))
                     chans = slice(n0 + c0, min(n0 + c0 + ec, co))
-                    if rows.start >= rows.stop or chans.start >= chans.stop:
+                    if rows_.start >= rows_.stop or chans.start >= chans.stop:
                         continue
-                    out[bb, rows, chans] = y[r0:r0 + rows.stop - rows.start,
-                                             c0:c0 + chans.stop - chans.start]
-                    stores[bb, rows, chans] += 1
-    return out, stores
+                    out[bb, rows_, chans] = y[r0:r0 + rows_.stop - rows_.start,
+                                              c0:c0 + chans.stop - chans.start]
+                    stores[bb, rows_, chans] += 1
+                    owner[bb, rows_, chans] = local % 2
+    return out, stores, owner
+
+
+def packed_leaky_bf16(y16: torch.Tensor, slope: float) -> torch.Tensor:
+    """The kernel's bf16 leaky ReLU on packed pairs: __hmul2(s16, y16), one
+    rounding of the product (exact in float32) to bf16, then __hmax2."""
+    s16 = torch.tensor(slope, dtype=torch.bfloat16).float()
+    return torch.maximum(y16, (s16 * y16.float()).bfloat16())
 
 
 def _conv_inputs(shape, seed):
@@ -135,32 +172,53 @@ def _conv_inputs(shape, seed):
     return xq, wt, scale, bias
 
 
-@pytest.mark.parametrize("shape", SMALL_SITES + CARD_CONV,
+# weights past what a block keeps: the ring streams them
+STREAMED_CONV = [(1, 100, 2048, 96, 11, 1, (5, 5), 0.1)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SMALL_SITES + CARD_CONV + STREAMED_CONV,
                          ids=lambda s: "B{}-T{}-Ci{}-Co{}-K{}-d{}".format(*s))
-def test_conv_tile_walk_is_bit_identical_to_plain(shape):
-    """Every output element is stored once, and the emulated kernel gives
-    int8_conv_reference's bits, at a short-T version of every distinct V1
-    site shape and at the card test's shapes."""
+def test_conv_tile_walk_is_bit_identical_to_plain(shape, out_dtype):
+    """Every output element is stored once, the consumers take a block's
+    tiles in turn, and the emulated kernel gives int8_conv_reference's
+    bits in either output type, at a short-T version of every distinct V1
+    site shape, at the card test's shapes and at one whose weights
+    stream."""
     b, t, ci, co, k, dil, pads, leaky = shape
     xq, wt, scale, bias = _conv_inputs(shape, t + ci + co + k)
-    plan = qconv.conv_plan(b, t, ci, k, co, pads, dil, sms=7)
-    got, stores = emulate_conv(xq, wt, scale, bias, pads=pads, dilation=dil,
-                               leaky=leaky, plan=plan)
+    out_bytes = 2 if out_dtype == torch.bfloat16 else 4
+    plan = qconv.conv_plan(b, t, ci, k, co, pads, dil, sms=7,
+                           out_bytes=out_bytes)
+    assert plan["resident"] == (shape not in STREAMED_CONV)
+    got, stores, owner = emulate_conv(xq, wt, scale, bias, pads=pads,
+                                      dilation=dil, leaky=leaky, plan=plan,
+                                      out_dtype=out_dtype)
     want = qconv.int8_conv_reference(xq, wt, scale, bias, pads=pads,
-                                     dilation=dil, leaky=leaky)
+                                     dilation=dil, leaky=leaky,
+                                     out_dtype=out_dtype)
     assert torch.equal(stores[..., :co], torch.ones_like(want,
                                                          dtype=torch.int64))
     assert torch.equal(got[..., :co], want)
+    assert set(owner[..., :co].unique().tolist()) <= {0, 1}
 
 
 def test_conv_tile_walk_covers_every_row_once_at_full_size():
     """At the serve's largest batch (3 x 1024 codes), every site's walk
     over (batch row, time tile, channel tile) takes each tile exactly
-    once, and the tiles cover every output row and channel."""
+    once, the tiles cover every output row and channel, and every tile of
+    a block has the block's channel tile (whose weights it keeps)."""
     for b, t, ci, co, k, dil, pads, _ in FULL_SITES:
         plan = qconv.conv_plan(b, t, ci, k, co, pads, dil)
-        seen = [qconv.conv_tile(plan, tile) for block in range(plan["grid"])
-                for tile in range(block, plan["tiles"], plan["grid"])]
+        assert plan["grid"] % plan["tiles_n"] == 0
+        seen = []
+        for block in range(plan["grid"]):
+            walk = [qconv.conv_tile(plan, tile)
+                    for tile in range(block, plan["tiles"], plan["grid"])]
+            assert {n0 for _, _, n0 in walk} <= {
+                block % plan["tiles_n"] * plan["bn"]}
+            seen += walk
         assert len(seen) == len(set(seen)) == plan["tiles"]
         rows = {(bb, t0) for bb, t0, _ in seen}
         assert rows == {(bb, t0) for bb in range(b)
@@ -169,22 +227,44 @@ def test_conv_tile_walk_covers_every_row_once_at_full_size():
 
 
 def test_conv_plan_at_every_v1_site():
-    """No V1 site takes the padded branch; each plan fits shared memory
-    with at least two stages; the narrow stages keep their weights
-    resident and take 512-row tiles."""
+    """No V1 site takes the padded branch; each plan keeps its weights
+    resident, fits shared memory with at least four stages (two for each
+    consumer) and reads whole
+    chunks of Ci; the narrow stages take one channel tile of Co and the
+    widest rows their width allows."""
     for b, t, ci, co, k, dil, pads, _ in FULL_SITES:
-        plan = qconv.conv_plan(b, t, ci, k, co, pads, dil)
-        assert plan["branch"] == "tma" and plan["workspace_bytes"] == 0
-        assert 2 <= plan["stages"] <= qconv.CONV_STAGES[plan["resident"]]
-        assert plan["smem"] <= qconv.SMEM_MAX
-        assert plan["bn"] >= min(co, 256) or not plan["resident"]
-        assert plan["box_rows"] <= 256 and plan["box_rows"] % 8 == 0
-        assert plan["slab"] >= plan["bm"] + (k - 1) * dil
-        assert plan["grid"] == min(plan["tiles"], qconv.H100_SMS)
-        if co <= 64:
-            assert plan["resident"] and plan["tiles_n"] == 1
-        if co <= 32:
-            assert plan["bm"] == 512
+        for out_bytes in (4, 2):
+            plan = qconv.conv_plan(b, t, ci, k, co, pads, dil,
+                                   out_bytes=out_bytes)
+            assert plan["branch"] == "tma" and plan["workspace_bytes"] == 0
+            assert plan["resident"]
+            assert 4 <= plan["stages"] <= qconv.CONV_STAGES
+            assert plan["stages"] % 2 == 0
+            assert plan["smem"] <= qconv.SMEM_MAX
+            assert plan["ck"] in qconv.CONV_CHUNKS and (
+                plan["ck"] <= ci or plan["ck"] == 32)
+            assert plan["n_chunks"] * plan["ck"] >= ci
+            assert plan["box_rows"] <= 256 and plan["box_rows"] % 8 == 0
+            assert plan["slab"] >= plan["bm"] + (k - 1) * dil
+            assert plan["grid"] == plan["tiles_n"] * min(
+                b * plan["tiles_m"], qconv.H100_SMS // plan["tiles_n"])
+            if co <= 64:
+                assert plan["bn"] == co and plan["tiles_n"] == 1
+                assert plan["bm"] == qconv.CONV_TILE_ROWS[co]
+
+
+def test_conv_plan_spreads_a_small_launch_over_the_sms():
+    """At the serve's smallest batch (2 x 128 codes) every site's launch
+    has a tile for every SM, or tiles of at most 128 rows (512-row tiles
+    would leave most SMs idle); the grid takes every tile up to the
+    SMs."""
+    for b, t, ci, co, k, dil, pads, _ in v1_sites(2, 128):
+        for out_bytes in (4, 2):
+            plan = qconv.conv_plan(b, t, ci, k, co, pads, dil,
+                                   out_bytes=out_bytes)
+            assert plan["tiles"] >= qconv.H100_SMS or plan["bm"] <= 128
+            assert plan["grid"] >= min(plan["tiles"], qconv.H100_SMS
+                                       - plan["tiles_n"] + 1)
 
 
 @pytest.mark.parametrize("shape,branch,pads_", [
@@ -217,38 +297,70 @@ def test_conv_plan_pads_an_unaligned_operand_and_an_empty_input():
 
 
 @pytest.mark.parametrize("ci,co,k,tile", [
-    (16, 16, 3, (16, 4, True)), (32, 32, 3, (32, 4, True)),
+    (16, 16, 3, (16, 8, True)), (32, 32, 3, (32, 4, True)),
     (64, 64, 11, (64, 2, True)), (128, 128, 3, (128, 1, True)),
-    (128, 256, 3, (256, 1, True)),     # the 98,304 bytes of weights fit
+    (128, 256, 3, (128, 1, True)),     # two channel tiles, each resident
     (24, 40, 4, (64, 2, True)),        # Co off the widths: a masked tile
-    (128, 128, 7, (64, 2, False)),     # the weights past CONV_RESIDENT_MAX
-    (256, 256, 3, (64, 2, False)), (256, 256, 11, (64, 2, False)),
-    (512, 1280, 3, (64, 2, False)),
+    (128, 128, 7, (128, 1, True)),     # 112 KB of weights
+    (256, 256, 3, (128, 1, True)), (256, 256, 11, (32, 2, True)),
+    (512, 1280, 3, (64, 1, True)),
 ])
 def test_conv_plan_tile_widths(ci, co, k, tile):
-    """With enough rows for every SM: resident weights take the narrowest
-    tile that covers Co, with 4 m64 blocks per consumer at <= 32
-    channels, 2 at 64 and 1 above; streamed weights take 64-channel tiles
-    of 2 m64 blocks. The ring is CONV_STAGES deep."""
+    """With enough rows for every SM: the modelled best tile, which keeps
+    its weights resident, is the longest at the narrow widths
+    (CONV_TILE_ROWS) and the widest (up to the one that covers Co) where
+    the weights leave room for a deep ring; 256 channels at K = 11, whose
+    64-channel weights (176 KB) would leave one 64-row tile and a ring of
+    one-k-step slabs, take 32, and 512 inputs 64-row tiles (their slabs
+    are read once per channel tile, from L2); the ring is as deep as fits,
+    at most
+    CONV_STAGES, at least 4 and even: two slots or more for each
+    consumer."""
     plan = qconv.conv_plan(3, 1 << 17, ci, k, co, ((k - 1) // 2,) * 2, 1)
     assert (plan["bn"], plan["mb"], plan["resident"]) == tile
-    assert plan["stages"] == qconv.CONV_STAGES[plan["resident"]]
+    assert 4 <= plan["stages"] <= qconv.CONV_STAGES
+    assert plan["stages"] % 2 == 0
     assert plan["tiles"] >= qconv.H100_SMS
 
 
 @pytest.mark.parametrize("t,ci,co,k,tile", [
-    (640, 256, 256, 11, (64, 1)),    # streamed: 12 tiles of 256 rows, 24 of 128
-    (1024, 512, 1280, 3, (64, 1)),   # streamed: 80 of 256 rows, 160 of 128
-    (20480, 32, 32, 3, (32, 4)),     # resident: 40 tiles, kept
-    (2560, 128, 128, 3, (128, 1)),   # resident: 20 tiles, kept
+    (640, 256, 256, 11, (32, 1)),    # 80 tiles of 64 rows x 32 channels
+    (1024, 512, 1280, 3, (64, 1)),   # 320 tiles: 64 channels cover the SMs
+    (20480, 32, 32, 3, (32, 4)),     # 80 tiles of 256 rows, not 40 of 512
+    (2560, 128, 128, 3, (64, 1)),    # 80 tiles, not 40 of 128 channels
 ])
 def test_conv_plan_gives_a_small_streamed_launch_more_tiles(t, ci, co, k,
                                                             tile):
-    """Fewer tiles than SMs: a streamed launch takes 128-row tiles; a
-    resident one keeps its tile (its weights are loaded once per block,
-    so more blocks would load them more often)."""
+    """A launch with fewer rows than the SMs could take in long tiles
+    takes shorter and narrower ones (the model's per-SM time is one tile
+    then): its weights stay resident either way, loaded once per block."""
     plan = qconv.conv_plan(1, t, ci, k, co, ((k - 1) // 2,) * 2, 1)
     assert (plan["bn"], plan["mb"]) == tile
+    assert plan["grid"] == min(plan["tiles"], qconv.H100_SMS
+                               // plan["tiles_n"] * plan["tiles_n"])
+
+
+def test_packed_bf16_leaky_equals_the_plain_version():
+    """The kernel's bf16 leaky ReLU on packed pairs (__hmul2: the product
+    of bf16(slope) and a bf16 value, exact in float32, rounded once;
+    then __hmax2) gives ops/activation.py::leaky_relu's bits, over values
+    of every sign and binade the epilogue can round to, zeros and the
+    V1 slope."""
+    from parrot_tts_tpu_torch.ops.activation import leaky_relu
+
+    rng = np.random.default_rng(7)
+    mant = rng.uniform(1.0, 2.0, 200_000)
+    expo = rng.integers(-126, 127, 200_000)
+    sign = rng.choice([-1.0, 1.0], 200_000)
+    y = torch.from_numpy((sign * mant * 2.0 ** expo).astype(np.float32))
+    y = torch.cat([y, torch.tensor([0.0, -0.0, 1e-38, -1e-38])])
+    y16 = y.bfloat16()
+    for slope in (0.1, 0.2, 0.01):
+        s16 = torch.tensor(slope, dtype=torch.bfloat16).double()
+        exact = s16 * y16.double()
+        assert torch.equal(exact, (s16.float() * y16.float()).double())
+        assert torch.equal(packed_leaky_bf16(y16, slope),
+                           leaky_relu(y16, slope))
 
 
 def test_conv_plan_rejects_a_slab_that_leaves_no_ring():
@@ -361,6 +473,69 @@ def test_gemm_plan_pads_an_unaligned_a_and_routes_float32():
     plan = qconv.gemm_plan(64, 128, 64, torch.bfloat16, b_aligned=False)
     assert plan["pad_b"] and plan["workspaces"]["b"] == (128, 64)
     assert qconv.gemm_plan(64, 128, 70, torch.float32)["route"] == "sgemm"
+
+
+def test_time_int8_conv_rehearses_on_the_cpu(capsys):
+    """scripts/time_int8_conv.py on the CPU at one code per row: every
+    site of both outputs bit-identical to the plain version, every key
+    printed (site, batch, serve, stage, bench, fixed cost and the launch
+    floor), and no time:
+    a CPU run measures nothing on the card."""
+    from parrot_tts_tpu_torch.scripts import time_int8_conv
+
+    assert time_int8_conv.main(["--device", "cpu", "--batches", "1x1",
+                                "--bench", "1x1"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    for dtype, modes in time_int8_conv.MODES.items():
+        mine = [line for line in lines if line.split()[1] == dtype
+                or line.startswith(f"fixed cost {dtype}")]
+        for key in ("site", "batch", "serve", "stage", "bench"):
+            assert any(line.startswith(f"{key} {dtype}") for line in mine)
+        assert {line.split()[2].rstrip(":") for line in mine
+                if line.startswith("serve")} == set(modes)
+        # each fixed-cost shape and the card's launch-to-launch floor
+        assert sum(line.startswith("fixed cost") for line in mine) == len(
+            time_int8_conv.FIXED_SITES) + 1
+    sites = [line for line in lines if line.startswith("site")]
+    assert sites and all(line.endswith("bit-identical True")
+                         for line in sites)
+    for line in lines:
+        assert "not measured" in line and " ms " not in line.split(
+            "bound")[0], line
+
+
+def test_time_int8_conv_model_sums_the_serve_bound():
+    """--model's serve bound is chip_smoke.py's bound of a serve (PERF.md
+    section 6: 2.8549 ms float32 int8-static, 1.8303 ms bf16 "int8")."""
+    import contextlib
+    import io
+
+    from parrot_tts_tpu_torch.scripts import time_int8_conv
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert time_int8_conv.main(["--model", "--fixed-us", "0"]) == 0
+    serves = [line for line in out.getvalue().splitlines()
+              if " serve: bound" in line]
+    assert [line.split("bound ")[1].split(" ms")[0] for line in serves] == [
+        "2.8549", "1.8303"]
+
+
+def test_exp_wgmma_rate_lists_its_s8_cases(capsys):
+    """The wgmma rate script's s8 mode: m64nNk32 at N = 16 to 256, each
+    built into the source; --list measures nothing."""
+    from parrot_tts_tpu_torch.scripts import exp_wgmma_rate
+
+    assert exp_wgmma_rate.main(["--only", "s8", "--list"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert {line.split()[0] for line in lines} == {
+        f"m64n{n}k32" for n in (16, 32, 64, 128, 256)}
+    assert all(line.endswith(": not measured") for line in lines)
+    src = exp_wgmma_rate.source()
+    for n, w, u, lay in exp_wgmma_rate.CASES:
+        if lay == "s8":
+            assert f"rate_{n}_{w}_{u}_7(" in src
+            assert f"wgmma_s8<{n}>" in src
 
 
 def test_library_path_follows_included_headers(tmp_path, monkeypatch):

@@ -423,6 +423,7 @@ def test_int8_conv_takes_a_broadcast_scale(rng):
     (1, 130, 512, 1280, 3, 1, (1, 1), None, True),   # stage-1 polyphase upsample
     (2, 50, 24, 40, 4, 2, (3, 0), 0.1, False),       # Ci, Co off the tiles
     (1, 1, 8, 8, 1, 1, (0, 0), None, True),
+    (1, 100, 2048, 96, 11, 1, (5, 5), 0.1, True),    # weights streamed
 ])
 def test_int8_conv_bit_identical_to_plain_on_card(cuda_device, b, t, ci, co,
                                                   k, dil, pads, leaky, bias,
@@ -464,6 +465,7 @@ def test_int8_conv_bf16_cpu_tensors_take_the_plain_version(rng):
     (1, 130, 512, 1280, 3, 1, (1, 1), None, False),  # stage-1 upsample, bf16
     (2, 50, 24, 44, 4, 2, (3, 0), 0.1, False),       # Co off the 8s: padded
     (2, 300, 32, 32, 3, 1, (1, 1), 0.1, True),       # bn 32: 64-byte rows
+    (1, 100, 2048, 96, 11, 1, (5, 5), 0.1, True),    # weights streamed
 ])
 def test_int8_conv_bf16_output_bit_identical_on_card(cuda_device, b, t, ci,
                                                      co, k, dil, pads, leaky,
@@ -480,6 +482,29 @@ def test_int8_conv_bf16_output_bit_identical_on_card(cuda_device, b, t, ci,
                                      dilation=dil, leaky=leaky,
                                      out_dtype=torch.bfloat16)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci", [16, 32, 48, 64, 128, 256])
+def test_int8_conv_slab_read_from_every_row_shift(cuda_device, ci):
+    """The activation slab lies in the swizzle of its chunk's rows (32, 64
+    or 128 bytes; channels past Ci zero) and each tap reads it from row
+    tap * dilation on, the wgmma descriptor's start moved by whole rows:
+    at every dilation 1-9 (tap shifts of every residue mod 8, and past one
+    swizzle atom) the kernel gives the plain version's bits, in both
+    outputs."""
+    rng = np.random.default_rng(ci)
+    for dil in range(1, 10):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            xq, wq, scale, bvec = _qconv_inputs(rng, 2, 301, ci, 32, 3,
+                                                cuda_device)
+            got = qconv.int8_conv(xq, wq, scale, bvec, pads=(dil, dil),
+                                  dilation=dil, leaky=0.1,
+                                  out_dtype=out_dtype)
+            want = qconv.int8_conv_reference(xq, wq, scale, bvec,
+                                             pads=(dil, dil), dilation=dil,
+                                             leaky=0.1, out_dtype=out_dtype)
+            assert torch.equal(got, want), (dil, out_dtype)
 
 
 @pytest.mark.cuda
