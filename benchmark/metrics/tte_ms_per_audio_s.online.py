@@ -1,0 +1,9 @@
+"""The TTE stage's wall time (ParrotTTS.last_stats tte_s: tokenize, plan,
+decode, units on the host) summed over the window, per audio second
+served, in ms."""
+
+from harness import readers
+
+
+def read(run):
+    return readers.stage_ms_per_audio_s(run, "tte_s")
